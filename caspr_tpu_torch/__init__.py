@@ -1,0 +1,7 @@
+"""PyTorch / CUDA port of caspr_tpu for NVIDIA Hopper (H100).
+
+Mirrors the JAX package's layout: ``nn`` (functional layers), ``ops``
+(point-cloud primitives, the dopri5 solver, the hand-written CUDA kernels
+in ``ops.kernels``), ``models`` (the encoder, the latent ODE, the CNF
+decoder and ``CaSPRModel``), and ``weights`` (JAX checkpoints -> tensors).
+"""

@@ -1,0 +1,193 @@
+"""CaSPR inference: TPointNet++ encoder -> latent ODE -> CNF decoder
+(counterpart of caspr_tpu/models/caspr.py, the reconstruct path).
+
+``CaSPRModel(cfg, device)`` binds a config and a device; parameters and
+the MovingBatchNorm state are dicts of tensors on that device
+(``caspr_tpu_torch.weights``).  The device defaults to the card: without
+CUDA the constructor raises unless the caller asks for the CPU.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..ops import sample_gaussian, sphere_surface_points, standard_normal_logprob
+from .cnf import CNFConfig, flow_param_shapes, flow_reverse
+from .latent_ode import LatentODEConfig, dynamics_param_shapes, latent_ode_solve
+from .tpointnet2 import TPointNet2Config, tpointnet2_apply, tpointnet2_param_shapes
+
+
+@dataclass(frozen=True)
+class CaSPRConfig:
+    radii_list: Tuple[float, ...] = (0.02, 0.05, 0.1, 0.2, 0.4, 0.8)
+    local_feat_size: int = 512
+    latent_feat_size: int = 1600
+    ode_hidden_size: int = 512
+    motion_feat_size: int = 64
+    pretrain_tnocs: bool = False
+    augment_quad: bool = True
+    augment_pairs: bool = True
+    cnf_blocks: int = 1
+    regress_tnocs: bool = True
+    tnocs_point_size: int = 4
+    sa_points: Tuple[int, ...] = (1024, 512, 256, 64, 16)
+    ball_samples: Tuple[int, int] = (16, 32)
+    global_feat_size: int = 1024
+    space_time_pt_feat: int = 64
+    cnf_dims: Tuple[int, ...] = (512, 512, 512)
+
+    def encoder_config(self) -> TPointNet2Config:
+        return TPointNet2Config(
+            radii_list=tuple(self.radii_list),
+            local_feat_size=self.local_feat_size,
+            out_feat_size=self.latent_feat_size,
+            augment_quad=self.augment_quad,
+            augment_pairs=self.augment_pairs,
+            tnocs_point_size=self.tnocs_point_size,
+            regress_tnocs=self.regress_tnocs,
+            sa_points=tuple(self.sa_points),
+            ball_samples=tuple(self.ball_samples),
+            global_feat_size=self.global_feat_size,
+            space_time_pt_feat=self.space_time_pt_feat,
+        )
+
+    def latent_ode_config(self) -> LatentODEConfig:
+        return LatentODEConfig(input_size=self.motion_feat_size, hidden_size=self.ode_hidden_size)
+
+    def cnf_config(self) -> CNFConfig:
+        return CNFConfig(zdim=self.latent_feat_size, num_blocks=self.cnf_blocks,
+                         dims=tuple(self.cnf_dims))
+
+
+def caspr_param_shapes(cfg: CaSPRConfig):
+    """(params, state) trees of shapes, the layout of the JAX package's
+    caspr_init; ``weights.params_from_jax`` holds a checkpoint to it."""
+    params = {"encoder": tpointnet2_param_shapes(cfg.encoder_config())}
+    state = {}
+    if not cfg.pretrain_tnocs:
+        params["latent_ode"] = dynamics_param_shapes(cfg.latent_ode_config())
+        params["point_cnf"], state["point_cnf"] = flow_param_shapes(cfg.cnf_config())
+    return params, state
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller names another device; raises when CUDA is
+    asked for (or defaulted to) and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+        # float32 products in full float32, as the JAX reference runs them
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+class CaSPRModel:
+    """Binds a static config and a device to the inference functions."""
+
+    def __init__(self, cfg: CaSPRConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def encode(self, params, x):
+        """x: (B, T, N, 4) -> (z0 (B, H), tnocs_pred (B, T, N, 4) or None)."""
+        return tpointnet2_apply(params["encoder"], self.cfg.encoder_config(), x)
+
+    def aggregate_and_solve_latent(self, params, z0, times, shared_times: bool = False):
+        """z0: (B, H), times: (B, T) -> (feats (B, T, H), nfe).
+
+        Solves at the sorted flattened times and gathers each (b, t) slot
+        back through the inverse permutation; ``shared_times=True`` says
+        every row of ``times`` is the same and solves at the T times of the
+        first row instead."""
+        b, t = times.shape
+        motion = self.cfg.motion_feat_size
+        z_dyn, z_stat = z0[:, :motion], z0[:, motion:]
+        if shared_times:
+            sorted_t = torch.sort(times[0], stable=True).values
+            ranks = torch.argsort(torch.argsort(times[0], stable=True), stable=True)
+            ranks = ranks[None, :].expand(b, t)
+        else:
+            flat = times.reshape(-1)
+            order = torch.argsort(flat, stable=True)
+            sorted_t = flat[order]
+            ranks = torch.argsort(order, stable=True).reshape(b, t)
+        pred_z, nfe = latent_ode_solve(params["latent_ode"], self.cfg.latent_ode_config(),
+                                       z_dyn, sorted_t)  # (B, T or B*T, motion)
+        feats = torch.take_along_dim(pred_z, ranks[..., None], dim=1)
+        z_rep = z_stat[:, None, :].expand(b, t, z_stat.shape[-1])
+        return torch.cat([feats, z_rep], dim=-1), nfe
+
+    def sample_base(self, generator, batch: int, num_points: int, truncate_std=None,
+                    sample_contours: Optional[Sequence[float]] = None):
+        """Base samples (batch, num_points, 3): Gaussian (optionally
+        truncated), or points on spheres of the given radii."""
+        if sample_contours is None:
+            return sample_gaussian(generator, (batch, num_points, 3), truncate_std,
+                                   device=self.device)
+        radii = list(sample_contours)
+        contours, taken = [], 0
+        for i, radius in enumerate(radii):
+            cur = num_points - taken if i == len(radii) - 1 else num_points // len(radii)
+            pts = sphere_surface_points(generator, batch * cur, radius, device=self.device)
+            contours.append(pts.reshape(batch, cur, 3))
+            taken += num_points // len(radii)
+        return torch.cat(contours, dim=1)
+
+    def decode_from_samples(self, params, state, z, y):
+        """Decode given base samples.  z: (B, T, H); y: (B, T, N, 3) ->
+        (logp_y (B, T, N), x (B, T, N, 3), cnf_nfe)."""
+        b, t, h = z.shape
+        n = y.shape[2]
+        y = y.reshape(b * t, n, 3)
+        logp_y = standard_normal_logprob(y).sum(dim=-1)
+        x, nfe = flow_reverse(params["point_cnf"], state["point_cnf"], self.cfg.cnf_config(),
+                              y, z.reshape(b * t, h))
+        return logp_y.reshape(b, t, n), x.reshape(b, t, n, 3), nfe
+
+    def decode(self, params, state, z, generator, num_points: int = 1024,
+               constant_in_time: bool = False, truncate_std: Optional[float] = None,
+               sample_contours: Optional[Sequence[float]] = None):
+        """Sample points at each step from latents z (B, T, H).  Returns
+        (y base samples (B, T, N, 3), logp_y (B, T, N), x (B, T, N, 3), nfe)."""
+        b, t, _ = z.shape
+        batch = b if constant_in_time else b * t
+        y = self.sample_base(generator, batch, num_points, truncate_std, sample_contours)
+        if constant_in_time:
+            y = y[:, None].expand(b, t, num_points, 3)
+        y = y.reshape(b, t, num_points, 3)
+        logp_y, x, nfe = self.decode_from_samples(params, state, z, y)
+        return y, logp_y, x, nfe
+
+    def reconstruct(self, params, state, x, generator, num_points: int = 1024,
+                    constant_in_time: bool = False, timestamps=None,
+                    max_timestamp: float = 5.0, truncate_std: Optional[float] = None,
+                    sample_contours: Optional[Sequence[float]] = None, base_samples=None):
+        """Encode -> advect -> decode.
+
+        x: (B, T, N, 4) conditioning sequence; timestamps: (T',) decode
+        times (default: the input times / max_timestamp).  ``base_samples``
+        (B, T', num_points, 3), when given, replaces the sampled base
+        points (and ``generator`` is not used).
+        Returns (y, logp_y, x_recon, tnocs_pred, (ode_nfe, cnf_nfe))."""
+        b = x.shape[0]
+        z0, tnocs_pred = self.encode(params, x)
+        if timestamps is None:
+            all_times = x[:, :, 0, 3] / max_timestamp
+        else:
+            all_times = timestamps.reshape(1, -1).expand(b, timestamps.shape[-1])
+        z, ode_nfe = self.aggregate_and_solve_latent(params, z0, all_times,
+                                                     shared_times=timestamps is not None)
+        if base_samples is None:
+            y, logp_y, x_rec, cnf_nfe = self.decode(
+                params, state, z, generator, num_points=num_points,
+                constant_in_time=constant_in_time, truncate_std=truncate_std,
+                sample_contours=sample_contours)
+        else:
+            y = base_samples
+            logp_y, x_rec, cnf_nfe = self.decode_from_samples(params, state, z, y)
+        return y, logp_y, x_rec, tnocs_pred, (ode_nfe, cnf_nfe)

@@ -1,0 +1,327 @@
+"""The port's hand-written CUDA kernels: build, ctypes binding, dispatch.
+
+Six kernels carry the reconstruct path, one per TPU kernel it used
+(sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
+
+  fps                -> farthest_point_sampling
+  ball_query         -> ball_query / ball_query_pair
+  gather             -> gather_points
+  three_nn           -> three_nn
+  three_interpolate  -> three_interpolate
+  cnf_primal         -> cnf_primal (the decode dynamics)
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs, and then takes one of two routes by the device of its inputs: a
+CPU tensor goes to the plain PyTorch version (``ops/pointops.py``,
+``ops/cnf_fused.py::primal_packed``); a CUDA tensor launches the kernel on
+the current stream, raises if the launch fails, and adds one to
+``launches[name]``.  There is no fallback from the card to the plain
+version.
+
+The library is compiled at first use with nvcc (one process per source,
+all started together, then one link) into ``caspr_tpu_torch/_build/``,
+named by a hash of the sources and flags, and loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from . import pointops
+from .cnf_fused import primal_packed
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = (
+    "fps.cu",
+    "ball_query.cu",
+    "gather.cu",
+    "three_nn.cu",
+    "three_interpolate.cu",
+    "cnf_primal.cu",
+)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
+           "cnf_primal")
+# Launches of each kernel since the last reset_launches(); bumped only where
+# a kernel is launched on the card.
+launches = dict.fromkeys(KERNELS, 0)
+
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
+    "caspr_fps": [_P, _P, _I, _I, _I, _P],
+    "caspr_ball_query_pair": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _P],
+    "caspr_gather_rows": [_P, _P, _P, _I, _I, _I, _LL, _P],
+    "caspr_three_nn": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "caspr_three_interpolate": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "caspr_cnf_primal": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches():
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the kernels build only where the CUDA toolkit is installed")
+
+
+def _library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    return BUILD_DIR / f"libcaspr_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/ into one shared library (if this version of the
+    sources has not been built yet) and return its path.  ptxas's register
+    and spill report of each source lands in ``_build/<source>.log``."""
+    lib_path = _library_path()
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
+    objs, procs = [], []
+    try:
+        for name in SOURCES:
+            obj = BUILD_DIR / f"{name}.{tag}.o"
+            log = open(BUILD_DIR / f"{name}.log", "w")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((name, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+            objs.append(obj)
+    finally:
+        failed = []
+        for name, log, proc in procs:
+            if proc.wait() != 0:
+                failed.append(name)
+            log.close()
+    if failed:
+        logs = "\n".join((BUILD_DIR / f"{n}.log").read_text() for n in failed)
+        raise RuntimeError(f"nvcc failed on {failed}:\n{logs}")
+    tmp = BUILD_DIR / f"{lib_path.name}.{tag}.tmp"
+    subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                   check=True, capture_output=True)
+    os.replace(tmp, lib_path)
+    for obj in objs:
+        obj.unlink()
+    return lib_path
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _launch(kernel: str, entry: str, device, *args):
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: launch failed with cudaError_t {err}")
+    launches[kernel] += 1
+
+
+def _check(name, t, dtype, ndim, last=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if last is not None and t.shape[-1] != last:
+        raise ValueError(f"{name}: expected last dim {last}, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _on_card(*tensors) -> bool:
+    """False for CPU inputs, True for CUDA inputs; raises on a mix or on
+    any other device."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+    kind = devices.pop().type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device type {kind!r}")
+    return kind == "cuda"
+
+
+def _same_batch(*tensors):
+    if len({t.shape[0] for t in tensors}) != 1:
+        raise ValueError(f"batch sizes differ: {[tuple(t.shape) for t in tensors]}")
+
+
+# ------------------------------- wrappers ---------------------------------
+
+
+def farthest_point_sampling(xyz, num_samples: int):
+    """xyz (B, N, 3) float32 -> (B, M) int32; see pointops."""
+    _check("xyz", xyz, torch.float32, 3, last=3)
+    b, n, _ = xyz.shape
+    if not _on_card(xyz):
+        return pointops.farthest_point_sampling(xyz, num_samples)
+    if num_samples >= n:  # every point, as the TPU wrapper does: no kernel
+        return pointops.fps_identity(b, n, num_samples, xyz.device)
+    if n > 8192:
+        raise ValueError(f"fps kernel takes N <= 8192, got {n}")
+    out = torch.empty((b, num_samples), dtype=torch.int32, device=xyz.device)
+    _launch("fps", "caspr_fps", xyz.device, xyz.data_ptr(), out.data_ptr(), b, n, num_samples)
+    return out
+
+
+def ball_query_pair(xyz, new_xyz, radius1, k1, radius2, k2):
+    """Both grouping scales of an SA level in one pass:
+    (B, N, 3) sources, (B, M, 3) centroids -> ((B, M, k1), (B, M, k2))."""
+    _check("xyz", xyz, torch.float32, 3, last=3)
+    _check("new_xyz", new_xyz, torch.float32, 3, last=3)
+    _same_batch(xyz, new_xyz)
+    if not _on_card(xyz, new_xyz):
+        return pointops.ball_query_pair(xyz, new_xyz, radius1, k1, radius2, k2)
+    return _ball_query_launch(xyz, new_xyz, radius1, k1, radius2, k2)
+
+
+def ball_query(xyz, new_xyz, radius: float, num_samples: int):
+    """Single-radius form: (B, N, 3), (B, M, 3) -> (B, M, K) int32."""
+    _check("xyz", xyz, torch.float32, 3, last=3)
+    _check("new_xyz", new_xyz, torch.float32, 3, last=3)
+    _same_batch(xyz, new_xyz)
+    if not _on_card(xyz, new_xyz):
+        return pointops.ball_query(xyz, new_xyz, radius, num_samples)
+    return _ball_query_launch(xyz, new_xyz, radius, num_samples, 0.0, 0)[0]
+
+
+def _ball_query_launch(xyz, new_xyz, radius1, k1, radius2, k2):
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    if k1 < 1 or k2 < 0:
+        raise ValueError(f"ball sizes must be positive, got {k1}, {k2}")
+    out1 = torch.empty((b, m, k1), dtype=torch.int32, device=xyz.device)
+    out2 = torch.empty((b, m, k2), dtype=torch.int32, device=xyz.device) if k2 else None
+    _launch("ball_query", "caspr_ball_query_pair", xyz.device,
+            xyz.data_ptr(), new_xyz.data_ptr(), out1.data_ptr(),
+            out2.data_ptr() if k2 else None, b, n, m,
+            pointops.radius_sq(radius1), k1,
+            pointops.radius_sq(radius2) if k2 else 0.0, k2)
+    return out1, out2
+
+
+def gather_points(points, idx):
+    """points (B, N, C) float32, idx (B, ...) int32 -> (B, ..., C), indices
+    clamped to [0, N)."""
+    _check("points", points, torch.float32, 3)
+    if not isinstance(idx, torch.Tensor) or idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise TypeError("idx: expected a contiguous int32 tensor")
+    _same_batch(points, idx)
+    if not _on_card(points, idx):
+        return pointops.gather_points(points, idx)
+    b, n, c = points.shape
+    r = idx.numel() // b
+    out = torch.empty((b, r, c), dtype=points.dtype, device=points.device)
+    _launch("gather", "caspr_gather_rows", points.device,
+            points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, r)
+    return out.reshape(*idx.shape, c)
+
+
+def three_nn(query_xyz, source_xyz):
+    """(B, Nq, 3), (B, Ns, 3) with Ns >= 3 -> (dist2 (B, Nq, 3) float32,
+    idx (B, Nq, 3) int32)."""
+    _check("query_xyz", query_xyz, torch.float32, 3, last=3)
+    _check("source_xyz", source_xyz, torch.float32, 3, last=3)
+    _same_batch(query_xyz, source_xyz)
+    b, nq, _ = query_xyz.shape
+    ns = source_xyz.shape[1]
+    if ns < 3:
+        raise ValueError(f"three_nn needs at least 3 source points, got {ns}")
+    if not _on_card(query_xyz, source_xyz):
+        return pointops.three_nn(query_xyz, source_xyz)
+    dist = torch.empty((b, nq, 3), dtype=torch.float32, device=query_xyz.device)
+    idx = torch.empty((b, nq, 3), dtype=torch.int32, device=query_xyz.device)
+    _launch("three_nn", "caspr_three_nn", query_xyz.device,
+            query_xyz.data_ptr(), source_xyz.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+            b, nq, ns)
+    return dist, idx
+
+
+def three_interpolate(features, idx, weights):
+    """features (B, M, C) float32, idx (B, N, 3) int32, weights (B, N, 3)
+    float32 -> (B, N, C)."""
+    _check("features", features, torch.float32, 3)
+    _check("idx", idx, torch.int32, 3, last=3)
+    _check("weights", weights, torch.float32, 3, last=3)
+    _same_batch(features, idx, weights)
+    if idx.shape != weights.shape:
+        raise ValueError(f"idx {tuple(idx.shape)} and weights {tuple(weights.shape)} differ")
+    if not _on_card(features, idx, weights):
+        return pointops.three_interpolate(features, idx, weights)
+    b, m, c = features.shape
+    n = idx.shape[1]
+    out = torch.empty((b, n, c), dtype=torch.float32, device=features.device)
+    _launch("three_interpolate", "caspr_three_interpolate", features.device,
+            features.data_ptr(), idx.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            b, m, n, c)
+    return out
+
+
+def cnf_primal(y, gb, w_first, w_hidden, w_last):
+    """Fused concatsquash stack.  y (BT, N, D); gb (BT, G, H) gates and
+    effective biases (ops/cnf_fused.py::context_gb); w_first (H, D),
+    w_hidden (L-2, H, H), w_last (D, H) in (out, in) layout -> dx (BT, N, D)."""
+    _check("y", y, torch.float32, 3)
+    _check("gb", gb, torch.float32, 3)
+    _check("w_first", w_first, torch.float32, 2)
+    _check("w_hidden", w_hidden, torch.float32, 3)
+    _check("w_last", w_last, torch.float32, 2)
+    bt, n, d = y.shape
+    h = w_first.shape[0]
+    num_hidden = w_hidden.shape[0]
+    if (gb.shape[0] != bt or gb.shape[2] != h or gb.shape[1] < 2 * (num_hidden + 2)
+            or tuple(w_first.shape) != (h, d) or tuple(w_hidden.shape[1:]) != (h, h)
+            or tuple(w_last.shape) != (d, h)):
+        raise ValueError(
+            f"cnf_primal shapes disagree: y {tuple(y.shape)}, gb {tuple(gb.shape)}, "
+            f"w_first {tuple(w_first.shape)}, w_hidden {tuple(w_hidden.shape)}, "
+            f"w_last {tuple(w_last.shape)}")
+    if not _on_card(y, gb, w_first, w_hidden, w_last):
+        return primal_packed(y, gb, w_first, w_hidden, w_last)
+    if h % 32 or h > 512 or d > 8:
+        raise ValueError(f"cnf_primal kernel takes H a multiple of 32 up to 512 and D <= 8, got H={h}, D={d}")
+    w_hidden_t = w_hidden.transpose(1, 2).contiguous()  # (in, out): coalesced rows
+    dx = torch.empty_like(y)
+    _launch("cnf_primal", "caspr_cnf_primal", y.device,
+            y.data_ptr(), gb.data_ptr(), w_first.data_ptr(), w_hidden_t.data_ptr(),
+            w_last.data_ptr(), dx.data_ptr(), bt, n, h, d, num_hidden, gb.shape[1])
+    return dx

@@ -1,0 +1,140 @@
+"""The port's kernel wrappers (caspr_tpu_torch/ops/kernels.py).
+
+On the CPU a wrapper takes the plain version: these tests check that it
+does, that it counts no launch there, and that it refuses what the kernel
+does not take.  The kernel-versus-plain tests need the card and skip
+without one (the CUDA kernels have no CPU mode); on the card they hold
+each kernel to its plain version with the tolerances of chip_smoke.py:
+indices identical, gather and interpolation bit-exact (same rounding
+order, no FMA), the fused CNF stack within 1e-4 of max |dx| (float32 sums
+of 512 terms in another order).
+"""
+
+import pytest
+import torch
+
+from caspr_tpu_torch.ops import cnf_fused, kernels, pointops
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(device, b=3, n=256, m=64, c=20, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    xyz = torch.rand((b, n, 3), generator=g)
+    dup = torch.cat([xyz[:, : n // 2], xyz[:, : n // 2]], dim=1)  # exact ties
+    feats = torch.randn((b, n, c), generator=g)
+    idx = torch.randint(0, n, (b, m, 8), generator=g, dtype=torch.int32)
+    return {k: v.to(device) for k, v in dict(xyz=xyz, dup=dup, feats=feats, idx=idx).items()}
+
+
+def _cnf_inputs(device, bt=4, n=100, h=64, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn((bt, n, 3), generator=g)
+    gb = torch.rand((bt, 8, h), generator=g)
+    wf = torch.randn((h, 3), generator=g)
+    wh = torch.randn((2, h, h), generator=g) / h ** 0.5
+    wl = torch.randn((3, h), generator=g) / h ** 0.5
+    return [t.to(device) for t in (y, gb, wf, wh, wl)]
+
+
+def _calls(x):
+    """Every wrapper on one input set: (name, wrapper result, plain result)."""
+    xyz, dup, feats, idx = x["xyz"], x["dup"], x["feats"], x["idx"]
+    cen = xyz[:, :64].contiguous()
+    d2, nn_idx = pointops.three_nn(xyz, cen)
+    w = (1.0 / (d2 + 1e-8))
+    w = (w / w.sum(-1, keepdim=True)).contiguous()
+    cnf = _cnf_inputs(xyz.device)
+    return [
+        ("fps", kernels.farthest_point_sampling(xyz, 64),
+         pointops.farthest_point_sampling(xyz, 64)),
+        ("fps", kernels.farthest_point_sampling(dup, 200),
+         pointops.farthest_point_sampling(dup, 200)),
+        ("ball_query", torch.cat(kernels.ball_query_pair(dup, cen, 0.1, 8, 0.3, 16), -1),
+         torch.cat(pointops.ball_query_pair(dup, cen, 0.1, 8, 0.3, 16), -1)),
+        ("ball_query", kernels.ball_query(xyz, cen, 0.2, 300),
+         pointops.ball_query(xyz, cen, 0.2, 300)),
+        ("gather", kernels.gather_points(feats, idx), pointops.gather_points(feats, idx)),
+        ("three_nn", torch.cat([t.float() for t in kernels.three_nn(dup, cen)], -1),
+         torch.cat([t.float() for t in pointops.three_nn(dup, cen)], -1)),
+        ("three_interpolate", kernels.three_interpolate(feats[:, :64].contiguous(), nn_idx, w),
+         pointops.three_interpolate(feats[:, :64].contiguous(), nn_idx, w)),
+        ("cnf_primal", kernels.cnf_primal(*cnf), cnf_fused.primal_packed(*cnf)),
+    ]
+
+
+def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
+    kernels.reset_launches()
+    for name, got, want in _calls(_inputs("cpu")):
+        assert torch.equal(got, want), name
+    assert all(v == 0 for v in kernels.launches.values())
+
+
+def test_fps_identity_when_sampling_every_point():
+    xyz = torch.rand((2, 10, 3))
+    want = torch.tensor(list(range(10)) + [0, 0], dtype=torch.int32).expand(2, 12)
+    assert torch.equal(kernels.farthest_point_sampling(xyz, 12), want)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape", "device", "batch"])
+def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
+    xyz = torch.rand((2, 16, 3))
+    cen = xyz[:, :4].contiguous()
+    if bad == "dtype":
+        with pytest.raises(TypeError):
+            kernels.farthest_point_sampling(xyz.double(), 4)
+        with pytest.raises(TypeError):
+            kernels.gather_points(xyz, torch.zeros((2, 3), dtype=torch.int64))
+    elif bad == "contiguity":
+        with pytest.raises(ValueError):
+            kernels.three_nn(xyz.transpose(0, 1).contiguous().transpose(0, 1), cen)
+    elif bad == "shape":
+        with pytest.raises(ValueError):
+            kernels.ball_query_pair(xyz[..., :2].contiguous(), cen, 0.1, 4, 0.2, 8)
+        y, gb, wf, wh, wl = _cnf_inputs("cpu")
+        with pytest.raises(ValueError):
+            kernels.cnf_primal(y, gb, wf, wh, wl[:, :10].contiguous())
+        with pytest.raises(ValueError):
+            kernels.three_nn(xyz, cen[:, :2].contiguous())
+    elif bad == "device":  # neither CPU nor CUDA: no silent route
+        with pytest.raises(ValueError, match="unsupported device"):
+            kernels.farthest_point_sampling(xyz.to("meta"), 4)
+    else:
+        with pytest.raises(ValueError, match="batch"):
+            kernels.three_interpolate(torch.rand((3, 4, 5)), torch.zeros((2, 6, 3), dtype=torch.int32),
+                                      torch.rand((2, 6, 3)))
+
+
+def test_build_needs_nvcc_here(monkeypatch):
+    """Without the CUDA toolkit the build says so instead of failing later."""
+    monkeypatch.setattr(kernels.shutil, "which", lambda _: None)
+    monkeypatch.setattr(kernels.os.path, "exists", lambda _: False)
+    monkeypatch.setattr(kernels, "_library_path", lambda: kernels.BUILD_DIR / "absent.so")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build()
+
+
+@pytest.mark.parametrize("kernel", kernels.KERNELS)
+def test_kernel_matches_plain_on_the_card(cuda, kernel):
+    kernels.reset_launches()
+    cases = [(got, want) for name, got, want in _calls(_inputs(cuda)) if name == kernel]
+    torch.cuda.synchronize()
+    assert cases and kernels.launches[kernel] == len(cases)
+    for got, want in cases:
+        if kernel == "cnf_primal":
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+        else:
+            assert torch.equal(got, want)
+
+
+def test_cnf_primal_ragged_tile_on_the_card(cuda):
+    """N not a multiple of the 32-point tile, H = 512 as in the model."""
+    y, gb, wf, wh, wl = _cnf_inputs(cuda, bt=2, n=77, h=512, seed=1)
+    got = kernels.cnf_primal(y, gb, wf, wh, wl)
+    want = cnf_fused.primal_packed(y, gb, wf, wh, wl)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
