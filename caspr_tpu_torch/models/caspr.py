@@ -1,5 +1,7 @@
 """CaSPR inference: TPointNet++ encoder -> latent ODE -> CNF decoder
-(counterpart of caspr_tpu/models/caspr.py, the reconstruct path).
+(counterpart of caspr_tpu/models/caspr.py): the reconstruct path and the
+likelihood path (``forward`` with the running statistics, as evaluation
+runs it).
 
 ``CaSPRModel(cfg, device)`` binds a config and a device; parameters and
 the MovingBatchNorm state are dicts of tensors on that device
@@ -15,7 +17,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..ops import sample_gaussian, sphere_surface_points, standard_normal_logprob
-from .cnf import CNFConfig, flow_param_shapes, flow_reverse
+from .cnf import CNFConfig, flow_forward, flow_param_shapes, flow_reverse
 from .latent_ode import LatentODEConfig, dynamics_param_shapes, latent_ode_solve
 from .tpointnet2 import TPointNet2Config, tpointnet2_apply, tpointnet2_param_shapes
 
@@ -121,6 +123,42 @@ class CaSPRModel:
         feats = torch.take_along_dim(pred_z, ranks[..., None], dim=1)
         z_rep = z_stat[:, None, :].expand(b, t, z_stat.shape[-1])
         return torch.cat([feats, z_rep], dim=-1), nfe
+
+    def forward(self, params, state, x, sample_points, generator=None, *,
+                training: bool = False, e=None):
+        """Evaluation forward with unreduced losses.
+
+        x, sample_points: (B, T, N, 4).  Returns (out, state): out has
+        'tnocs_loss' (B, T, N, 4) and 'tnocs_pred' when regressing, 'nll'
+        (B, T, N) unless pretraining, and 'nfe' = (latent_ode_nfe,
+        cnf_nfe).  The CNF's Hutchinson noise comes from ``generator`` or,
+        when given, from ``e`` (see ``models.cnf.flow_forward``).  The state
+        is returned unchanged: only training updates it."""
+        if training:
+            raise NotImplementedError(
+                "forward(training=True) needs the adjoint and the MovingBatchNorm "
+                "statistics update of the training slice, which is not ported yet")
+        cfg = self.cfg
+        b, t, n, _ = sample_points.shape
+        z0, tnocs_pred = self.encode(params, x)
+        out = {}
+        if cfg.regress_tnocs:
+            size = cfg.tnocs_point_size
+            out["tnocs_loss"] = (tnocs_pred[..., :size] - sample_points[..., :size]).abs()
+            out["tnocs_pred"] = tnocs_pred
+        if cfg.pretrain_tnocs:
+            out["nfe"] = (0.0, 0.0)
+            return out, state
+        feats, ode_nfe = self.aggregate_and_solve_latent(params, z0, sample_points[:, :, 0, 3])
+        pts = sample_points[..., :3].reshape(b * t, n, 3)
+        y, dlogp, cnf_nfe = flow_forward(
+            params["point_cnf"], state["point_cnf"], cfg.cnf_config(), pts,
+            feats.reshape(b * t, cfg.latent_feat_size), pts.new_zeros((b * t, n, 1)),
+            generator=generator, e=e)
+        log_py = standard_normal_logprob(y).sum(dim=-1)  # (B*T, N)
+        out["nll"] = -(log_py - dlogp.reshape(b * t, n)).reshape(b, t, n)
+        out["nfe"] = (ode_nfe, cnf_nfe)
+        return out, state
 
     def sample_base(self, generator, batch: int, num_points: int, truncate_std=None,
                     sample_contours: Optional[Sequence[float]] = None):

@@ -1,12 +1,18 @@
-"""The decode dynamics around the fused concatsquash kernel.
+"""The CNF dynamics around the fused concatsquash kernels.
 
 The concatsquash ODEnet (4 layers 3 -> 512 -> 512 -> 512 -> 3 with
-softplus between them) runs once per solver step of every decode.  As in
-the JAX package (caspr_tpu/ops/cnf_fused.py), the context-dependent part
-of each layer -- a sigmoid gate and an effective bias per (cloud, channel)
--- is computed here in plain PyTorch, a (BT, 1+zdim) x (1+zdim, H) product
-per layer, and the per-point work goes to the kernel
-(``ops.kernels.cnf_primal``), which keeps every activation on chip.
+softplus between them) runs once per solver step of every CNF solve.  As
+in the JAX package (caspr_tpu/ops/cnf_fused.py), the context-dependent
+part of each layer -- a sigmoid gate and an effective bias per (cloud,
+channel) -- is computed here in plain PyTorch, a (BT, 1+zdim) x (1+zdim, H)
+product per layer, and the per-point work goes to a kernel that keeps
+every activation on chip: ``ops.kernels.cnf_primal`` for the sampling
+direction (points alone), ``ops.kernels.cnf_dynamics`` for the likelihood
+direction (points and the Hutchinson tangent J e, giving e^T J e).
+
+The tangent is analytic for concatsquash + softplus: gate and bias do not
+depend on y, so the tangent of ``L(y) * gate + b`` is ``L(e) * gate``, and
+softplus' derivative is the sigmoid of its pre-activation.
 """
 
 from __future__ import annotations
@@ -83,3 +89,40 @@ def reference_primal(params, tc, y):
         if i < len(layers) - 1:
             dx = softplus(dx)
     return dx
+
+
+def dynamics_packed(y, e, gb, w_first, w_hidden, w_last):
+    """The with-divergence kernel's function in plain PyTorch.  Per layer
+    ``m = z @ W^T`` for both streams, primal ``zp = m_p * gate + beff``,
+    tangent ``zt = m_t * gate``; on all but the last layer ``zt *=
+    sigmoid(zp)`` (the pre-activation) and ``zp = softplus(zp)``.
+    y, e: (BT, N, D) -> (dx (BT, N, D), div (BT, N) = sum_d (J e)_d e_d)."""
+    weights = [w_first, *w_hidden.unbind(0), w_last]
+    num_layers = len(weights)
+    zp, zt = y, e
+    for i, w in enumerate(weights):
+        d_out = w.shape[0]
+        gate = gb[:, i, None, :d_out]
+        beff = gb[:, num_layers + i, None, :d_out]
+        zp = torch.matmul(zp, w.T) * gate + beff
+        zt = torch.matmul(zt, w.T) * gate
+        if i < num_layers - 1:
+            zt = zt * torch.sigmoid(zp)
+            zp = softplus(zp)
+    return zp, (zt * e).sum(dim=-1)
+
+
+def reference_dynamics(params, tc, y, e):
+    """The unfused composition with its analytic tangent
+    (caspr_tpu/ops/cnf_fused.py::_reference_dynamics): (dx, e^T J e)."""
+    layers = params["layers"]
+    zp, zt = y, e
+    for i, lp in enumerate(layers):
+        gate = torch.sigmoid(linear(lp["_hyper_gate"], tc))[:, None, :]
+        bias = linear(lp["_hyper_bias"], tc)[:, None, :]
+        zp = linear(lp["_layer"], zp) * gate + bias
+        zt = torch.matmul(zt, lp["_layer"]["weight"].T) * gate
+        if i < len(layers) - 1:
+            zt = zt * torch.sigmoid(zp)
+            zp = softplus(zp)
+    return zp, (zt * e).sum(dim=-1)

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, dispatch.
 
-Six kernels carry the reconstruct path, one per TPU kernel it used
+Eight kernels, one per TPU kernel of the reconstruct and evaluation paths
 (sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
 
   fps                -> farthest_point_sampling
@@ -9,14 +9,19 @@ Six kernels carry the reconstruct path, one per TPU kernel it used
   three_nn           -> three_nn
   three_interpolate  -> three_interpolate
   cnf_primal         -> cnf_primal (the decode dynamics)
+  cnf_dynamics       -> cnf_dynamics (the likelihood dynamics, with the
+                        Hutchinson divergence)
+  emd                -> approx_match_emd (the approxmatch EMD cost)
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then takes one of two routes by the device of its inputs: a
 CPU tensor goes to the plain PyTorch version (``ops/pointops.py``,
-``ops/cnf_fused.py::primal_packed``); a CUDA tensor launches the kernel on
+``ops/cnf_fused.py::primal_packed`` and ``dynamics_packed``,
+``ops/emd_plain.py::emd_plain``); a CUDA tensor launches the kernel on
 the current stream, raises if the launch fails, and adds one to
 ``launches[name]``.  There is no fallback from the card to the plain
-version.
+version.  ``approx_match_emd_float64`` runs the emd kernel's body in
+float64, for checking it; it is on no path and counts as no launch.
 
 The library is compiled at first use with nvcc (one process per source,
 all started together, then one link) into ``caspr_tpu_torch/_build/``,
@@ -36,7 +41,8 @@ from pathlib import Path
 import torch
 
 from . import pointops
-from .cnf_fused import primal_packed
+from .cnf_fused import dynamics_packed, primal_packed
+from .emd_plain import emd_plain
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -48,6 +54,8 @@ SOURCES = (
     "three_nn.cu",
     "three_interpolate.cu",
     "cnf_primal.cu",
+    "cnf_dynamics.cu",
+    "emd.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,7 +63,8 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
-           "cnf_primal")
+           "cnf_primal", "cnf_dynamics", "emd")
+EMD_MAX_POINTS = 11520  # N + M the emd kernel's shared-memory layout holds (float32)
 # Launches of each kernel since the last reset_launches(); bumped only where
 # a kernel is launched on the card.
 launches = dict.fromkeys(KERNELS, 0)
@@ -68,6 +77,9 @@ _SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
     "caspr_three_nn": [_P, _P, _P, _P, _I, _I, _I, _P],
     "caspr_three_interpolate": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "caspr_cnf_primal": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "caspr_cnf_dynamics": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "caspr_approx_match_emd": [_P, _P, _P, _I, _I, _I, _P],
+    "caspr_approx_match_emd_f64": [_P, _P, _P, _I, _I, _I, _P],
 }
 _lib = None
 _lib_lock = threading.Lock()
@@ -145,14 +157,17 @@ def _library():
         return _lib
 
 
-def _launch(kernel: str, entry: str, device, *args):
+def _launch(kernel, entry: str, device, *args):
+    """Launch ``entry`` on the current stream of ``device`` and count it as
+    a launch of ``kernel`` (None: the float64 form of one, counted nowhere)."""
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry}: launch failed with cudaError_t {err}")
-    launches[kernel] += 1
+    if kernel is not None:
+        launches[kernel] += 1
 
 
 def _check(name, t, dtype, ndim, last=None):
@@ -296,10 +311,9 @@ def three_interpolate(features, idx, weights):
     return out
 
 
-def cnf_primal(y, gb, w_first, w_hidden, w_last):
-    """Fused concatsquash stack.  y (BT, N, D); gb (BT, G, H) gates and
-    effective biases (ops/cnf_fused.py::context_gb); w_first (H, D),
-    w_hidden (L-2, H, H), w_last (D, H) in (out, in) layout -> dx (BT, N, D)."""
+def _check_cnf(name, y, gb, w_first, w_hidden, w_last):
+    """Shape agreement of the fused CNF kernels' arguments -> (bt, n, d, h,
+    num_hidden)."""
     _check("y", y, torch.float32, 3)
     _check("gb", gb, torch.float32, 3)
     _check("w_first", w_first, torch.float32, 2)
@@ -312,16 +326,90 @@ def cnf_primal(y, gb, w_first, w_hidden, w_last):
             or tuple(w_first.shape) != (h, d) or tuple(w_hidden.shape[1:]) != (h, h)
             or tuple(w_last.shape) != (d, h)):
         raise ValueError(
-            f"cnf_primal shapes disagree: y {tuple(y.shape)}, gb {tuple(gb.shape)}, "
+            f"{name} shapes disagree: y {tuple(y.shape)}, gb {tuple(gb.shape)}, "
             f"w_first {tuple(w_first.shape)}, w_hidden {tuple(w_hidden.shape)}, "
             f"w_last {tuple(w_last.shape)}")
+    return bt, n, d, h, num_hidden
+
+
+def _check_cnf_kernel_limits(name, h, d):
+    if h % 32 or h > 512 or d > 8:
+        raise ValueError(f"{name} kernel takes H a multiple of 32 up to 512 and D <= 8, got H={h}, D={d}")
+
+
+def cnf_primal(y, gb, w_first, w_hidden, w_last):
+    """Fused concatsquash stack.  y (BT, N, D); gb (BT, G, H) gates and
+    effective biases (ops/cnf_fused.py::context_gb); w_first (H, D),
+    w_hidden (L-2, H, H), w_last (D, H) in (out, in) layout -> dx (BT, N, D)."""
+    bt, n, d, h, num_hidden = _check_cnf("cnf_primal", y, gb, w_first, w_hidden, w_last)
     if not _on_card(y, gb, w_first, w_hidden, w_last):
         return primal_packed(y, gb, w_first, w_hidden, w_last)
-    if h % 32 or h > 512 or d > 8:
-        raise ValueError(f"cnf_primal kernel takes H a multiple of 32 up to 512 and D <= 8, got H={h}, D={d}")
+    _check_cnf_kernel_limits("cnf_primal", h, d)
     w_hidden_t = w_hidden.transpose(1, 2).contiguous()  # (in, out): coalesced rows
     dx = torch.empty_like(y)
     _launch("cnf_primal", "caspr_cnf_primal", y.device,
             y.data_ptr(), gb.data_ptr(), w_first.data_ptr(), w_hidden_t.data_ptr(),
             w_last.data_ptr(), dx.data_ptr(), bt, n, h, d, num_hidden, gb.shape[1])
     return dx
+
+
+def cnf_dynamics(y, e, gb, w_first, w_hidden, w_last):
+    """Fused concatsquash stack with the Hutchinson tangent.  y, e (BT, N, D);
+    the other arguments as ``cnf_primal`` -> (dx (BT, N, D), div (BT, N) =
+    e^T J e)."""
+    bt, n, d, h, num_hidden = _check_cnf("cnf_dynamics", y, gb, w_first, w_hidden, w_last)
+    _check("e", e, torch.float32, 3)
+    if e.shape != y.shape:
+        raise ValueError(f"cnf_dynamics: e {tuple(e.shape)} and y {tuple(y.shape)} differ")
+    if not _on_card(y, e, gb, w_first, w_hidden, w_last):
+        return dynamics_packed(y, e, gb, w_first, w_hidden, w_last)
+    _check_cnf_kernel_limits("cnf_dynamics", h, d)
+    w_hidden_t = w_hidden.transpose(1, 2).contiguous()  # (in, out): coalesced rows
+    dx = torch.empty_like(y)
+    div = torch.empty((bt, n), dtype=torch.float32, device=y.device)
+    _launch("cnf_dynamics", "caspr_cnf_dynamics", y.device,
+            y.data_ptr(), e.data_ptr(), gb.data_ptr(), w_first.data_ptr(),
+            w_hidden_t.data_ptr(), w_last.data_ptr(), dx.data_ptr(), div.data_ptr(),
+            bt, n, h, d, num_hidden, gb.shape[1])
+    return dx, div
+
+
+def _check_emd(xyz1, xyz2, dtype):
+    _check("xyz1", xyz1, dtype, 3, last=3)
+    _check("xyz2", xyz2, dtype, 3, last=3)
+    _same_batch(xyz1, xyz2)
+    pairs, n, _ = xyz1.shape
+    m = xyz2.shape[1]
+    limit = EMD_MAX_POINTS * 4 // xyz1.element_size()
+    if n < 1 or m < 1 or n + m > limit:
+        raise ValueError(f"emd kernel takes 1 <= N, M with N + M <= {limit}, got {n}, {m}")
+    return pairs, n, m
+
+
+def approx_match_emd(xyz1, xyz2):
+    """Approxmatch EMD cost per cloud pair: xyz1 (P, N, 3), xyz2 (P, M, 3)
+    float32 -> (P,).  No gradient flows through it on either device: the
+    differentiable form is ``ops.metrics.approx_match_emd``."""
+    pairs, n, m = _check_emd(xyz1, xyz2, torch.float32)
+    if not _on_card(xyz1, xyz2):
+        with torch.no_grad():
+            return emd_plain(xyz1, xyz2)
+    cost = torch.empty((pairs,), dtype=torch.float32, device=xyz1.device)
+    if pairs:
+        _launch("emd", "caspr_approx_match_emd", xyz1.device,
+                xyz1.data_ptr(), xyz2.data_ptr(), cost.data_ptr(), pairs, n, m)
+    return cost
+
+
+def approx_match_emd_float64(xyz1, xyz2):
+    """The emd kernel's body in float64, on CUDA tensors of that type -> (P,).
+    For showing that the body is the algorithm (it agrees with the float64
+    plain version to rounding); nothing of the port's paths calls it, and it
+    is no launch of ``emd``."""
+    pairs, n, m = _check_emd(xyz1, xyz2, torch.float64)
+    if not _on_card(xyz1, xyz2) or not pairs:
+        raise ValueError("approx_match_emd_float64 runs only on the card, on at least one pair")
+    cost = torch.empty((pairs,), dtype=torch.float64, device=xyz1.device)
+    _launch(None, "caspr_approx_match_emd_f64", xyz1.device,
+            xyz1.data_ptr(), xyz2.data_ptr(), cost.data_ptr(), pairs, n, m)
+    return cost

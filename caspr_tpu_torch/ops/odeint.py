@@ -4,8 +4,10 @@ The counterpart of caspr_tpu/ops/odeint.py::odeint, step for step, so the
 two take the same steps and report the same number of function
 evaluations (NFE) on the same problem:
 
-  - one step size for the whole state; the error ratio is the RMS over
-    every element of err / (atol + rtol * max(|y0|, |y1|));
+  - one step size for the whole state, which is a tensor or a tuple of
+    tensors (leaves); the error ratio is the largest over the leaves of
+    each leaf's RMS of err / (atol + rtol * max(|y0|, |y1|)), not one RMS
+    over all elements, and Hairer's initial step uses the same norm;
   - Hairer's initial step (one extra evaluation); a controller clipped to
     [0.2, 10] x h that never shrinks an accepted step;
   - no step is clamped to land on the last request time: the solver steps
@@ -16,9 +18,11 @@ evaluations (NFE) on the same problem:
 
 Time, step size and the controller live on the host as float32 scalars
 (np.float32), as they are float32 on the JAX side; the state stays on its
-device.  Each step reads the error ratio back to the host once.
+device.  Each step reads the error ratio back to the host once, whatever
+the number of leaves.
 
-``func(t, y)`` takes a float32 time and a tensor and returns dy/dt.
+``func(t, y)`` takes a float32 time and the state (a tensor, or a tuple of
+tensors when y0 is one) and returns dy/dt in the same form.
 Reverse-time flows are written as forward flows of the time-reflected
 dynamics by the caller (models/cnf.py).
 """
@@ -65,33 +69,40 @@ _ORDER_EXP = F32(-1.0 / 5.0)
 
 
 def _weighted_sum(coeffs, ks):
-    """sum_i coeffs[i] * ks[i], accumulated left to right."""
-    out = float(coeffs[0]) * ks[0]
+    """sum_i coeffs[i] * ks[i] per leaf, accumulated left to right."""
+    out = [float(coeffs[0]) * k for k in ks[0]]
     for c, k in zip(coeffs[1:], ks[1:]):
-        out = out + float(c) * k
+        out = [o + float(c) * leaf for o, leaf in zip(out, k)]
     return out
 
 
-def _rms(t) -> np.float32:
-    return F32(torch.sqrt(torch.mean(torch.square(t))).item())
+def _axpy(y, h, d):
+    """y + h * d per leaf."""
+    return tuple(a + float(h) * b for a, b in zip(y, d))
+
+
+def _norm(leaves) -> np.float32:
+    """max over the leaves of sqrt(mean(leaf^2)), in one host read."""
+    rms = [torch.sqrt(torch.mean(torch.square(leaf))) for leaf in leaves]
+    return F32((rms[0] if len(rms) == 1 else torch.stack(rms).max()).item())
 
 
 def _error_ratio(err, y0, y1, rtol, atol) -> np.float32:
-    tol = atol + rtol * torch.maximum(y0.abs(), y1.abs())
-    return _rms(err / tol)
+    return _norm([e / (atol + rtol * torch.maximum(a.abs(), b.abs()))
+                  for e, a, b in zip(err, y0, y1)])
 
 
 def _initial_step(func, t0, y0, f0, rtol, atol) -> np.float32:
     """Hairer's starting-step heuristic (one extra function evaluation)."""
-    scale = atol + rtol * y0.abs()
-    d0 = _rms(y0 / scale)
-    d1 = _rms(f0 / scale)
+    scale = [atol + rtol * y.abs() for y in y0]
+    d0 = _norm([y / s for y, s in zip(y0, scale)])
+    d1 = _norm([f / s for f, s in zip(f0, scale)])
     if d0 < F32(1e-5) or d1 < F32(1e-5):
         h0 = F32(1e-6)
     else:
         h0 = F32(0.01) * d0 / d1
-    f1 = func(t0 + h0, y0 + float(h0) * f0)
-    d2 = _rms((f1 - f0) / scale) / h0
+    f1 = func(t0 + h0, _axpy(y0, h0, f0))
+    d2 = _norm([(a - b) / s for a, b, s in zip(f1, f0, scale)]) / h0
     dmax = max(d1, d2)
     if dmax <= F32(1e-15):
         h1 = max(F32(1e-6), h0 * F32(1e-3))
@@ -128,8 +139,16 @@ def _dense_output(y0, y1, y_mid, f0, f1, h, theta):
 def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000):
     """Integrate dy/dt = func(t, y) from ts[0] and report y at every ts.
 
-    ts: non-decreasing float32 request times (1-D, any array type), ts[0]
-    the initial time.  Returns (ys (len(ts), *y0.shape), nfe)."""
+    y0: a tensor, or a tuple of tensors integrated together.  ts:
+    non-decreasing float32 request times (1-D, any array type), ts[0] the
+    initial time.  Returns (ys, nfe): ys (len(ts), *y0.shape), or a tuple
+    of such tensors, one per leaf."""
+    single = isinstance(y0, torch.Tensor)
+    if single:
+        y0, leaf_func = (y0,), func
+        func = lambda t, y: (leaf_func(t, y[0]),)
+    else:
+        y0 = tuple(y0)
     if isinstance(ts, torch.Tensor):
         ts = ts.detach().cpu().numpy()
     ts = np.asarray(ts, dtype=F32)
@@ -143,9 +162,9 @@ def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000):
     while not filled.all() and steps < max_steps and t < t_final:
         ks = [f]
         for i in range(6):
-            ks.append(func(t + _C[i + 1] * h, y + float(h) * _weighted_sum(_A[i], ks)))
-        y1 = y + float(h) * _weighted_sum(_B, ks)
-        err = float(h) * _weighted_sum(_B_ERR, ks)
+            ks.append(func(t + _C[i + 1] * h, _axpy(y, h, _weighted_sum(_A[i], ks))))
+        y1 = _axpy(y, h, _weighted_sum(_B, ks))
+        err = [float(h) * d for d in _weighted_sum(_B_ERR, ks)]
         ratio = _error_ratio(err, y, y1, rtol, atol)
         accept = bool(ratio <= F32(1.0))
         t1 = t + h
@@ -153,10 +172,12 @@ def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000):
             slack = F32(1e-6) * max(F32(1.0), abs(t1))
             newly = ~filled & (ts <= t1 + slack)
             if newly.any():
-                y_mid = y + float(h) * _weighted_sum(_C_MID, ks)
+                y_mid = _axpy(y, h, _weighted_sum(_C_MID, ks))
                 thetas = np.clip((ts - t) / max(h, F32(1e-30)), F32(0.0), F32(1.0))
                 for i in np.flatnonzero(newly):
-                    outs[i] = _dense_output(y, y1, y_mid, f, ks[6], h, thetas[i])
+                    outs[i] = tuple(
+                        _dense_output(*leaves, h, thetas[i])
+                        for leaves in zip(y, y1, y_mid, f, ks[6]))
                 filled = filled | newly
             t, y, f = t1, y1, ks[6]
         h = _optimal_step(h, ratio, accept)
@@ -164,4 +185,6 @@ def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000):
         steps += 1
     # request times never reached (max_steps, endpoint rounding) take the
     # final state
-    return torch.stack([y if o is None else o for o in outs]), nfe
+    outs = [y if o is None else o for o in outs]
+    stacked = tuple(torch.stack([o[leaf] for o in outs]) for leaf in range(len(y0)))
+    return (stacked[0] if single else stacked), nfe

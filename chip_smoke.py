@@ -5,24 +5,35 @@
 
 Phases, each of which raises on failure:
 
-  1. print the card's name and power limit; build the six CUDA kernels
+  1. print the card's name and power limit; build the eight CUDA kernels
      from caspr_tpu_torch/csrc and print the build time;
   2. hold every kernel against its plain PyTorch version on the card, at
-     the shapes of the batch-4 reconstruct path, and time kernel, plain
-     version and (where one PyTorch call computes the same function) the
-     library call with CUDA events;
+     the shapes of the batch-4 reconstruct and evaluation paths, and time
+     kernel, plain version and (where one PyTorch call computes the same
+     function) the library call with CUDA events;
   3. run full-width CaSPRModel.reconstruct (B=4, T=10, N=2048, trained
      weights from artifacts/demo_trained.pkl) with every launch count set
-     to 0 just before, and check that each kernel ran and the output is
-     finite and of the right shape; time three more runs, and profile one
-     (device time by kernel, the card's idle share);
-  4. run one small reconstruct (B=1, T=2, N=2048, 512 decoded points) on
-     the card and on the CPU with the same base samples: equal NFE and
-     points within 1e-3.
+     to 0 just before, and check that each of its kernels ran and the
+     output is finite and of the right shape; time three more runs, and
+     profile one (device time by kernel, the card's idle share);
+  4. run the evaluation path at full width with the same weights on
+     synthetic protocol-shaped batches, the launch counts set to 0 before
+     each step: (a) the shape-reconstruction protocol with observed steps
+     0, 5, 9 (two batches of 4; Chamfer and EMD per frame; artifacts
+     checked), with the batch time split between reconstruct, Chamfer and
+     EMD and one batch profiled; (b) one batch of 4 through the likelihood
+     path (run_one_epoch with an eval step: CaSPRModel.forward, the CNF
+     with its Hutchinson divergence); (c) T-NOCS regression and pose
+     RANSAC on one batch of 1;
+  5. run one small reconstruct (B=1, T=2, N=2048, 512 decoded points) and
+     one small forward (the same input, 2048 target points) on the card
+     and on the CPU with the same base samples and noise: equal NFE,
+     points and nll within 1e-3.
 
-Then it prints one JSON line listing every kernel and, last, the verdict
-line {"ok": true, "device": {...}}.  Without a CUDA device, or outside
-the repository, it exits non-zero before printing any result.
+Then it prints its own seconds (from its first line of output on), one
+JSON line listing every kernel and, last, the verdict line
+{"ok": true, "device": {...}}.  Without a CUDA device, or outside the
+repository, it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,6 +53,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # outside the tensor cores.  A card below its 700 W limit runs slower.
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# exp, sqrt and the like go to the special-function units: 16 results per SM
+# per clock against 128 fused multiply-adds (256 float32 operations).
+SPECIAL_PER_S = F32_FLOPS_PER_S / 2 / 8
 
 BATCH, FRAMES, POINTS = 4, 10, 2048
 BT = BATCH * FRAMES
@@ -61,7 +76,13 @@ KERNEL_INFO = {
                           "caspr_tpu/ops/pallas_kernels.py:601"),
     "cnf_primal": ("caspr_tpu_torch/csrc/cnf_primal.cu",
                    "caspr_tpu/ops/cnf_fused.py:283"),
+    "cnf_dynamics": ("caspr_tpu_torch/csrc/cnf_dynamics.cu",
+                     "caspr_tpu/ops/cnf_fused.py:233"),
+    "emd": ("caspr_tpu_torch/csrc/emd.cu",
+            "caspr_tpu/ops/emd_pallas.py:133"),
 }
+RECONSTRUCT_KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
+                       "cnf_primal")
 
 
 def card_line() -> str:
@@ -88,10 +109,12 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: float, ops: float):
-    """Least time on the card for the work: (ms, what bounds it)."""
+def bound(bytes_moved: float, ops: float, special: float = 0.0):
+    """Least time on the card for the work: (ms, what bounds it).  The
+    operations take the longer of the float32 operations over the float32
+    rate and the special-function evaluations over theirs."""
     t_bytes = bytes_moved / MEM_BYTES_PER_S
-    t_ops = ops / F32_FLOPS_PER_S
+    t_ops = max(ops / F32_FLOPS_PER_S, special / SPECIAL_PER_S)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -116,6 +139,7 @@ def scanned_pairs(torch, xyz, centers, r2s, ks):
 def check_kernels(torch, gen):
     """Phase 2: every kernel against its plain version at path shapes."""
     from caspr_tpu_torch.ops import cnf_fused, kernels, pointops
+    from caspr_tpu_torch.ops.emd_plain import emd_plain
     from caspr_tpu_torch.weights import load_demo
 
     dev = torch.device("cuda")
@@ -250,6 +274,73 @@ def check_kernels(torch, gen):
               2.0 * BT * POINTS * (3 * h + wh.shape[0] * h * h + h * 3)),
         shape=f"y ({BT}, {POINTS}, 3), H {h}",
     )
+
+    # CNF dynamics with the Hutchinson divergence: the same decoder, the
+    # likelihood direction's evaluation
+    e = torch.randn((BT, POINTS, 3), generator=gen, device=dev)
+    got = kernels.cnf_dynamics(y, e, gb, wf, wh, wl)
+    want = cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    rels = [err / float(w.abs().max()) for err, w in zip(errs, want)]
+    if not max(rels) <= 1e-4:
+        raise AssertionError(f"cnf_dynamics: relative err (dx, div) {rels} > 1e-4")
+    rows["cnf_dynamics"] = dict(
+        max_abs_err=max(errs), tolerance="dx and div each 1e-4 relative to their max magnitude",
+        ms=time_ms(torch, lambda: kernels.cnf_dynamics(y, e, gb, wf, wh, wl)),
+        plain_ms=time_ms(torch, lambda: cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl)),
+        library_ms=None,
+        work=((y.numel() * 3 + BT * POINTS + gb.numel() + wf.numel() + wh.numel() + wl.numel())
+              * f4,
+              4.0 * BT * POINTS * (3 * h + wh.shape[0] * h * h + h * 3)),
+        shape=f"y, e ({BT}, {POINTS}, 3), H {h}",
+    )
+
+    # EMD: one evaluation batch's clouds (4 sequences x 10 frames), predicted
+    # against target, both in the unit cube.  Held to the float64 value of
+    # the plain version, as the TPU kernel is (tools/hw_exactness.py), in two
+    # steps.  The kernel's body compiled in float64 must agree with it to
+    # 1e-9: the body is the algorithm.  The float32 kernel then differs from
+    # it by rounding, which the annealing amplifies: any float32 version, the
+    # plain one included, lands about 4e-5 in the mean and a few 1e-4 at worst
+    # from the float64 value, pair by pair.  So every pair is held to 1e-3 of
+    # its value, which an error of the algorithm would exceed, and the mean
+    # over the pairs to 2e-4, or twice the float32 plain version's own mean
+    # error where that is larger.
+    pred, target = rand(BT, POINTS, 3), rand(BT, POINTS, 3)
+    got = kernels.approx_match_emd(pred, target)
+    want = emd_plain(pred, target)
+    exact = emd_plain(pred.double(), target.double())
+    body = kernels.approx_match_emd_float64(pred.double(), target.double())
+    body_err = float(((body - exact).abs() / exact).max())
+    if not body_err <= 1e-9:
+        raise AssertionError(f"emd: the kernel's body in float64 is {body_err} from the plain version")
+    kernel_rel = (got.double() - exact).abs() / exact
+    plain_rel = (want.double() - exact).abs() / exact
+    kernel_err, plain_err = float(kernel_rel.max()), float(plain_rel.max())
+    if not (kernel_err <= 1e-3
+            and float(kernel_rel.mean()) <= max(2.0 * float(plain_rel.mean()), 2e-4)):
+        raise AssertionError(
+            f"emd: max / mean relative error against float64 {kernel_err} / "
+            f"{float(kernel_rel.mean())} (plain float32: {plain_err} / {float(plain_rel.mean())})")
+    pairs_nm = float(BT) * POINTS * POINTS
+    rows["emd"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        tolerance="against float64 plain: body in float64 1e-9; float32 each pair 1e-3 relative, "
+                  "mean 2e-4 (or 2x plain's mean)",
+        float64_body_rel_err=body_err,
+        rel_err_vs_float64=kernel_err, plain_rel_err_vs_float64=plain_err,
+        mean_rel_err_vs_float64=float(kernel_rel.mean()),
+        plain_mean_rel_err_vs_float64=float(plain_rel.mean()),
+        rel_err_vs_plain=float(((got - want).abs() / want).max()),
+        ms=time_ms(torch, lambda: kernels.approx_match_emd(pred, target), reps=5),
+        plain_ms=time_ms(torch, lambda: emd_plain(pred, target), reps=3),
+        library_ms=None,
+        # per (i, j, level): two sweeps, each d2 (8), the exponent and the
+        # affinity (3); the second also the flow, its two sums and the cost (9)
+        work=((pred.numel() + target.numel() + BT) * f4,
+              10 * pairs_nm * (2 * 11 + 9), 10 * pairs_nm * 2),
+        shape=f"({BT}, {POINTS}, 3) x ({BT}, {POINTS}, 3) -> ({BT},)",
+    )
     for name, row in rows.items():
         print(json.dumps({"kernel": name, **{k: v for k, v in row.items() if k != "work"}}),
               flush=True)
@@ -282,9 +373,7 @@ def run_path(torch, kernels):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     counts = dict(kernels.launches)
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"path ran without kernels {missing}: {counts}")
+    require_launched(counts, RECONSTRUCT_KERNELS, "reconstruct")
     if tuple(x_rec.shape) != (BATCH, FRAMES, POINTS, 3) or not bool(torch.isfinite(x_rec).all()):
         raise AssertionError(f"reconstruct output bad: shape {tuple(x_rec.shape)}")
     if not bool(torch.isfinite(tnocs).all()):
@@ -300,19 +389,25 @@ def run_path(torch, kernels):
                       "points": POINTS, "nfe_ode": nfe_ode, "nfe_cnf": nfe_cnf,
                       "seconds": seconds, "repeat_seconds": repeats,
                       "seqs_per_s": BATCH / median, "launches": counts}), flush=True)
-    profile_path(torch, recon, median * 1e3)
+    profile_path(torch, recon, median * 1e3, "reconstruct B=4 T=10 N=2048")
     return counts
 
 
-def profile_path(torch, recon, wall_ms):
-    """One more reconstruct under torch.profiler: device time by kernel, and
-    the share of the unprofiled wall time ``wall_ms`` in which the card ran
-    no kernel (the profiler's own host overhead would inflate its wall)."""
+def require_launched(counts, names, path):
+    missing = [k for k in names if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{path} ran without kernels {missing}: {counts}")
+
+
+def profile_path(torch, fn, wall_ms, label):
+    """One more fn() under torch.profiler: device time by kernel, and the
+    share of the unprofiled wall time ``wall_ms`` in which the card ran no
+    kernel (the profiler's own host overhead would inflate its wall)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        recon()
+        fn()
         torch.cuda.synchronize()
     device_ms = {}
     for evt in prof.key_averages():
@@ -324,7 +419,7 @@ def profile_path(torch, recon, wall_ms):
     busy = sum(ms for ms, _ in device_ms.values())
     top = sorted(device_ms.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps({
-        "profile": "reconstruct B=4 T=10 N=2048 under torch.profiler",
+        "profile": f"{label} under torch.profiler",
         "unprofiled_wall_ms": wall_ms,
         "device_busy_ms": busy if busy else "not measured",
         "device_idle_share": 1.0 - busy / wall_ms if busy else "not measured",
@@ -332,8 +427,167 @@ def profile_path(torch, recon, wall_ms):
     }), flush=True)
 
 
+class SyntheticLoader:
+    """Protocol-shaped synthetic batches for the evaluation functions:
+    inputs in the form of the reconstruct run's (uniform points, times 0..5),
+    targets in the unit cube with times 0..1, identity poses."""
+
+    class _Dataset:
+        def set_return_pose_data(self, flag):
+            pass
+
+    def __init__(self, num_batches, batch, seed):
+        rng = np.random.default_rng(seed)
+        self.dataset = self._Dataset()
+        self.batches = []
+        for i in range(num_batches):
+            x = rng.random((batch, FRAMES, POINTS, 4), dtype=np.float32)
+            x[..., 3] = np.linspace(0.0, 5.0, FRAMES, dtype=np.float32)[None, :, None]
+            target = rng.random((batch, FRAMES, POINTS, 4), dtype=np.float32)
+            target[..., 3] = np.linspace(0.0, 1.0, FRAMES, dtype=np.float32)[None, :, None]
+            self.batches.append({
+                "input": x, "target": target,
+                "model_id": [f"model{i}"] * batch, "seq_id": [f"seq{j}" for j in range(batch)],
+                "pose": np.tile(np.eye(4, dtype=np.float32), (batch, FRAMES, 1, 1)),
+            })
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
+def event_ms(torch, fn):
+    """(fn's result, its device milliseconds between two CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def require_finite_artifacts(paths, npz_lengths):
+    """Every path exists; every array of the .npz among them is finite and
+    has the expected length."""
+    for path in paths:
+        if not os.path.exists(path) or os.path.getsize(path) == 0:
+            raise AssertionError(f"evaluation artifact missing or empty: {path}")
+    data = np.load(next(p for p in paths if p.endswith(".npz")))
+    for key, length in npz_lengths.items():
+        if len(data[key]) != length or not np.all(np.isfinite(data[key])):
+            raise AssertionError(f"{key}: {len(data[key])} values (expected {length}), or not finite")
+    return {key: float(np.mean(data[key])) for key in npz_lengths if len(data[key])}
+
+
+def run_eval_path(torch, kernels, model, params, state, out_dir):
+    """Phase 4: the evaluation protocols at full width.  Returns the launch
+    counts of the kernels this path adds: emd from the shape-reconstruction
+    protocol, cnf_dynamics from the likelihood path."""
+    from caspr_tpu_torch.ops import approx_match_emd, chamfer_distance
+    from caspr_tpu_torch.train import TestStatTracker, make_eval_step, run_one_epoch
+    from caspr_tpu_torch.utils import evaluations as ev
+
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    new_counts = {}
+
+    # (a) shape reconstruction, observed steps 0, 5, 9: two batches of 4
+    loader = SyntheticLoader(2, BATCH, SEED + 1)
+    log_out = os.path.join(out_dir, "recon_log.txt")
+    kernels.reset_launches()
+    start = time.perf_counter()
+    ev.test_shape_recon(model, params, state, loader, log_out, ev.SPLIT_OBSERVED_STEPS,
+                        ev.SPLIT_UNOBSERVED_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = dict(kernels.launches)
+    require_launched(counts, RECONSTRUCT_KERNELS + ("emd",), "shape reconstruction eval")
+    if counts["emd"] < 4:
+        raise AssertionError(f"emd launched {counts['emd']} times, expected 2 batches x 2 legs")
+    n_obs, n_unobs = 2 * BATCH * 3, 2 * BATCH * 7
+    means = require_finite_artifacts(
+        [log_out, log_out[:-3] + "npz", log_out[:-3] + "csv"],
+        {"observed_chamfer": n_obs, "observed_emd": n_obs,
+         "unobserved_chamfer": n_unobs, "unobserved_emd": n_unobs})
+    new_counts["emd"] = counts["emd"]
+    print(json.dumps({"eval": "shape reconstruction, observed 0,5,9", "batches": 2,
+                      "batch": BATCH, "seconds": seconds, "launches": counts,
+                      "means": means}), flush=True)
+
+    # where one batch's time goes: CUDA events around each leg
+    batch = loader.batches[0]
+    x = torch.as_tensor(batch["input"], device=dev)[:, ev.SPLIT_OBSERVED_STEPS].contiguous()
+    target = torch.as_tensor(batch["target"], device=dev)
+    clouds = target[..., :3].reshape(BT, POINTS, 3).contiguous()
+
+    def one_batch():
+        with torch.no_grad():
+            (_, _, pred, _, nfe), recon_ms = event_ms(torch, lambda: model.reconstruct(
+                params, state, x, gen, num_points=POINTS, timestamps=target[0, :, 0, 3]))
+            pred = pred.reshape(BT, POINTS, 3)
+            _, chamfer_ms = event_ms(torch, lambda: chamfer_distance(pred, clouds))
+            _, emd_ms = event_ms(torch, lambda: approx_match_emd(pred, clouds))
+        return nfe, recon_ms, chamfer_ms, emd_ms
+
+    one_batch()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    nfe, recon_ms, chamfer_ms, emd_ms = one_batch()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    print(json.dumps({"eval_batch_split": f"B={BATCH}, 3 observed steps -> {BT} frames scored",
+                      "nfe": nfe, "wall_ms": wall_ms, "reconstruct_ms": recon_ms,
+                      "chamfer_ms": chamfer_ms, "emd_ms": emd_ms}), flush=True)
+    profile_path(torch, one_batch, wall_ms, f"eval batch B={BATCH} (reconstruct, Chamfer, EMD)")
+
+    # (b) the likelihood path: one batch of 4 through the eval step
+    tracker = TestStatTracker()
+    step = make_eval_step(model, 0.01, 100.0)
+    log_out = os.path.join(out_dir, "test_log.txt")
+    kernels.reset_launches()
+    start = time.perf_counter()
+    run_one_epoch(step, params, None, state, SyntheticLoader(1, BATCH, SEED + 2), gen, 0,
+                  tracker, log_out, mode="test", print_stats_every=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = dict(kernels.launches)
+    loss, nll, pos_err, time_err = (float(v) for v in tracker.get_mean_stats()[:4])
+    nfe = [float(v) for v in tracker.get_mean_stats()[4]]
+    if counts["cnf_dynamics"] == 0 or counts["cnf_dynamics"] != nfe[1]:
+        raise AssertionError(f"cnf_dynamics launched {counts['cnf_dynamics']} times, CNF NFE {nfe[1]}")
+    if not all(np.isfinite(v) for v in (loss, nll, pos_err, time_err)):
+        raise AssertionError(f"likelihood path not finite: {(loss, nll, pos_err, time_err)}")
+    new_counts["cnf_dynamics"] = counts["cnf_dynamics"]
+    print(json.dumps({"eval": "likelihood (run_one_epoch, mode test)", "batch": BATCH,
+                      "seconds": seconds, "nfe_ode": nfe[0], "nfe_cnf": nfe[1],
+                      "mean_loss": loss, "mean_nll": nll, "tnocs_pos_err": pos_err,
+                      "launches": counts}), flush=True)
+
+    # (c) T-NOCS regression and pose RANSAC (host work): one batch of 1
+    loader = SyntheticLoader(1, 1, SEED + 3)
+    for name, fn, suffix in (("T-NOCS regression", ev.test_tnocs_regression, "."),
+                             ("pose RANSAC", ev.test_observed_camera_pose_ransac, "_RANSAC.")):
+        log_out = os.path.join(out_dir, name.split()[0].lower() + "_log.txt")
+        keys = ("space", "time") if suffix == "." else ("trans", "rot", "point", "point_mean")
+        kernels.reset_launches()
+        start = time.perf_counter()
+        fn(model, params, state, loader, log_out)
+        seconds = time.perf_counter() - start
+        counts = dict(kernels.launches)
+        require_launched(counts, RECONSTRUCT_KERNELS[:-1], name)
+        stem = log_out[: -len(".txt")]
+        means = require_finite_artifacts(
+            [log_out, stem + suffix + "npz", stem + suffix + "csv"], dict.fromkeys(keys, FRAMES))
+        print(json.dumps({"eval": name, "batch": 1, "seconds": seconds, "launches": counts,
+                          "means": means}), flush=True)
+    return new_counts
+
+
 def cross_device(torch):
-    """Phase 4: the same small reconstruct on the card and on the CPU."""
+    """Phase 5: the same small reconstruct, and the same small forward, on
+    the card and on the CPU."""
     from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
     from caspr_tpu_torch.weights import load_demo
 
@@ -343,21 +597,29 @@ def cross_device(torch):
     x[..., 3] = np.array([0.0, 5.0], np.float32)[None, :, None]
     base = rng.standard_normal((1, 2, 512, 3)).astype(np.float32)
     ts = np.array([0.0, 1.0], np.float32)
+    # forward: target points at their own times, and the CNF's noise
+    target = rng.random((1, 2, POINTS, 4), dtype=np.float32)
+    target[..., 3] = np.array([0.2, 0.9], np.float32)[None, :, None]
+    noise = rng.standard_normal((2, POINTS, 3)).astype(np.float32)
     out = {}
     for dev in ("cuda", "cpu"):
         model = CaSPRModel(cfg, device=dev)
         params, state = load_demo(device=dev)
-        _, _, rec, _, nfe = model.reconstruct(
-            params, state, torch.from_numpy(x).to(dev), None, num_points=512,
-            timestamps=torch.from_numpy(ts).to(dev),
-            base_samples=torch.from_numpy(base).to(dev))
-        out[dev] = (rec.cpu(), nfe)
-    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
-    if out["cuda"][1] != out["cpu"][1] or not err <= 1e-3:
-        raise AssertionError(f"card vs CPU: nfe {out['cuda'][1]} vs {out['cpu'][1]}, max abs err {err}")
-    print(json.dumps({"cross_device": "reconstruct B=1 T=2 N=2048 -> 512",
-                      "nfe": out["cuda"][1], "max_abs_err": err, "tolerance": 1e-3}),
-          flush=True)
+        to = lambda a: torch.from_numpy(a).to(dev)
+        with torch.no_grad():
+            _, _, rec, _, nfe = model.reconstruct(
+                params, state, to(x), None, num_points=512, timestamps=to(ts),
+                base_samples=to(base))
+            res, _ = model.forward(params, state, to(x), to(target), e=to(noise))
+        out[dev] = {"reconstruct": (rec.cpu(), nfe), "forward": (res["nll"].cpu(), res["nfe"])}
+    for name, what in (("reconstruct", "B=1 T=2 N=2048 -> 512 points"),
+                       ("forward", "B=1 T=2 N=2048: nll")):
+        (card, card_nfe), (cpu, cpu_nfe) = out["cuda"][name], out["cpu"][name]
+        err = float((card - cpu).abs().max())
+        if card_nfe != cpu_nfe or not err <= 1e-3:
+            raise AssertionError(f"{name}, card vs CPU: nfe {card_nfe} vs {cpu_nfe}, max abs err {err}")
+        print(json.dumps({"cross_device": f"{name} {what}", "nfe": card_nfe, "max_abs_err": err,
+                          "tolerance": 1e-3}), flush=True)
 
 
 def main() -> int:
@@ -371,15 +633,22 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    begun = time.perf_counter()
     card = card_line()
     print(card, flush=True)
-    start = time.perf_counter()
     lib = kernels.build()
-    print(json.dumps({"build_seconds": time.perf_counter() - start, "library": lib.name}), flush=True)
+    print(json.dumps({"build_seconds": time.perf_counter() - begun, "library": lib.name}), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(torch, gen)
     counts = run_path(torch, kernels)
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.weights import load_demo
+
+    model = CaSPRModel(CaSPRConfig(), device="cuda")
+    params, state = load_demo(device=model.device)
+    with tempfile.TemporaryDirectory() as out_dir:
+        counts.update(run_eval_path(torch, kernels, model, params, state, out_dir))
     cross_device(torch)
 
     listing = []
@@ -392,6 +661,7 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": row["library_ms"],
         })
+    print(json.dumps({"seconds_since_start": time.perf_counter() - begun}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": listing}), flush=True)
     print(json.dumps({"ok": True, "device": {

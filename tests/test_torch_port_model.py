@@ -224,7 +224,7 @@ def test_params_from_jax_demo_checkpoint():
     """Every leaf of the trained full-width checkpoint lands with its shape,
     and nothing is left over."""
     ck = load_checkpoint(DEMO_CHECKPOINT)
-    params, state = params_from_jax(ck["params"], ck["state"], CaSPRConfig())
+    params, state = params_from_jax(ck["params"], ck["state"], CaSPRConfig(), device="cpu")
     flat = lambda tree: jax.tree_util.tree_leaves(tree)
     src = flat(ck["params"]) + flat(ck["state"])
     dst = flat(params) + flat(state)
@@ -245,7 +245,7 @@ def test_params_from_jax_rejects_a_misfit():
     latent["layer0"] = {"weight": np.zeros((512, 65), np.float32), "bias": latent["layer0"]["bias"]}
     params["latent_ode"] = latent
     with pytest.raises(ValueError) as err:
-        params_from_jax(params, ck["state"], CaSPRConfig())
+        params_from_jax(params, ck["state"], CaSPRConfig(), device="cpu")
     msg = str(err.value)
     assert "params.extra_head: unexpected" in msg
     assert "params.latent_ode.layer3: missing" in msg
@@ -268,6 +268,7 @@ def test_port_imports_no_jax():
         "import sys; sys.path.insert(0, {repo!r})\n"
         "import caspr_tpu_torch, caspr_tpu_torch.nn, caspr_tpu_torch.ops.kernels\n"
         "import caspr_tpu_torch.models, caspr_tpu_torch.weights, chip_smoke\n"
+        "import caspr_tpu_torch.train, caspr_tpu_torch.utils.evaluations\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'caspr_tpu'))\n"
         "assert 'caspr_tpu_torch' in sys.modules\n"
         "print('BAD', bad)\n"
