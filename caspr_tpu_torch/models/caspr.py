@@ -1,22 +1,26 @@
-"""CaSPR inference: TPointNet++ encoder -> latent ODE -> CNF decoder
-(counterpart of caspr_tpu/models/caspr.py): the reconstruct path and the
-likelihood path (``forward`` with the running statistics, as evaluation
-runs it).
+"""CaSPR: TPointNet++ encoder -> latent ODE -> CNF decoder (counterpart of
+caspr_tpu/models/caspr.py): the reconstruct path, and the likelihood path
+(``forward``) as evaluation runs it (running statistics) and as training
+runs it (``training=True``: both solves through the adjoint, the
+MovingBatchNorm statistics updated).
 
 ``CaSPRModel(cfg, device)`` binds a config and a device; parameters and
-the MovingBatchNorm state are dicts of tensors on that device
-(``caspr_tpu_torch.weights``).  The device defaults to the card: without
-CUDA the constructor raises unless the caller asks for the CPU.
+the MovingBatchNorm state are dicts of tensors on that device, from a
+checkpoint (``caspr_tpu_torch.weights``) or freshly drawn (``caspr_init``).
+The device defaults to the card: without CUDA the constructor raises
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..ops import sample_gaussian, sphere_surface_points, standard_normal_logprob
+from ..ops.odeint import NFESink
 from .cnf import CNFConfig, flow_forward, flow_param_shapes, flow_reverse
 from .latent_ode import LatentODEConfig, dynamics_param_shapes, latent_ode_solve
 from .tpointnet2 import TPointNet2Config, tpointnet2_apply, tpointnet2_param_shapes
@@ -75,6 +79,58 @@ def caspr_param_shapes(cfg: CaSPRConfig):
     return params, state
 
 
+def caspr_init(generator: torch.Generator, cfg: CaSPRConfig, device=None):
+    """Fresh (params, state) on ``device`` (default: the card), drawn from
+    ``generator`` (on that device) with the JAX package's distributions
+    (caspr_tpu/models/caspr.py::caspr_init):
+      - every linear / 1x1-conv weight (out, in) and its bias: U(+-1/sqrt(in))
+        (nn/core.py::linear_init, torch.nn.Linear's default);
+      - the latent ODE's weights N(0, 0.1), biases 0 (latent_ode.py);
+      - GroupNorm weights 1, biases 0; MovingBatchNorm weights and biases 0;
+        sqrt_end_time sqrt(0.5) (cnf.py);
+      - MovingBatchNorm state: mean 0, variance 1, step 0.
+    The leaves are drawn in the order of ``caspr_param_shapes``; the numbers
+    are not the JAX package's (another generator), their distributions are."""
+    device = resolve_device(device)
+    shapes, state_shapes = caspr_param_shapes(cfg)
+    time_length = cfg.cnf_config().time_length
+
+    def draw(tree, path):
+        if isinstance(tree, list):
+            return [draw(v, path + (str(i),)) for i, v in enumerate(tree)]
+        if "weight" in tree and len(tree["weight"]) == 2:  # a linear layer
+            bound = 1.0 / math.sqrt(tree["weight"][1])
+            out = {}
+            for name, shape in tree.items():
+                if path[0] == "latent_ode":
+                    out[name] = (0.1 * torch.randn(shape, generator=generator, device=device)
+                                 if name == "weight" else torch.zeros(shape, device=device))
+                else:
+                    u = torch.rand(shape, generator=generator, device=device)
+                    out[name] = (2.0 * u - 1.0) * bound
+            return out
+        out = {}
+        for name, shape in tree.items():
+            if isinstance(shape, (dict, list)):
+                out[name] = draw(shape, path + (name,))
+            elif name == "sqrt_end_time":
+                out[name] = torch.tensor(math.sqrt(time_length), device=device)
+            elif name == "weight" and path[0] == "encoder":  # GroupNorm scale
+                out[name] = torch.ones(shape, device=device)
+            else:  # GroupNorm shift, MovingBatchNorm weight and bias
+                out[name] = torch.zeros(shape, device=device)
+        return out
+
+    def fill_state(tree):
+        if isinstance(tree, list):
+            return [fill_state(v) for v in tree]
+        return {k: fill_state(v) if isinstance(v, (dict, list))
+                else (torch.ones if k == "running_var" else torch.zeros)(v, device=device)
+                for k, v in tree.items()}
+
+    return draw(shapes, ()), fill_state(state_shapes)
+
+
 def resolve_device(device=None) -> torch.device:
     """The card unless the caller names another device; raises when CUDA is
     asked for (or defaulted to) and absent."""
@@ -99,13 +155,15 @@ class CaSPRModel:
         """x: (B, T, N, 4) -> (z0 (B, H), tnocs_pred (B, T, N, 4) or None)."""
         return tpointnet2_apply(params["encoder"], self.cfg.encoder_config(), x)
 
-    def aggregate_and_solve_latent(self, params, z0, times, shared_times: bool = False):
+    def aggregate_and_solve_latent(self, params, z0, times, shared_times: bool = False, *,
+                                   adjoint: bool = False, nfe_sink: Optional[NFESink] = None):
         """z0: (B, H), times: (B, T) -> (feats (B, T, H), nfe).
 
         Solves at the sorted flattened times and gathers each (b, t) slot
         back through the inverse permutation; ``shared_times=True`` says
         every row of ``times`` is the same and solves at the T times of the
-        first row instead."""
+        first row instead.  ``adjoint=True`` (training) solves through the
+        continuous adjoint (see ``latent_ode.latent_ode_solve``)."""
         b, t = times.shape
         motion = self.cfg.motion_feat_size
         z_dyn, z_stat = z0[:, :motion], z0[:, motion:]
@@ -119,25 +177,27 @@ class CaSPRModel:
             sorted_t = flat[order]
             ranks = torch.argsort(order, stable=True).reshape(b, t)
         pred_z, nfe = latent_ode_solve(params["latent_ode"], self.cfg.latent_ode_config(),
-                                       z_dyn, sorted_t)  # (B, T or B*T, motion)
+                                       z_dyn, sorted_t, adjoint=adjoint,
+                                       nfe_sink=nfe_sink)  # (B, T or B*T, motion)
         feats = torch.take_along_dim(pred_z, ranks[..., None], dim=1)
         z_rep = z_stat[:, None, :].expand(b, t, z_stat.shape[-1])
         return torch.cat([feats, z_rep], dim=-1), nfe
 
     def forward(self, params, state, x, sample_points, generator=None, *,
-                training: bool = False, e=None):
-        """Evaluation forward with unreduced losses.
+                training: bool = False, e=None, nfe_sink=None):
+        """Forward with unreduced losses, for evaluation or training.
 
         x, sample_points: (B, T, N, 4).  Returns (out, state): out has
         'tnocs_loss' (B, T, N, 4) and 'tnocs_pred' when regressing, 'nll'
         (B, T, N) unless pretraining, and 'nfe' = (latent_ode_nfe,
-        cnf_nfe).  The CNF's Hutchinson noise comes from ``generator`` or,
-        when given, from ``e`` (see ``models.cnf.flow_forward``).  The state
-        is returned unchanged: only training updates it."""
-        if training:
-            raise NotImplementedError(
-                "forward(training=True) needs the adjoint and the MovingBatchNorm "
-                "statistics update of the training slice, which is not ported yet")
+        cnf_nfe), forward evaluations.  The CNF's Hutchinson noise comes
+        from ``generator`` or, when given, from ``e`` (see
+        ``models.cnf.flow_forward``).  Evaluation returns ``state``
+        unchanged.  ``training=True`` solves both ODEs through the adjoint,
+        so the outputs are differentiable in every parameter, and returns
+        the updated MovingBatchNorm state; ``nfe_sink``, a dict with
+        optional "latent" and "cnf" ``NFESink``s, collects each solver's
+        backward NFE when the gradient is taken."""
         cfg = self.cfg
         b, t, n, _ = sample_points.shape
         z0, tnocs_pred = self.encode(params, x)
@@ -149,16 +209,18 @@ class CaSPRModel:
         if cfg.pretrain_tnocs:
             out["nfe"] = (0.0, 0.0)
             return out, state
-        feats, ode_nfe = self.aggregate_and_solve_latent(params, z0, sample_points[:, :, 0, 3])
+        sink = nfe_sink or {}
+        feats, ode_nfe = self.aggregate_and_solve_latent(
+            params, z0, sample_points[:, :, 0, 3], adjoint=training, nfe_sink=sink.get("latent"))
         pts = sample_points[..., :3].reshape(b * t, n, 3)
-        y, dlogp, cnf_nfe = flow_forward(
+        y, dlogp, cnf_state, cnf_nfe = flow_forward(
             params["point_cnf"], state["point_cnf"], cfg.cnf_config(), pts,
             feats.reshape(b * t, cfg.latent_feat_size), pts.new_zeros((b * t, n, 1)),
-            generator=generator, e=e)
+            generator=generator, e=e, training=training, nfe_sink=sink.get("cnf"))
         log_py = standard_normal_logprob(y).sum(dim=-1)  # (B*T, N)
         out["nll"] = -(log_py - dlogp.reshape(b * t, n)).reshape(b, t, n)
         out["nfe"] = (ode_nfe, cnf_nfe)
-        return out, state
+        return out, ({**state, "point_cnf": cnf_state} if training else state)
 
     def sample_base(self, generator, batch: int, num_points: int, truncate_std=None,
                     sample_contours: Optional[Sequence[float]] = None):

@@ -1,6 +1,7 @@
 """Conditional CNF over points (counterpart of caspr_tpu/models/cnf.py):
 the chain MovingBatchNorm -> CNF block -> MovingBatchNorm, in both
-directions, with running statistics (inference).
+directions, with running statistics, and the likelihood direction's
+training form.
 
 Sampling (``flow_reverse``) visits the chain back to front and maps base
 samples to points.  The CNF block integrates the points alone (no
@@ -16,8 +17,16 @@ tensor e drawn per solve and held fixed across evaluations.
 
 The dynamics are the concatsquash ODEnet with softplus, whose per-point
 work runs in the fused kernels (``ops.kernels.cnf_primal`` and
-``cnf_dynamics``) for CUDA tensors.  The update of the MovingBatchNorm
-statistics belongs to training and is not ported yet.
+``cnf_dynamics``) for CUDA tensors.
+
+Training (``training=True`` of the likelihood direction) solves each block
+through ``odeint_adjoint`` with the ODEnet's parameters, the context and
+t_end as its args (each evaluation of the adjoint's augmented dynamics
+runs ``cnf_dynamics`` and its VJP kernel ``cnf_dynamics_vjp``); t_end =
+sqrt_end_time^2 enters as the last request time, so its gradient is the
+adjoint's dL/dts.  The MovingBatchNorms update their running statistics
+from the batch (PointFlow's transpose-reshape statistics) and normalise
+with the statistics from before the update.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 
 from ..ops import cnf_dynamics, cnf_primal, odeint
 from ..ops.cnf_fused import context_gb, pack_weights
+from ..ops.odeint import nfe_add, odeint_adjoint
 
 
 @dataclass(frozen=True)
@@ -131,36 +141,70 @@ def cnf_block_apply(params, cfg: CNFConfig, x, context):
     return xs[1].reshape(bt, n, d), nfe
 
 
-def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e):
+def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training: bool = False,
+                      nfe_sink=None):
     """One CNF block, forward (likelihood) direction, on (points,
     log-density).  x, e: (BT, N, D); context (BT, zdim); logpx (BT, N, 1)
     -> (y (BT, N, D), logpy (BT, N, 1), nfe).  e is the Hutchinson noise,
-    fixed for the whole solve."""
+    fixed for the whole solve and a constant of the adjoint (as in the TPU
+    kernel's VJP and the reference).  ``training=True`` solves through the
+    adjoint, reporting its backward NFE to ``nfe_sink``."""
     _check_supported(cfg)
-    t_end = _end_time(params, cfg)
     bt, n, d = x.shape
-    odenet = params["odenet"]
 
-    def dynamics(t, state):
+    def dynamics(t, state, args):
         # the state rides flattened, (BT, N*D) and (BT, N), as in the JAX
         # package: the solver's error norm is taken per leaf
+        odenet, ctx = args[0], args[1]
         dx, div = fused_concatsquash_dynamics(
-            odenet, _time_context(t, context), state[0].reshape(bt, n, d), e)
+            odenet, _time_context(t, ctx), state[0].reshape(bt, n, d), e)
         return dx.reshape(bt, -1), -div
 
-    ts = np.array([0.0, t_end], np.float32)
-    (xs, lps), nfe = odeint(dynamics, (x.reshape(bt, n * d), logpx.reshape(bt, n)), ts,
-                            rtol=cfg.rtol, atol=cfg.atol)
+    state0 = (x.reshape(bt, n * d), logpx.reshape(bt, n))
+    if training:
+        # the adjoint's args: every raw parameter leaf of the ODEnet, the
+        # context and t_end (whose own adjoint leaf stays 0 here: the
+        # forward dynamics do not read it), the leaves of the JAX args
+        t_end = (params["sqrt_end_time"] * params["sqrt_end_time"] if cfg.train_T
+                 else torch.tensor(cfg.time_length, dtype=x.dtype, device=x.device))
+        ts = torch.stack([torch.zeros_like(t_end), t_end])
+        (xs, lps), nfe = odeint_adjoint(dynamics, state0, ts, (params["odenet"], context, t_end),
+                                        rtol=cfg.rtol, atol=cfg.atol, nfe_sink=nfe_sink)
+    else:
+        ts = np.array([0.0, _end_time(params, cfg)], np.float32)
+        args = (params["odenet"], context)
+        (xs, lps), nfe = odeint(lambda t, state: dynamics(t, state, args), state0, ts,
+                                rtol=cfg.rtol, atol=cfg.atol)
     return xs[1].reshape(bt, n, d), lps[1].reshape(bt, n, 1), nfe
 
 
-def mbn_forward(params, state, cfg: CNFConfig, x, logpx):
+def _mbn_batch_stats(x):
+    """PointFlow's running-statistics update reads x transposed to
+    (N, BT, C) and reshaped to (C, -1) -- not a per-channel reduction; kept
+    as the JAX package keeps it (caspr_tpu/models/cnf.py::_mbn_batch_stats).
+    Returns (mean, unbiased variance) over each row."""
+    xt = x.transpose(0, 1).reshape(x.shape[-1], -1)
+    return xt.mean(dim=1), xt.var(dim=1, correction=1)
+
+
+def mbn_forward(params, state, cfg: CNFConfig, x, logpx, training: bool = False):
     """The MovingBatchNorm with its running statistics and its log-det:
-    (y, logpx - sum_c(weight_c - log(var_c + eps) / 2))."""
+    (y, logpx - sum_c(weight_c - log(var_c + eps) / 2), new_state).  It
+    normalises with the statistics from before the update; with
+    ``training`` the new state moves them bn_decay of the way to the
+    batch's (no gradient) and counts the step, else it is ``state``."""
+    new_state = state
+    if training:
+        with torch.no_grad():
+            bmean, bvar = _mbn_batch_stats(x)
+            mean, var = state["running_mean"], state["running_var"]
+            new_state = {"running_mean": mean - cfg.bn_decay * (mean - bmean),
+                         "running_var": var - cfg.bn_decay * (var - bvar),
+                         "step": state["step"] + 1.0}
     half_log_var = -0.5 * torch.log(state["running_var"] + cfg.bn_eps)
     y = (x - state["running_mean"]) * torch.exp(half_log_var)
     y = y * torch.exp(params["weight"]) + params["bias"]
-    return y, logpx - (half_log_var + params["weight"]).sum()
+    return y, logpx - (half_log_var + params["weight"]).sum(), new_state
 
 
 def mbn_reverse(params, state, cfg: CNFConfig, x):
@@ -183,24 +227,29 @@ def flow_reverse(params, state, cfg: CNFConfig, y, context):
     return y, nfe
 
 
-def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=None, e=None):
+def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=None, e=None, *,
+                 training: bool = False, nfe_sink=None):
     """Points x (BT, N, D) with log-density channel logpx (BT, N, 1) ->
-    (y, logpy, nfe), visiting the chain front to back.
+    (y, logpy, new_state, nfe), visiting the chain front to back.
 
     Each CNF block draws its Hutchinson noise (BT, N, D) from ``generator``;
     ``e``, a tensor for a chain of one block or a sequence with one tensor
-    per block, replaces the draw (and ``generator`` is not used)."""
+    per block, replaces the draw (and ``generator`` is not used).
+    ``training`` updates the MovingBatchNorm statistics (new_state) and
+    solves the blocks through the adjoint (backward NFE to ``nfe_sink``)."""
     noise = None if e is None else ([e] if isinstance(e, torch.Tensor) else list(e))
+    new_state = list(state)
     nfe, block = 0.0, 0
-    for kind, p, st in zip(cfg.chain(), params, state):
+    for i, (kind, p) in enumerate(zip(cfg.chain(), params)):
         if kind == "mbn":
-            x, logpx = mbn_forward(p, st, cfg, x, logpx)
+            x, logpx, new_state[i] = mbn_forward(p, state[i], cfg, x, logpx, training)
             continue
         if noise is None:
             cur = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
         else:
             cur = noise[block]
-        x, logpx, block_nfe = cnf_block_forward(p, cfg, x, context, logpx, cur)
-        nfe += block_nfe
+        x, logpx, block_nfe = cnf_block_forward(p, cfg, x, context, logpx, cur,
+                                                training=training, nfe_sink=nfe_sink)
+        nfe = nfe_add(nfe, block_nfe)
         block += 1
-    return x, logpx, nfe
+    return x, logpx, new_state, nfe

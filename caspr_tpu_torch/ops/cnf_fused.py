@@ -112,6 +112,63 @@ def dynamics_packed(y, e, gb, w_first, w_hidden, w_last):
     return zp, (zt * e).sum(dim=-1)
 
 
+def dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
+    """The VJP of ``dynamics_packed`` with respect to y, gb and the
+    weights, in plain PyTorch: the function of the cnf_dynamics_vjp kernel
+    (caspr_tpu/ops/cnf_fused.py::_fused_bwd_kernel, in the stream-stacked
+    form of ``_manual_dynamics_vjp``).  e is a constant: no d/de.
+
+    The forward is recomputed keeping each layer's input z_l and pre-gate
+    product m_l = z_l @ W_l^T of both streams, stacked along the points
+    (primal rows 0..N-1, tangent rows N..2N-1).  The reverse sweep, from
+    cotangents cp = ct_dx on the primal output and ct = ct_div * e on the
+    tangent output, runs per layer
+      dppre = cp * s + ct * t_pre * s * (1 - s),  dtpre = ct * s
+    (s the sigmoid of the primal pre-activation, t_pre the gated tangent;
+    on the last layer dppre = cp, dtpre = ct), then
+      d beff = sum_points dppre,  d gate = sum_points (dppre m_p + dtpre m_t),
+      dm = [dppre; dtpre] * gate,  dW = dm^T z,  [cp; ct] = dm W.
+    Returns (dy (BT, N, D), dgb (BT, G, H) laid out as gb, dw_first (H, D),
+    dw_hidden (L-2, H, H), dw_last (D, H)); dgb and the dW are summed over
+    the points (and the dW over the clouds)."""
+    weights = [w_first, *w_hidden.unbind(0), w_last]
+    num_layers = len(weights)
+    n = y.shape[1]
+    z = torch.cat([y, e], dim=1)
+    zs, ms = [], []
+    for i, w in enumerate(weights):
+        zs.append(z)
+        m = torch.matmul(z, w.T)
+        ms.append(m)
+        if i < num_layers - 1:
+            d_out = w.shape[0]
+            pre_p = m[:, :n] * gb[:, i, None, :d_out] + gb[:, num_layers + i, None, :d_out]
+            pre_t = m[:, n:] * gb[:, i, None, :d_out]
+            z = torch.cat([softplus(pre_p), pre_t * torch.sigmoid(pre_p)], dim=1)
+    cp, ct = ct_dx, ct_div[..., None] * e
+    dgb = torch.zeros_like(gb)
+    dws = [None] * num_layers
+    for i in range(num_layers - 1, -1, -1):
+        w, m = weights[i], ms[i]
+        d_out = w.shape[0]
+        gate = gb[:, i, None, :d_out]
+        if i == num_layers - 1:
+            dppre, dtpre = cp, ct
+        else:
+            pre_p = m[:, :n] * gate + gb[:, num_layers + i, None, :d_out]
+            pre_t = m[:, n:] * gate
+            s = torch.sigmoid(pre_p)
+            dppre = cp * s + ct * pre_t * s * (1.0 - s)
+            dtpre = ct * s
+        dgb[:, num_layers + i, :d_out] = dppre.sum(dim=1)
+        dgb[:, i, :d_out] = (dppre * m[:, :n] + dtpre * m[:, n:]).sum(dim=1)
+        dm = torch.cat([dppre, dtpre], dim=1) * gate
+        dws[i] = torch.matmul(dm.reshape(-1, d_out).T, zs[i].reshape(-1, w.shape[1]))
+        dz = torch.matmul(dm, w)
+        cp, ct = dz[:, :n], dz[:, n:]
+    return cp, dgb, dws[0], torch.stack(dws[1:-1]), dws[-1]
+
+
 def reference_dynamics(params, tc, y, e):
     """The unfused composition with its analytic tangent
     (caspr_tpu/ops/cnf_fused.py::_reference_dynamics): (dx, e^T J e)."""

@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, dispatch.
 
-Eight kernels, one per TPU kernel of the reconstruct and evaluation paths
-(sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
+Nine kernels, one per TPU kernel of the reconstruct, evaluation and
+training paths (sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
 
   fps                -> farthest_point_sampling
   ball_query         -> ball_query / ball_query_pair
@@ -11,12 +11,15 @@ Eight kernels, one per TPU kernel of the reconstruct and evaluation paths
   cnf_primal         -> cnf_primal (the decode dynamics)
   cnf_dynamics       -> cnf_dynamics (the likelihood dynamics, with the
                         Hutchinson divergence)
+  cnf_dynamics_vjp   -> cnf_dynamics_vjp (its VJP: the adjoint's augmented
+                        dynamics in training)
   emd                -> approx_match_emd (the approxmatch EMD cost)
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then takes one of two routes by the device of its inputs: a
 CPU tensor goes to the plain PyTorch version (``ops/pointops.py``,
-``ops/cnf_fused.py::primal_packed`` and ``dynamics_packed``,
+``ops/cnf_fused.py::primal_packed``, ``dynamics_packed`` and
+``dynamics_vjp_packed``,
 ``ops/emd_plain.py::emd_plain``); a CUDA tensor launches the kernel on
 the current stream, raises if the launch fails, and adds one to
 ``launches[name]``.  There is no fallback from the card to the plain
@@ -41,7 +44,7 @@ from pathlib import Path
 import torch
 
 from . import pointops
-from .cnf_fused import dynamics_packed, primal_packed
+from .cnf_fused import dynamics_packed, dynamics_vjp_packed, primal_packed
 from .emd_plain import emd_plain
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -55,6 +58,7 @@ SOURCES = (
     "three_interpolate.cu",
     "cnf_primal.cu",
     "cnf_dynamics.cu",
+    "cnf_dynamics_vjp.cu",
     "emd.cu",
 )
 NVCC_FLAGS = (
@@ -63,7 +67,7 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
-           "cnf_primal", "cnf_dynamics", "emd")
+           "cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp", "emd")
 EMD_MAX_POINTS = 11520  # N + M the emd kernel's shared-memory layout holds (float32)
 # Launches of each kernel since the last reset_launches(); bumped only where
 # a kernel is launched on the card.
@@ -78,6 +82,7 @@ _SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
     "caspr_three_interpolate": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "caspr_cnf_primal": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "caspr_cnf_dynamics": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "caspr_cnf_dynamics_vjp": [_P] * 13 + [_I] * 6 + [_P],
     "caspr_approx_match_emd": [_P, _P, _P, _I, _I, _I, _P],
     "caspr_approx_match_emd_f64": [_P, _P, _P, _I, _I, _I, _P],
 }
@@ -153,6 +158,9 @@ def _library():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            fn = lib.caspr_cnf_dynamics_vjp_workspace
+            fn.argtypes = [_I] * 5
+            fn.restype = _LL
             _lib = lib
         return _lib
 
@@ -256,11 +264,17 @@ def _ball_query_launch(xyz, new_xyz, radius1, k1, radius2, k2):
 
 def gather_points(points, idx):
     """points (B, N, C) float32, idx (B, ...) int32 -> (B, ..., C), indices
-    clamped to [0, N)."""
+    clamped to [0, N).  Differentiable in ``points`` on either device: the
+    backward is a scatter-add over the clamped indices in plain PyTorch
+    (the JAX package's is XLA too: pallas_kernels.py::_gather_rows_bwd)."""
     _check("points", points, torch.float32, 3)
     if not isinstance(idx, torch.Tensor) or idx.dtype != torch.int32 or not idx.is_contiguous():
         raise TypeError("idx: expected a contiguous int32 tensor")
     _same_batch(points, idx)
+    return _GatherPoints.apply(points, idx)
+
+
+def _gather_launch(points, idx):
     if not _on_card(points, idx):
         return pointops.gather_points(points, idx)
     b, n, c = points.shape
@@ -269,6 +283,28 @@ def gather_points(points, idx):
     _launch("gather", "caspr_gather_rows", points.device,
             points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, r)
     return out.reshape(*idx.shape, c)
+
+
+def _scatter_rows(values, flat_idx, n):
+    """sum of the rows of values (B, R, C) into (B, n, C) at flat_idx (B, R)."""
+    b, _, c = values.shape
+    out = values.new_zeros((b, n, c))
+    return out.scatter_add_(1, flat_idx[:, :, None].expand(-1, -1, c), values)
+
+
+class _GatherPoints(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_points = points.shape[1]
+        return _gather_launch(points, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        b, n = idx.shape[0], ctx.num_points
+        flat = idx.reshape(b, -1).long().clamp(0, n - 1)
+        return _scatter_rows(grad.reshape(b, flat.shape[1], -1), flat, n), None
 
 
 def three_nn(query_xyz, source_xyz):
@@ -293,13 +329,20 @@ def three_nn(query_xyz, source_xyz):
 
 def three_interpolate(features, idx, weights):
     """features (B, M, C) float32, idx (B, N, 3) int32, weights (B, N, 3)
-    float32 -> (B, N, C)."""
+    float32 -> (B, N, C).  Differentiable in features and weights on either
+    device, by plain PyTorch (the JAX package's backward is XLA too:
+    pallas_kernels.py::_interp3_bwd): d features is a scatter-add of
+    w * grad, d weights is sum_c grad * F[idx]."""
     _check("features", features, torch.float32, 3)
     _check("idx", idx, torch.int32, 3, last=3)
     _check("weights", weights, torch.float32, 3, last=3)
     _same_batch(features, idx, weights)
     if idx.shape != weights.shape:
         raise ValueError(f"idx {tuple(idx.shape)} and weights {tuple(weights.shape)} differ")
+    return _ThreeInterpolate.apply(features, idx, weights)
+
+
+def _three_interpolate_launch(features, idx, weights):
     if not _on_card(features, idx, weights):
         return pointops.three_interpolate(features, idx, weights)
     b, m, c = features.shape
@@ -309,6 +352,26 @@ def three_interpolate(features, idx, weights):
             features.data_ptr(), idx.data_ptr(), weights.data_ptr(), out.data_ptr(),
             b, m, n, c)
     return out
+
+
+class _ThreeInterpolate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, idx, weights):
+        ctx.save_for_backward(features, idx, weights)
+        return _three_interpolate_launch(features, idx, weights)
+
+    @staticmethod
+    def backward(ctx, grad):
+        features, idx, weights = ctx.saved_tensors
+        b, m, c = features.shape
+        flat = idx.reshape(b, -1).long().clamp(0, m - 1)  # (B, 3N)
+        d_features = d_weights = None
+        if ctx.needs_input_grad[0]:
+            spread = (grad[:, :, None, :] * weights[..., None]).reshape(b, -1, c)
+            d_features = _scatter_rows(spread, flat, m)
+        if ctx.needs_input_grad[2]:
+            d_weights = (grad[:, :, None, :] * pointops.gather_points(features, idx)).sum(-1)
+        return d_features, None, d_weights
 
 
 def _check_cnf(name, y, gb, w_first, w_hidden, w_last):
@@ -356,11 +419,17 @@ def cnf_primal(y, gb, w_first, w_hidden, w_last):
 def cnf_dynamics(y, e, gb, w_first, w_hidden, w_last):
     """Fused concatsquash stack with the Hutchinson tangent.  y, e (BT, N, D);
     the other arguments as ``cnf_primal`` -> (dx (BT, N, D), div (BT, N) =
-    e^T J e)."""
-    bt, n, d, h, num_hidden = _check_cnf("cnf_dynamics", y, gb, w_first, w_hidden, w_last)
+    e^T J e).  Differentiable in y, gb and the weights on either device: the
+    backward is ``cnf_dynamics_vjp`` (e is a constant, as in the adjoint)."""
+    _check_cnf("cnf_dynamics", y, gb, w_first, w_hidden, w_last)
     _check("e", e, torch.float32, 3)
     if e.shape != y.shape:
         raise ValueError(f"cnf_dynamics: e {tuple(e.shape)} and y {tuple(y.shape)} differ")
+    return _CNFDynamics.apply(y, e, gb, w_first, w_hidden, w_last)
+
+
+def _cnf_dynamics_launch(y, e, gb, w_first, w_hidden, w_last):
+    bt, n, d, h, num_hidden = _check_cnf("cnf_dynamics", y, gb, w_first, w_hidden, w_last)
     if not _on_card(y, e, gb, w_first, w_hidden, w_last):
         return dynamics_packed(y, e, gb, w_first, w_hidden, w_last)
     _check_cnf_kernel_limits("cnf_dynamics", h, d)
@@ -372,6 +441,57 @@ def cnf_dynamics(y, e, gb, w_first, w_hidden, w_last):
             w_hidden_t.data_ptr(), w_last.data_ptr(), dx.data_ptr(), div.data_ptr(),
             bt, n, h, d, num_hidden, gb.shape[1])
     return dx, div
+
+
+class _CNFDynamics(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, e, gb, w_first, w_hidden, w_last):
+        ctx.save_for_backward(y, e, gb, w_first, w_hidden, w_last)
+        return _cnf_dynamics_launch(y, e, gb, w_first, w_hidden, w_last)
+
+    @staticmethod
+    def backward(ctx, ct_dx, ct_div):
+        y, e, gb, w_first, w_hidden, w_last = ctx.saved_tensors
+        dy, dgb, dwf, dwh, dwl = cnf_dynamics_vjp(
+            y, e, gb, w_first, w_hidden, w_last, ct_dx.contiguous(), ct_div.contiguous())
+        return dy, None, dgb, dwf, dwh, dwl
+
+
+def cnf_dynamics_vjp(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
+    """The VJP of ``cnf_dynamics`` with respect to y, gb and the weights,
+    for cotangents ct_dx (BT, N, D) and ct_div (BT, N) -> (dy (BT, N, D),
+    dgb (BT, G, H) laid out as gb, dw_first (H, D), dw_hidden (L-2, H, H),
+    dw_last (D, H)); dgb is summed over each cloud's points, the dW over
+    every point.  Deterministic on the card: every sum has a fixed order."""
+    bt, n, d, h, num_hidden = _check_cnf("cnf_dynamics_vjp", y, gb, w_first, w_hidden, w_last)
+    for name, t in (("e", e), ("ct_dx", ct_dx)):
+        _check(name, t, torch.float32, 3)
+        if t.shape != y.shape:
+            raise ValueError(f"cnf_dynamics_vjp: {name} {tuple(t.shape)} and y {tuple(y.shape)} differ")
+    _check("ct_div", ct_div, torch.float32, 2)
+    if tuple(ct_div.shape) != (bt, n):
+        raise ValueError(f"cnf_dynamics_vjp: ct_div {tuple(ct_div.shape)}, expected {(bt, n)}")
+    if not _on_card(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
+        return dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div)
+    _check_cnf_kernel_limits("cnf_dynamics_vjp", h, d)
+    if not 1 <= num_hidden <= 6:
+        raise ValueError(f"cnf_dynamics_vjp kernel takes 1 to 6 hidden layers, got {num_hidden}")
+    lib = _library()
+    w_hidden_t = w_hidden.transpose(1, 2).contiguous()
+    dy = torch.empty_like(y)
+    dgb = torch.empty_like(gb)
+    dw = torch.empty(2 * h * d + num_hidden * h * h, dtype=torch.float32, device=y.device)
+    workspace = torch.empty(lib.caspr_cnf_dynamics_vjp_workspace(bt, n, h, d, num_hidden),
+                            dtype=torch.float32, device=y.device)
+    _launch("cnf_dynamics_vjp", "caspr_cnf_dynamics_vjp", y.device,
+            y.data_ptr(), e.data_ptr(), gb.data_ptr(), w_first.data_ptr(),
+            w_hidden_t.data_ptr(), w_hidden.data_ptr(), w_last.data_ptr(), ct_dx.data_ptr(),
+            ct_div.data_ptr(), dy.data_ptr(), dgb.data_ptr(), dw.data_ptr(),
+            workspace.data_ptr(), bt, n, h, d, num_hidden, gb.shape[1])
+    dw_first = dw[: h * d].view(h, d)
+    dw_hidden = dw[h * d: h * d + num_hidden * h * h].view(num_hidden, h, h)
+    dw_last = dw[h * d + num_hidden * h * h:].view(d, h)
+    return dy, dgb, dw_first, dw_hidden, dw_last
 
 
 def _check_emd(xyz1, xyz2, dtype):

@@ -1,8 +1,8 @@
-"""Adaptive Dormand-Prince (dopri5) integration, forward only.
+"""Adaptive Dormand-Prince (dopri5) integration and its continuous adjoint.
 
-The counterpart of caspr_tpu/ops/odeint.py::odeint, step for step, so the
-two take the same steps and report the same number of function
-evaluations (NFE) on the same problem:
+``odeint`` is the counterpart of caspr_tpu/ops/odeint.py::odeint, step for
+step, so the two take the same steps and report the same number of
+function evaluations (NFE) on the same problem:
 
   - one step size for the whole state, which is a tensor or a tuple of
     tensors (leaves); the error ratio is the largest over the leaves of
@@ -25,9 +25,18 @@ the number of leaves.
 tensors when y0 is one) and returns dy/dt in the same form.
 Reverse-time flows are written as forward flows of the time-reflected
 dynamics by the caller (models/cnf.py).
+
+``odeint_adjoint`` is the counterpart of
+caspr_tpu/ops/odeint.py::odeint_adjoint: the same forward solve, with
+gradients for y0, the request times and the tensor leaves of ``args`` from
+backward augmented solves, and its backward NFE reported through an
+``NFESink``.  ``nfe_add`` and ``nfe_sum`` combine NFE counts as the JAX
+package does (caspr_tpu/ops/odeint.py:440-456).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -188,3 +197,163 @@ def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000):
     outs = [y if o is None else o for o in outs]
     stacked = tuple(torch.stack([o[leaf] for o in outs]) for leaf in range(len(y0)))
     return (stacked[0] if single else stacked), nfe
+
+
+def nfe_add(a, b) -> float:
+    """Sum of two NFE counts whose +0.5 step-bound exhaustion markers are
+    OR-ed, not added, so that two marked counts cannot sum to an unmarked
+    one; the identity on whole counts."""
+    fa, fb = math.floor(a), math.floor(b)
+    return float(fa + fb + (0.5 if max(a - fa, b - fb) > 0 else 0.0))
+
+
+def nfe_sum(counts) -> float:
+    """``nfe_add`` over a sequence of NFE counts."""
+    floors = [math.floor(c) for c in counts]
+    marked = any(c - f > 0 for c, f in zip(counts, floors))
+    return float(sum(floors) + (0.5 if marked else 0.0))
+
+
+class NFESink:
+    """The backward NFE of every adjoint solve given this sink is added to
+    ``value`` when its backward runs: the port's stand-in for the JAX
+    package's sink scalar, whose gradient carries the count."""
+
+    def __init__(self):
+        self.value = 0.0
+
+
+def flatten_tree(tree):
+    """(the tensor leaves of a dict / list / tuple tree in order,
+    rebuild(leaves) -> a tree of the same structure; other leaves kept)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda leaves: leaves[0]
+    if isinstance(tree, dict):
+        keys, items = list(tree), list(tree.values())
+    elif isinstance(tree, (list, tuple)):
+        keys, items = None, list(tree)
+    else:
+        return [], lambda leaves: tree
+    parts = [flatten_tree(v) for v in items]
+    leaves = [leaf for part, _ in parts for leaf in part]
+
+    def rebuild(flat):
+        out, at = [], 0
+        for part, rebuild_part in parts:
+            out.append(rebuild_part(flat[at:at + len(part)]))
+            at += len(part)
+        return dict(zip(keys, out)) if keys is not None else type(tree)(out)
+
+    return leaves, rebuild
+
+
+def _dot(a, b):
+    """sum over the leaves of sum(a * b), float32."""
+    return sum((x.float() * y.float()).sum() for x, y in zip(a, b))
+
+
+class _Adjoint(torch.autograd.Function):
+    """inputs: (spec, ts, *y0 leaves, *args leaves); outputs: the (T, ...)
+    trajectory of each y leaf."""
+
+    @staticmethod
+    def forward(ctx, spec, ts, *leaves):
+        y0, arg_leaves = leaves[:spec["num_y"]], leaves[spec["num_y"]:]
+        args = spec["rebuild"](list(arg_leaves))
+        ys, spec["nfe"] = odeint(lambda t, y: spec["func"](t, y, args), y0, ts,
+                                 rtol=spec["rtol"], atol=spec["atol"],
+                                 max_steps=spec["max_steps"])
+        ctx.spec = spec
+        ctx.save_for_backward(ts, *ys, *arg_leaves)
+        return ys
+
+    @staticmethod
+    def backward(ctx, *g_ys):
+        spec = ctx.spec
+        num_y = spec["num_y"]
+        saved = ctx.saved_tensors
+        ts, ys, arg_leaves = saved[0], saved[1:1 + num_y], [a.detach() for a in saved[1 + num_y:]]
+        func, rebuild = spec["func"], spec["rebuild"]
+        g_ys = [torch.zeros_like(y) if g is None else g for g, y in zip(g_ys, ys)]
+        times = ts.detach().cpu().numpy().astype(F32)
+        num_t = len(times)
+        grad_ts = torch.zeros_like(ts)
+        if num_t == 1:  # the only request time is the initial one: identity
+            return (None, grad_ts, *(g[0] for g in g_ys),
+                    *(torch.zeros_like(a) for a in arg_leaves))
+
+        def plain(t, y):
+            with torch.no_grad():
+                return func(t, y, rebuild(arg_leaves))
+
+        a_y = tuple(g[num_t - 1] for g in g_ys)
+        a_args = tuple(torch.zeros_like(a) for a in arg_leaves)
+        nfe_bwd = 0.0
+        dldts = []
+        for i in range(num_t - 1, 0, -1):
+            y_i = tuple(y[i] for y in ys)
+            dldts.append(_dot((g[i] for g in g_ys), plain(times[i], y_i)))
+            t_hi = times[i]
+
+            def augmented(s, state, t_hi=t_hi):
+                # solver time s runs 0 -> span; the flow's time is t_hi - s:
+                # d/ds (y, a_y, a_args) = (-f, a_y^T df/dy, a_y^T df/dargs)
+                with torch.enable_grad():
+                    y = tuple(v.detach().requires_grad_() for v in state[:num_y])
+                    args = [v.detach().requires_grad_() for v in arg_leaves]
+                    f = func(t_hi - s, y, rebuild(args))
+                    pairs = [(fo, ao) for fo, ao in zip(f, state[num_y:2 * num_y])
+                             if fo.requires_grad]
+                    grads = torch.autograd.grad(
+                        [fo for fo, _ in pairs], (*y, *args),
+                        grad_outputs=[ao for _, ao in pairs], allow_unused=True,
+                    ) if pairs else (None,) * (num_y + len(args))
+                vjp = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, (*y, *args))]
+                return (*(-fo.detach() for fo in f), *vjp)
+
+            span = times[i] - times[i - 1]
+            aug, aug_nfe = odeint(augmented, (*y_i, *a_y, *a_args), np.array([0.0, span], F32),
+                                  rtol=spec["rtol"], atol=spec["atol"], max_steps=spec["max_steps"])
+            a_at_lo = tuple(leaf[1] for leaf in aug[num_y:2 * num_y])
+            a_args = tuple(leaf[1] for leaf in aug[2 * num_y:])
+            nfe_bwd += aug_nfe + 1.0  # every augmented evaluation calls func once; +1 for f_i
+            a_y = tuple(a + g[i - 1] for a, g in zip(a_at_lo, g_ys))
+        # dL/dts[0] = -a(t0) . f(t0, y0), with a(t0) before g[0] is added
+        dldt0 = -_dot(a_at_lo, plain(times[0], tuple(y[0] for y in ys)))
+        grad_ts = torch.stack([dldt0, *reversed(dldts)]).to(ts)
+        if spec["sink"] is not None:
+            spec["sink"].value += nfe_bwd + 1.0  # +1: f(t0, y0)
+        return (None, grad_ts, *a_y, *a_args)
+
+
+def odeint_adjoint(func, y0, ts, args=(), *, rtol: float, atol: float, max_steps: int = 50_000,
+                   nfe_sink: NFESink | None = None):
+    """``odeint`` with gradients by the continuous adjoint.
+
+    func(t, y, args) -> dy/dt, with y a tensor or a tuple of tensors (as
+    y0) and args a dict / list / tuple tree whose tensor leaves are the
+    things to differentiate: whatever func closes over instead is a
+    constant.  ts: a 1-D float32 tensor of non-decreasing request times,
+    ts[0] the initial time (it may require grad).  Returns (ys, nfe) as
+    ``odeint``.
+
+    The backward re-integrates the augmented system (y, a_y, a_args)
+    interval by interval from ts[-1] down to ts[0] at the same tolerances,
+    with the same dopri5; its error norm runs over every leaf, so a_args
+    has one leaf per tensor leaf of args, as in the JAX package.  It adds
+    the output cotangent at each request time, gives dL/dts[i] = g_i .
+    f(ts[i]) and dL/dts[0] = -a(ts[0]) . f(ts[0]), and adds its NFE
+    (sum over the intervals of the augmented solve's NFE + 1, + 1) to
+    ``nfe_sink.value``."""
+    single = isinstance(y0, torch.Tensor)
+    y_leaves = (y0,) if single else tuple(y0)
+    arg_leaves, rebuild = flatten_tree(args)
+    if single:
+        leaf_func = func
+        func = lambda t, y, a: (leaf_func(t, y[0], a),)
+    if not isinstance(ts, torch.Tensor):
+        ts = torch.as_tensor(np.asarray(ts, dtype=F32))
+    spec = {"func": func, "rebuild": rebuild, "num_y": len(y_leaves), "rtol": rtol,
+            "atol": atol, "max_steps": max_steps, "sink": nfe_sink}
+    ys = _Adjoint.apply(spec, ts, *y_leaves, *arg_leaves)
+    return (ys[0] if single else tuple(ys)), spec["nfe"]

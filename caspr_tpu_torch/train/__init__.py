@@ -1,8 +1,10 @@
-"""Evaluation steps, the epoch runner and the stat trackers (counterpart of
-caspr_tpu/train; the training branch waits for the training slice)."""
+"""The optimizer, the train and evaluation steps, the epoch runner, the
+trackers and checkpoints (counterpart of caspr_tpu/train)."""
 
-from .loop import compute_losses, make_eval_step, run_one_epoch
-from .trackers import TestStatTracker, log, print_stats
+from .checkpoint import load_checkpoint, save_checkpoint
+from .loop import compute_losses, make_eval_step, make_optimizer, make_train_step, run_one_epoch
+from .trackers import TestStatTracker, TrainLossTracker, log, print_stats
 
-__all__ = ["TestStatTracker", "compute_losses", "log", "make_eval_step", "print_stats",
-           "run_one_epoch"]
+__all__ = ["TestStatTracker", "TrainLossTracker", "compute_losses", "load_checkpoint", "log",
+           "make_eval_step", "make_optimizer", "make_train_step", "print_stats", "run_one_epoch",
+           "save_checkpoint"]

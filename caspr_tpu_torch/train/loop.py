@@ -1,17 +1,48 @@
-"""The evaluation step and the epoch runner (counterpart of
-caspr_tpu/train/loop.py, ``mode="test"``).
+"""The optimizer, the train and evaluation steps and the epoch runner
+(counterpart of caspr_tpu/train/loop.py).
 
 Loss semantics:
   - CNF loss: weight * mean over (B, T) of the per-step NLL summed over the
     points;
   - T-NOCS loss: weight * mean of the per-point L1 over all of B, T, N, 4.
+Adam is torch.optim.Adam over the leaves of the parameter tree, whose L2
+weight decay (added to the gradient before the moments) and bias
+correction are those of the JAX package's optax chain.  Parameters are
+updated in place.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
 import torch
 
-from .trackers import print_stats
+from ..ops.odeint import NFESink, flatten_tree, nfe_add, nfe_sum
+from .trackers import log, print_stats
+
+
+@dataclass(frozen=True)
+class Adam:
+    """Adam's hyper-parameters (torch.optim.Adam, reference caspr/train.py:
+    135-136); ``init(params)`` makes the optimizer over a parameter tree,
+    the port's optimizer state."""
+
+    lr: float
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+
+    def init(self, params) -> torch.optim.Adam:
+        return torch.optim.Adam(flatten_tree(params)[0], lr=self.lr, betas=tuple(self.betas),
+                                eps=self.eps, weight_decay=self.weight_decay)
+
+
+def make_optimizer(lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0) -> Adam:
+    """The counterpart of the JAX package's ``make_optimizer``: use
+    ``.init(params)`` for the optimizer state."""
+    return Adam(lr, tuple(betas), eps, weight_decay)
 
 
 def compute_losses(out, cnf_loss_weight, tnocs_loss_weight):
@@ -60,19 +91,125 @@ def make_eval_step(model, cnf_loss_weight, tnocs_loss_weight):
     return step
 
 
+def _split_noise(e, parts: int, i: int):
+    """Microbatch i's rows of an injected noise (a tensor or one per CNF
+    block), or None."""
+    if e is None:
+        return None
+    if isinstance(e, torch.Tensor):
+        return e.chunk(parts)[i]
+    return [t.chunk(parts)[i] for t in e]
+
+
+def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: int = 1):
+    """Returns step(params, opt_state, mbn_state, x, target, generator=None,
+    e=None) -> (params, opt_state, new_mbn_state, metrics), the counterpart
+    of the JAX package's train step: CaSPRModel.forward(training=True), the
+    weighted losses, their gradient (through the two adjoint solves), and
+    one update of ``params`` in place by ``opt_state``, a torch optimizer
+    over the leaves of ``params`` (``tx.init(params)`` for Adam).  ``tx``
+    itself is not read -- the optimizer carries its hyper-parameters -- and
+    stays for the JAX package's signature.
+
+    metrics (host floats): loss, cnf_loss, tnocs_loss, mean_nll, nfe (per
+    solver, forward + adjoint evaluations, as the reference logs them
+    after loss.backward()), nfe_forward, and with T-NOCS regression
+    tnocs_pos_err, tnocs_time_err.  ``accum_steps > 1`` splits the batch into
+    that many equal microbatches, averages their gradients, threads the
+    MovingBatchNorm state through them (each microbatch normalises with the
+    statistics its predecessor left) and makes one update; losses are the
+    microbatch means, NFE their sums.  The CNF's Hutchinson noise comes from
+    ``generator``, or from ``e`` (the whole batch's, split with it).  x and
+    target may be numpy arrays: they go to the model's device."""
+    del tx
+
+    def grads_of(params, leaves, mbn_state, x, target, generator, e):
+        sinks = {"latent": NFESink(), "cnf": NFESink()}
+        with torch.enable_grad():
+            out, new_state = model.forward(params, mbn_state, x, target, generator,
+                                           training=True, e=e, nfe_sink=sinks)
+            loss, cnf_loss, tnocs_loss = compute_losses(out, cnf_loss_weight, tnocs_loss_weight)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+        scalars = {"loss": loss.item(), "cnf_loss": cnf_loss.item(),
+                   "tnocs_loss": tnocs_loss.item(),
+                   "mean_nll": out["nll"].mean().item() if "nll" in out else 0.0,
+                   "nfe_forward": tuple(float(v) for v in out["nfe"]),
+                   "nfe_backward": (sinks["latent"].value, sinks["cnf"].value)}
+        if "tnocs_loss" in out:
+            per_point = out["tnocs_loss"].detach()
+            scalars["tnocs_pos_err"] = float(torch.linalg.vector_norm(per_point[..., :3], dim=-1).mean())
+            scalars["tnocs_time_err"] = float(per_point[..., 3].mean())
+        return grads, new_state, scalars
+
+    def step(params, opt_state, mbn_state, x, target, generator=None, e=None):
+        x = torch.as_tensor(x, device=model.device)
+        target = torch.as_tensor(target, device=model.device)
+        leaves, _ = flatten_tree(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        if x.shape[0] % accum_steps:
+            raise ValueError(f"batch {x.shape[0]} not divisible by accum_steps {accum_steps}")
+        grads, parts = None, []
+        for i, (xi, ti) in enumerate(zip(x.chunk(accum_steps), target.chunk(accum_steps))):
+            g_i, mbn_state, m_i = grads_of(params, leaves, mbn_state, xi, ti, generator,
+                                           _split_noise(e, accum_steps, i))
+            grads = g_i if grads is None else [a + b for a, b in zip(grads, g_i)]
+            parts.append(m_i)
+        if accum_steps > 1:
+            grads = [g / accum_steps for g in grads]
+        m = {k: float(np.mean([p[k] for p in parts])) for k in parts[0] if not k.startswith("nfe")}
+        nfe_fwd = tuple(nfe_sum([p["nfe_forward"][j] for p in parts]) for j in range(2))
+        nfe_bwd = tuple(nfe_sum([p["nfe_backward"][j] for p in parts]) for j in range(2))
+        for leaf, g in zip(leaves, grads):
+            leaf.grad = g
+        opt_state.step()
+        opt_state.zero_grad(set_to_none=True)
+        metrics = {k: m[k] for k in ("loss", "cnf_loss", "tnocs_loss", "mean_nll")}
+        metrics["nfe"] = tuple(nfe_add(f, b) for f, b in zip(nfe_fwd, nfe_bwd))
+        metrics["nfe_forward"] = tuple(nfe_fwd)
+        for k in ("tnocs_pos_err", "tnocs_time_err"):
+            if k in m:
+                metrics[k] = m[k]
+        return params, opt_state, mbn_state, metrics
+
+    return step
+
+
 def run_one_epoch(step_fn, params, opt_state, mbn_state, loader, generator, epoch, loss_tracker,
                   log_out, mode="train", print_stats_every=10):
-    """One pass over ``loader``.  With ``mode="test"`` (or any other
-    evaluation name, which labels the log lines) ``step_fn`` is an eval
-    step and ``loss_tracker`` a ``TestStatTracker``.  Batches are dicts of
-    numpy arrays ("input", "target", optionally "valid": the number of
-    real rows of a padded batch); padded rows are masked out of every
-    statistic, and the mean of the per-item losses over the real rows is
-    the unpadded batch loss.  Returns (params, opt_state, mbn_state)."""
-    if mode == "train":
-        raise NotImplementedError(
-            "run_one_epoch(mode='train') belongs to the training slice, which is not ported yet")
+    """One pass over ``loader``; batches are dicts of numpy arrays
+    ("input", "target", optionally "valid": the number of real rows of a
+    padded batch).  Returns (params, opt_state, mbn_state).
+
+    ``mode="train"``: ``step_fn`` is a train step and ``loss_tracker`` a
+    ``TrainLossTracker``; every ``print_stats_every`` batches the mean loss
+    since the last report is recorded and logged with the NFE (forward +
+    adjoint), with a warning when an NFE count carries the +0.5 marker of an
+    exhausted step bound.  Any other mode (which labels the log lines):
+    ``step_fn`` is an eval step and ``loss_tracker`` a ``TestStatTracker``;
+    padded rows are masked out of every statistic, and the mean of the
+    per-item losses over the real rows is the unpadded batch loss."""
     num_batches = len(loader)
+    if mode == "train":
+        batch_losses = []
+        for i, batch in enumerate(loader):
+            params, opt_state, mbn_state, metrics = step_fn(
+                params, opt_state, mbn_state, batch["input"], batch["target"], generator)
+            batch_losses.append(metrics["loss"])
+            if i % print_stats_every == 0:
+                loss_tracker.record_train_step(float(np.mean(batch_losses)), metrics["cnf_loss"],
+                                               metrics["tnocs_loss"], epoch * num_batches + i)
+                nfe = np.asarray(metrics["nfe"])
+                if (nfe % 1.0 != 0.0).any():
+                    log(log_out, "WARNING: a discrete-mode ODE solve hit its attempted-step "
+                                 "bound this step; outputs past the bound hold the final "
+                                 "integrator state. Raise CASPR_TPU_ODE_STEPS.")
+                print_stats(log_out, epoch, i, num_batches, float(np.mean(batch_losses)),
+                            metrics.get("mean_nll", 0.0), metrics.get("tnocs_pos_err", 0.0),
+                            metrics.get("tnocs_time_err", 0.0), "TRAIN", nfe)
+                batch_losses = []
+        return params, opt_state, mbn_state
     for i, batch in enumerate(loader):
         metrics = step_fn(params, mbn_state, batch["input"], batch["target"], generator)
         valid = batch.get("valid", len(batch["input"]))

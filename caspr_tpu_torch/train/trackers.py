@@ -1,6 +1,6 @@
-"""Logging and the evaluation stat tracker (the port's own copy of
-caspr_tpu/train/trackers.py: numpy only; the training-curve tracker waits
-for the training slice)."""
+"""Logging and the loss and stat trackers (the port's own copy of
+caspr_tpu/train/trackers.py: numpy only; the loss-curve plot of the train
+script waits for that script)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,28 @@ def print_stats(log_out, epoch, cur_batch, num_batches, total_loss, cnf_err, tno
     if nfe is not None:
         log(log_out, "                    %s Mean NFE (latent-ode, decoder): (%f, %f)"
             % (type_id, nfe[0], nfe[1]))
+
+
+class TrainLossTracker:
+    """Train and validation loss curves."""
+
+    def __init__(self):
+        self.train_losses = []
+        self.train_steps = []
+        self.cnf_losses = []
+        self.tnocs_losses = []
+        self.val_losses = []
+        self.val_steps = []
+
+    def record_train_step(self, train_loss, cnf_loss, tnocs_loss, step_idx):
+        self.train_losses.append(train_loss)
+        self.cnf_losses.append(cnf_loss)
+        self.tnocs_losses.append(tnocs_loss)
+        self.train_steps.append(step_idx)
+
+    def record_val_step(self, val_loss, step_idx):
+        self.val_losses.append(val_loss)
+        self.val_steps.append(step_idx)
 
 
 class TestStatTracker:

@@ -5,12 +5,13 @@
 
 Phases, each of which raises on failure:
 
-  1. print the card's name and power limit; build the eight CUDA kernels
+  1. print the card's name and power limit; build the nine CUDA kernels
      from caspr_tpu_torch/csrc and print the build time;
   2. hold every kernel against its plain PyTorch version on the card, at
-     the shapes of the batch-4 reconstruct and evaluation paths, and time
-     kernel, plain version and (where one PyTorch call computes the same
-     function) the library call with CUDA events;
+     the shapes of the batch-4 reconstruct and evaluation paths (the VJP at
+     the training path's), and time kernel, plain version and (where one
+     PyTorch call computes the same function) the library call with CUDA
+     events;
   3. run full-width CaSPRModel.reconstruct (B=4, T=10, N=2048, trained
      weights from artifacts/demo_trained.pkl) with every launch count set
      to 0 just before, and check that each of its kernels ran and the
@@ -28,7 +29,22 @@ Phases, each of which raises on failure:
   5. run one small reconstruct (B=1, T=2, N=2048, 512 decoded points) and
      one small forward (the same input, 2048 target points) on the card
      and on the CPU with the same base samples and noise: equal NFE,
-     points and nll within 1e-3.
+     points and nll within 1e-3;
+  6. train at full width: fresh weights from caspr_init (seed 0), batches
+     of 5 sequences x 5 frames x 1024 points in the form of bench.py's
+     train step (uniform clouds, sorted times, input times x 5), three
+     steps of run_one_epoch(mode="train") with every launch count set to 0
+     before: the encoder's kernels, cnf_dynamics and cnf_dynamics_vjp must
+     run (cnf_dynamics once per CNF evaluation, the VJP once per augmented
+     one) and cnf_primal must not; the loss finite, every parameter moved;
+     steps 2-3 timed and one more profiled; one step from the trained demo
+     weights; a checkpoint saved and read back;
+  7. one train step of a small full-width problem (demo weights, B=1, T=2,
+     1024 input and target points, injected noise) on the card and on the
+     CPU: loss within 1e-4 relative, equal forward and backward NFE, every
+     gradient of the flow and the latent ODE within 1e-3 of its leaf's
+     largest magnitude, the encoder's gradient within 4x the relative L2
+     distance float32 keeps from float64 there (see cross_device_train).
 
 Then it prints its own seconds (from its first line of output on), one
 JSON line listing every kernel and, last, the verdict line
@@ -78,11 +94,17 @@ KERNEL_INFO = {
                    "caspr_tpu/ops/cnf_fused.py:283"),
     "cnf_dynamics": ("caspr_tpu_torch/csrc/cnf_dynamics.cu",
                      "caspr_tpu/ops/cnf_fused.py:233"),
+    "cnf_dynamics_vjp": ("caspr_tpu_torch/csrc/cnf_dynamics_vjp.cu",
+                         "caspr_tpu/ops/cnf_fused.py:485"),
     "emd": ("caspr_tpu_torch/csrc/emd.cu",
             "caspr_tpu/ops/emd_pallas.py:133"),
 }
 RECONSTRUCT_KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
                        "cnf_primal")
+TRAIN_KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate", "cnf_dynamics",
+                 "cnf_dynamics_vjp")
+# the training path's shapes (bench.py's train step, the reference recipe)
+TRAIN_B, TRAIN_T, TRAIN_N = 5, 5, 1024
 
 
 def card_line() -> str:
@@ -293,6 +315,45 @@ def check_kernels(torch, gen):
               * f4,
               4.0 * BT * POINTS * (3 * h + wh.shape[0] * h * h + h * 3)),
         shape=f"y, e ({BT}, {POINTS}, 3), H {h}",
+    )
+
+    # CNF dynamics VJP: the training path's evaluation of the adjoint's
+    # augmented dynamics (25 clouds of 1024 points), random cotangents.
+    # Held to the plain version run in float64 on the card: each output
+    # within 1e-4 of its largest magnitude (float32 sums of up to 51 200
+    # rows in another order); two launches must give the same bits.
+    bt, n = TRAIN_B * TRAIN_T, TRAIN_N
+    tc = torch.cat([torch.full((bt, 1), 0.25, device=dev),
+                    torch.randn((bt, 1600), generator=gen, device=dev)], dim=1)
+    args = (torch.randn((bt, n, 3), generator=gen, device=dev),
+            torch.randn((bt, n, 3), generator=gen, device=dev), cnf_fused.context_gb(odenet, tc),
+            wf, wh, wl, torch.randn((bt, n, 3), generator=gen, device=dev),
+            torch.randn((bt, n), generator=gen, device=dev))
+    got = kernels.cnf_dynamics_vjp(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, kernels.cnf_dynamics_vjp(*args))):
+        raise AssertionError("cnf_dynamics_vjp: two launches on the same input differ")
+    exact = cnf_fused.dynamics_vjp_packed(*(a.double() for a in args))
+    plain = cnf_fused.dynamics_vjp_packed(*args)
+    names = ("dy", "dgb", "dw_first", "dw_hidden", "dw_last")
+    rels = {k: float((g.double() - w).abs().max() / w.abs().max()) for k, g, w in zip(names, got, exact)}
+    plain_rels = {k: float((g.double() - w).abs().max() / w.abs().max())
+                  for k, g, w in zip(names, plain, exact)}
+    if not max(rels.values()) <= 1e-4:
+        raise AssertionError(f"cnf_dynamics_vjp: relative err against float64 {rels} > 1e-4")
+    rows_r = 2 * bt * n
+    rows["cnf_dynamics_vjp"] = dict(
+        max_abs_err=max(float((g.double() - w).abs().max()) for g, w in zip(got, exact)),
+        tolerance="each output 1e-4 relative to its max magnitude, against the float64 plain "
+                  "version; deterministic",
+        rel_err_vs_float64=rels, plain_float32_rel_err_vs_float64=plain_rels,
+        ms=time_ms(torch, lambda: kernels.cnf_dynamics_vjp(*args)),
+        plain_ms=time_ms(torch, lambda: cnf_fused.dynamics_vjp_packed(*args)),
+        library_ms=None,
+        # three matrix passes over the rows (forward recompute, input
+        # cotangents, weight gradients), 2 operations per multiply-add
+        work=((sum(a.numel() for a in args) + sum(g.numel() for g in got)) * f4,
+              3 * 2.0 * rows_r * (3 * h + wh.shape[0] * h * h + h * 3)),
+        shape=f"y, e, ct_dx ({bt}, {n}, 3), H {h}: {rows_r} rows",
     )
 
     # EMD: one evaluation batch's clouds (4 sequences x 10 frames), predicted
@@ -622,6 +683,253 @@ def cross_device(torch):
                           "tolerance": 1e-3}), flush=True)
 
 
+class TrainLoader:
+    """Batches in the form of bench.py's train step: uniform clouds, times
+    sorted per sequence from 0, input times x 5, target times as they are."""
+
+    def __init__(self, num_batches, seed):
+        rng = np.random.default_rng(seed)
+        self.batches = []
+        for _ in range(num_batches):
+            times = np.sort(rng.random((TRAIN_B, TRAIN_T), dtype=np.float32), axis=1)
+            times -= times[:, :1]
+            x = rng.random((TRAIN_B, TRAIN_T, TRAIN_N, 4), dtype=np.float32)
+            x[..., 3] = times[:, :, None] * 5.0
+            target = rng.random((TRAIN_B, TRAIN_T, TRAIN_N, 4), dtype=np.float32)
+            target[..., 3] = times[:, :, None]
+            self.batches.append({"input": x, "target": target})
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
+def run_train_path(torch, kernels, out_dir):
+    """Phase 6: the training path at full width.  Returns its launch counts."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel, caspr_init
+    from caspr_tpu_torch.ops.odeint import flatten_tree
+    from caspr_tpu_torch.train import (TrainLossTracker, load_checkpoint, make_optimizer,
+                                       make_train_step, run_one_epoch, save_checkpoint)
+    from caspr_tpu_torch.train.checkpoint import adam_state
+    from caspr_tpu_torch.weights import load_demo
+
+    dev = torch.device("cuda")
+    cfg = CaSPRConfig()
+    model = CaSPRModel(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params, state = caspr_init(gen, cfg, device=dev)
+    before = [t.clone() for t in flatten_tree(params)[0]]
+    tx = make_optimizer(1e-4)
+    opt = tx.init(params)
+    step = make_train_step(model, tx, 0.01, 100.0)
+    seconds, metrics = [], []
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+        metrics.append(out[3])
+        return out
+
+    loader = TrainLoader(3, SEED + 4)
+    kernels.reset_launches()
+    params, opt, state = run_one_epoch(timed_step, params, opt, state, loader, gen, 0,
+                                       TrainLossTracker(), os.path.join(out_dir, "train_log.txt"),
+                                       mode="train", print_stats_every=1)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    require_launched(counts, TRAIN_KERNELS, "training")
+    if counts["cnf_primal"]:
+        raise AssertionError(f"training launched cnf_primal {counts['cnf_primal']} times")
+    # every CNF evaluation, forward or backward, is one cnf_dynamics launch;
+    # every augmented one (all but f(t1) and f(t0) of the one interval) is
+    # also one VJP launch
+    cnf_evals = sum(m["nfe"][1] for m in metrics)
+    augmented = sum(m["nfe"][1] - m["nfe_forward"][1] - 2 for m in metrics)
+    if counts["cnf_dynamics"] != cnf_evals or counts["cnf_dynamics_vjp"] != augmented:
+        raise AssertionError(f"launches {counts} against CNF evaluations {cnf_evals} "
+                             f"(augmented {augmented})")
+    if not all(np.isfinite(m["loss"]) for m in metrics):
+        raise AssertionError(f"training loss not finite: {[m['loss'] for m in metrics]}")
+    paths = leaf_paths(params)
+    still = [p for p, a, b in zip(paths, before, flatten_tree(params)[0]) if torch.equal(a, b)]
+    if still:
+        raise AssertionError(f"{len(still)} of {len(before)} parameter leaves did not change: {still}")
+    nfe = [{"ode": {"forward": m["nfe_forward"][0], "backward": m["nfe"][0] - m["nfe_forward"][0]},
+            "cnf": {"forward": m["nfe_forward"][1], "backward": m["nfe"][1] - m["nfe_forward"][1]}}
+           for m in metrics]
+    median = float(np.median(seconds[1:]))
+    print(json.dumps({"train": "run_one_epoch(mode=train), caspr_init seed 0", "batch": TRAIN_B,
+                      "frames": TRAIN_T, "points": TRAIN_N, "step_seconds": seconds,
+                      "steps_2_3_median_s": median, "seqs_per_s": TRAIN_B / median,
+                      "losses": [m["loss"] for m in metrics], "nfe": nfe, "launches": counts,
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+    batch = loader.batches[-1]
+    profile_path(torch, lambda: step(params, opt, state, batch["input"], batch["target"], gen),
+                 median * 1e3, f"train step B={TRAIN_B} T={TRAIN_T} N={TRAIN_N}")
+
+    # the trained weights: one step
+    demo_params, demo_state = load_demo(device=dev)
+    start = time.perf_counter()
+    _, _, _, m = step(demo_params, tx.init(demo_params), demo_state, batch["input"],
+                      batch["target"], gen)
+    torch.cuda.synchronize()
+    print(json.dumps({"train": "one step from artifacts/demo_trained.pkl", "loss": m["loss"],
+                      "seconds": time.perf_counter() - start, "nfe": m["nfe"],
+                      "nfe_forward": m["nfe_forward"]}), flush=True)
+    if not np.isfinite(m["loss"]):
+        raise AssertionError(f"demo-weight training loss not finite: {m['loss']}")
+
+    # a checkpoint, written and read back
+    path = os.path.join(out_dir, "train_ckpt.pkl")
+    save_checkpoint(path, params, state, opt, epoch=0)
+    ck = load_checkpoint(path)
+    saved = [np.asarray(a) for a in flatten_tree_np((ck["params"], ck["state"], ck["opt_state"]))]
+    held = [t.detach().cpu().numpy() for t in flatten_tree((params, state))[0]]
+    opt_np = adam_state(params, opt)
+    held += [np.asarray(a) for a in flatten_tree_np(opt_np)]
+    if len(saved) != len(held) or not all(np.array_equal(a, b) for a, b in zip(saved, held)):
+        raise AssertionError("checkpoint read back differs from what was saved")
+    print(json.dumps({"train": "checkpoint round trip", "leaves": len(saved),
+                      "adam_count": int(ck["opt_state"]["count"])}), flush=True)
+    return {k: counts[k] for k in ("cnf_dynamics_vjp",)}
+
+
+def leaf_paths(tree, prefix=""):
+    """Dotted paths of the leaves of a dict / list tree, in order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in leaf_paths(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def flatten_tree_np(tree):
+    """Leaves of a dict / list / tuple tree of arrays, in order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in flatten_tree_np(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in flatten_tree_np(v)]
+    return [tree]
+
+
+class GradRecorder:
+    """An optimizer that keeps the gradients it is given and moves nothing."""
+
+    def __init__(self, leaves):
+        self.leaves = leaves
+        self.grads = None
+
+    def step(self):
+        self.grads = [p.grad.detach().cpu() for p in self.leaves]
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.leaves:
+            p.grad = None
+
+
+def encoder_float32_floor(torch, model, params, x, target):
+    """How far float32 itself lands from float64 on the encoder's gradient:
+    the relative L2 distance between the CPU's float32 and float64
+    gradients of the T-NOCS loss (the encoder alone) on this input.  The
+    float64 run takes the plain point ops (the kernel wrappers take float32
+    only), whose backward the wrappers' equals."""
+    from caspr_tpu_torch.models import pointnet2
+    from caspr_tpu_torch.ops import pointops
+    from caspr_tpu_torch.ops.odeint import flatten_tree
+
+    leaves, rebuild = flatten_tree(params["encoder"])
+
+    def grads(dtype):
+        enc = rebuild([t.detach().to(dtype).requires_grad_() for t in leaves])
+        _, tnocs = model.encode({"encoder": enc}, torch.from_numpy(x).to(dtype))
+        loss = (tnocs - torch.from_numpy(target[..., :4]).to(dtype)).abs().mean()
+        return torch.cat([g.flatten().double() for g in torch.autograd.grad(loss, flatten_tree(enc)[0])])
+
+    g32 = grads(torch.float32)
+    names = ("farthest_point_sampling", "gather_points", "ball_query", "ball_query_pair", "three_nn",
+             "three_interpolate")
+    saved = {n: getattr(pointnet2, n) for n in names}
+    try:
+        for n in names:
+            setattr(pointnet2, n, getattr(pointops, n))
+        g64 = grads(torch.float64)
+    finally:
+        for n, fn in saved.items():
+            setattr(pointnet2, n, fn)
+    return float((g32 - g64).norm() / g64.norm())
+
+
+def cross_device_train(torch):
+    """Phase 7: one small full-width train step on the card and on the CPU.
+
+    The flow's and the latent ODE's gradients are held leaf by leaf to 1e-3
+    of each leaf's largest magnitude.  The encoder's float32 gradient is
+    ill-conditioned leaf by leaf whatever computes it (on the CPU, float32
+    lands up to 5% of some leaves' largest from float64, and the JAX
+    package's eager float32 as far: tests/test_torch_port_adjoint.py::
+    test_encoder_gradients_in_float64_match_jax), so its whole gradient is
+    held, in relative L2, to 4x the distance float32 itself keeps from
+    float64 on this input (``encoder_float32_floor``), and each leaf's error
+    is printed."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.ops.odeint import flatten_tree
+    from caspr_tpu_torch.train import make_train_step
+    from caspr_tpu_torch.weights import load_demo
+
+    cfg = CaSPRConfig()
+    rng = np.random.default_rng(SEED + 5)
+    x = rng.random((1, 2, 1024, 4), dtype=np.float32)
+    x[..., 3] = np.array([0.0, 2.5], np.float32)[None, :, None]
+    # the T-NOCS loss compares the prediction at each input point with the
+    # target point of the same index, so the two clouds are of one size
+    target = rng.random((1, 2, 1024, 4), dtype=np.float32)
+    target[..., 3] = np.array([0.0, 0.5], np.float32)[None, :, None]
+    noise = rng.standard_normal((2, 1024, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = CaSPRModel(cfg, device=dev)
+        params, state = load_demo(device=dev)
+        recorder = GradRecorder(flatten_tree(params)[0])
+        step = make_train_step(model, None, 0.01, 100.0)
+        start = time.perf_counter()
+        _, _, _, m = step(params, recorder, state, x, target, e=torch.from_numpy(noise).to(dev))
+        out[dev] = (m, recorder.grads, time.perf_counter() - start)
+    paths = leaf_paths(params)
+    floor = encoder_float32_floor(torch, model, params, x, target)
+    (card, card_grads, card_s), (cpu, cpu_grads, cpu_s) = out["cuda"], out["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    rel = {p: float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+           for p, a, b in zip(paths, card_grads, cpu_grads)}
+    enc = [i for i, p in enumerate(paths) if p.startswith("encoder.")]
+    flat = lambda grads: torch.cat([grads[i].flatten().double() for i in enc])
+    enc_l2 = float((flat(card_grads) - flat(cpu_grads)).norm() / flat(cpu_grads).norm())
+    rest = {p: r for p, r in rel.items() if not p.startswith("encoder.")}
+    worst = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:5]
+    print(json.dumps({"cross_device": "train step B=1 T=2 N=1024, demo weights",
+                      "loss": [card["loss"], cpu["loss"]], "loss_rel_err": loss_rel,
+                      "nfe": [card["nfe"], cpu["nfe"]],
+                      "nfe_forward": [card["nfe_forward"], cpu["nfe_forward"]],
+                      "flow_and_latent_leaves": len(rest),
+                      "flow_and_latent_rel_err_max": max(rest.values()),
+                      "flow_and_latent_worst": worst(rest),
+                      "encoder_leaves": len(enc), "encoder_rel_l2": enc_l2,
+                      "encoder_float32_floor_rel_l2": floor,
+                      "encoder_leaf_rel_err_median": float(np.median([rel[paths[i]] for i in enc])),
+                      "encoder_worst": worst({paths[i]: rel[paths[i]] for i in enc}),
+                      "seconds": {"card": card_s, "cpu": cpu_s},
+                      "tolerance": {"loss": 1e-4, "flow_and_latent_leaf": 1e-3,
+                                    "encoder_rel_l2": "4 x the float32 floor"}}), flush=True)
+    if (card["nfe"] != cpu["nfe"] or card["nfe_forward"] != cpu["nfe_forward"]
+            or not loss_rel <= 1e-4 or not max(rest.values()) <= 1e-3
+            or not enc_l2 <= 4.0 * floor):
+        raise AssertionError("train step, card vs CPU: see the line above")
+
+
 def main() -> int:
     import torch
 
@@ -649,7 +957,9 @@ def main() -> int:
     params, state = load_demo(device=model.device)
     with tempfile.TemporaryDirectory() as out_dir:
         counts.update(run_eval_path(torch, kernels, model, params, state, out_dir))
-    cross_device(torch)
+        cross_device(torch)
+        counts.update(run_train_path(torch, kernels, out_dir))
+    cross_device_train(torch)
 
     listing = []
     for name, row in rows.items():

@@ -217,9 +217,10 @@ def test_flow_forward_matches(ref):
                                                  training=False)
     )(ref["jparams"]["point_cnf"], ref["jstate"]["point_cnf"], jnp.asarray(pts),
       jnp.asarray(ctx), jnp.asarray(logp0), ref["key"])
-    y, dlogp, nfe = cnf.flow_forward(ref["params"]["point_cnf"], ref["state"]["point_cnf"], ccfg,
-                                     _t(pts), _t(ctx), _t(logp0), e=_t(ref["e"]))
+    y, dlogp, state, nfe = cnf.flow_forward(ref["params"]["point_cnf"], ref["state"]["point_cnf"],
+                                            ccfg, _t(pts), _t(ctx), _t(logp0), e=_t(ref["e"]))
     assert nfe == float(want_nfe)
+    assert all(a is b for a, b in zip(state, ref["state"]["point_cnf"]))  # no update
     np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=0, atol=NLL_TOL)
     np.testing.assert_allclose(dlogp.numpy(), np.asarray(want_dlogp), rtol=0, atol=NLL_TOL)
 
@@ -228,7 +229,7 @@ def test_mbn_forward_inverts_reverse(ref):
     ccfg = ref["cfg"].cnf_config()
     p, s = ref["params"]["point_cnf"][0], ref["state"]["point_cnf"][0]
     x = _t(np.random.default_rng(4).standard_normal((5, 7, 3)).astype(np.float32))
-    y, logp = cnf.mbn_forward(p, s, ccfg, x, torch.zeros(5, 7, 1))
+    y, logp, _ = cnf.mbn_forward(p, s, ccfg, x, torch.zeros(5, 7, 1))
     np.testing.assert_allclose(cnf.mbn_reverse(p, s, ccfg, y).numpy(), x.numpy(), atol=1e-6)
     logdet = (p["weight"] - 0.5 * torch.log(s["running_var"] + ccfg.bn_eps)).sum()
     np.testing.assert_allclose(logp.numpy(), -float(logdet), rtol=1e-6)
@@ -264,9 +265,13 @@ def test_model_forward_pretrain_and_training_branches(ref):
                                atol=TNOCS_TOL)
     loss, cnf_loss, tnocs_loss = compute_losses(out, CNF_W, TNOCS_W)
     assert float(cnf_loss) == 0.0 and float(loss) == float(tnocs_loss) > 0.0
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ref["model"].forward(ref["params"], ref["state"], _t(ref["x"]), _t(ref["target"]),
-                             training=True)
+    # training: the same losses, differentiable, and a new MovingBatchNorm state
+    params = jax.tree_util.tree_map(lambda t: t.clone().requires_grad_(), ref["params"])
+    out, state = ref["model"].forward(params, ref["state"], _t(ref["x"]), _t(ref["target"]),
+                                      training=True, e=_t(ref["e"]))
+    np.testing.assert_allclose(out["nll"].detach().numpy(), ref["out"]["nll"], rtol=0, atol=NLL_TOL)
+    assert out["nll"].requires_grad and state is not ref["state"]
+    assert float(state["point_cnf"][0]["step"][0]) == float(ref["state"]["point_cnf"][0]["step"][0]) + 1
 
 
 def test_eval_step_and_epoch_match_with_padding(ref, tmp_path):
@@ -322,5 +327,3 @@ def test_eval_step_and_epoch_match_with_padding(ref, tmp_path):
     shape_of = lambda path: re.sub(r"-?\d+\.\d+", "#", open(path).read())
     assert shape_of(log_out) == shape_of(os.path.join(tmp_path, "jax.txt"))
     assert "TEST Mean CNF NLL" in shape_of(log_out)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        run_one_epoch(step, ref["params"], None, ref["state"], _Loader(), None, 0, tracker, log_out)

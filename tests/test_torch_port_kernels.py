@@ -6,8 +6,13 @@ does not take.  The kernel-versus-plain tests need the card and skip
 without one (the CUDA kernels have no CPU mode); on the card they hold
 each kernel to its plain version with the tolerances of chip_smoke.py:
 indices identical, gather and interpolation bit-exact (same rounding
-order, no FMA), the fused CNF stacks within 1e-4 of each output's max
-magnitude (float32 sums of 512 terms in another order).
+order, no FMA), the fused CNF stacks and the VJP within 1e-4 of each
+output's max magnitude (float32 sums of 512 terms in another order; the
+VJP's weight gradients are sums over every point, in a fixed order: two
+launches give the same bits).  The backward of the gather and the
+interpolation wrappers is plain PyTorch on both devices: on the card it is
+held to the CPU's within 1e-5 of each gradient's max magnitude (atomic
+scatter-adds sum in another order).
 
 The EMD cost is held to the float64 value of the plain version, as the JAX
 package holds its TPU kernel (tools/hw_exactness.py), in two steps.  The
@@ -87,6 +92,8 @@ def _calls(x):
         ("cnf_primal", kernels.cnf_primal(*cnf), cnf_fused.primal_packed(*cnf)),
         ("cnf_dynamics", kernels.cnf_dynamics(cnf[0], _noise(cnf[0]), *cnf[1:]),
          cnf_fused.dynamics_packed(cnf[0], _noise(cnf[0]), *cnf[1:])),
+        ("cnf_dynamics_vjp", kernels.cnf_dynamics_vjp(*_vjp_inputs(cnf)),
+         cnf_fused.dynamics_vjp_packed(*_vjp_inputs(cnf))),
         # N != M, neither a multiple of the warp; and identical clouds
         ("emd", kernels.approx_match_emd(xyz[:, :100].contiguous(), dup[:, :150].contiguous()),
          emd_plain.emd_plain(xyz[:, :100], dup[:, :150])),
@@ -103,6 +110,13 @@ def _assert_emd_close_to_float64(a, b, pair_tol, mean_floor=0.0):
     assert float(kernel_rel.max()) <= pair_tol, (kernel_rel, plain_rel)
     assert float(kernel_rel.mean()) <= max(2.0 * float(plain_rel.mean()), mean_floor), (
         kernel_rel, plain_rel)
+
+
+def _vjp_inputs(cnf):
+    """cnf_dynamics_vjp's arguments from _cnf_inputs, with noise and
+    cotangents."""
+    y, gb, wf, wh, wl = cnf
+    return (y, _noise(y), gb, wf, wh, wl, _noise(y, seed=8), _noise(y[..., 0], seed=9))
 
 
 def _leaves(result):
@@ -143,6 +157,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
             kernels.cnf_primal(y, gb, wf, wh, wl[:, :10].contiguous())
         with pytest.raises(ValueError):
             kernels.cnf_dynamics(y, y[:, :50].contiguous(), gb, wf, wh, wl)
+        with pytest.raises(ValueError):
+            kernels.cnf_dynamics_vjp(y, y, gb, wf, wh, wl, y, y[..., 0].T.contiguous())
         with pytest.raises(ValueError):
             kernels.three_nn(xyz, cen[:, :2].contiguous())
     elif bad == "device":  # neither CPU nor CUDA: no silent route
@@ -185,7 +201,7 @@ def test_kernel_matches_plain_on_the_card(cuda, kernel):
     assert cases and kernels.launches[kernel] == len(cases)
     for got, want in cases:
         for g, w in zip(_leaves(got), _leaves(want)):
-            if kernel in ("cnf_primal", "cnf_dynamics"):
+            if kernel in ("cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp"):
                 assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
             elif kernel == "emd":  # coarse here; the float64 gate is below
                 assert torch.allclose(g, w, rtol=5e-3, atol=1e-5)
@@ -204,6 +220,31 @@ def test_cnf_kernels_ragged_tile_on_the_card(cuda):
     for g, w in zip(kernels.cnf_dynamics(y, e, gb, wf, wh, wl),
                     cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl)):
         assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
+    args = _vjp_inputs((y, gb, wf, wh, wl))
+    got = kernels.cnf_dynamics_vjp(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels.cnf_dynamics_vjp(*args)))
+    for g, w in zip(got, cnf_fused.dynamics_vjp_packed(*args)):
+        assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("op", ["gather", "three_interpolate"])
+def test_wrapper_gradients_on_the_card_match_the_cpu(cuda, op):
+    x = _inputs("cpu")
+    d2, nn_idx = pointops.three_nn(x["xyz"], x["xyz"][:, :64].contiguous())
+
+    def grads(dev):
+        if op == "gather":
+            feats = x["feats"].to(dev).requires_grad_()
+            inputs, out = (feats,), kernels.gather_points(feats, x["idx"].to(dev))
+        else:
+            feats = x["feats"][:, :64].contiguous().to(dev).requires_grad_()
+            w = (1.0 / (d2 + 1e-8)).to(dev).requires_grad_()
+            inputs, out = (feats, w), kernels.three_interpolate(feats, nn_idx.to(dev), w)
+        cot = _noise(out.detach().cpu()).to(dev)
+        return torch.autograd.grad((out * cot).sum(), inputs)
+
+    for g, w in zip(grads(cuda), grads("cpu")):
+        assert float((g.cpu() - w).abs().max() / w.abs().max()) <= 1e-5
 
 
 def test_emd_protocol_size_on_the_card(cuda):

@@ -269,6 +269,7 @@ def test_port_imports_no_jax():
         "import caspr_tpu_torch, caspr_tpu_torch.nn, caspr_tpu_torch.ops.kernels\n"
         "import caspr_tpu_torch.models, caspr_tpu_torch.weights, chip_smoke\n"
         "import caspr_tpu_torch.train, caspr_tpu_torch.utils.evaluations\n"
+        "import caspr_tpu_torch.train.checkpoint, caspr_tpu_torch.ops.odeint\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'caspr_tpu'))\n"
         "assert 'caspr_tpu_torch' in sys.modules\n"
         "print('BAD', bad)\n"
