@@ -44,6 +44,7 @@ class CaSPRConfig:
     global_feat_size: int = 1024
     space_time_pt_feat: int = 64
     cnf_dims: Tuple[int, ...] = (512, 512, 512)
+    sa_impl: str = "xla"  # "xla" | "factored" | "fused": see models/pointnet2.py
 
     def encoder_config(self) -> TPointNet2Config:
         return TPointNet2Config(
@@ -58,6 +59,7 @@ class CaSPRConfig:
             ball_samples=tuple(self.ball_samples),
             global_feat_size=self.global_feat_size,
             space_time_pt_feat=self.space_time_pt_feat,
+            sa_impl=self.sa_impl,
         )
 
     def latent_ode_config(self) -> LatentODEConfig:

@@ -3,16 +3,28 @@ caspr_tpu/models/pointnet2.py): five set-abstraction (SA) levels with two
 grouping scales each, five feature-propagation (FP) levels, and a
 conv-GN-ReLU-conv head.
 
-It follows the composition the JAX package runs off the TPU: FPS, the
-dual-radius ball query, group_points, a mini-PointNet and a max per
-scale.  Two exact shortcuts of the JAX defaults are kept:
+Per SA level: FPS, the dual-radius ball query, and per scale the grouping,
+a mini-PointNet and a max (ops/sa_fused.py), computed as
+``PointNet2Config.sa_impl`` says.  The JAX package's selections are config
+fields here, each defaulting to what the port ran before they existed:
 
-  - hierarchical FPS: once one real FPS has run, each later level's
-    centroids are a prefix of its (FPS-ordered) input, so one FPS per
-    cloud serves all five levels;
-  - factored FP conv1: 3-NN interpolation is linear with scalar weights,
-    so conv1(concat([interp(F), skip])) == interp(F @ Wi^T) + skip @ Ws^T + b
-    and the wide matmul runs on the coarse level's points.
+  - ``sa_impl`` (its ``CASPR_TPU_SA``): "xla", the plain composition;
+    "factored", conv1 factored through the gather (the JAX package's
+    default on its TPU); "fused", one kernel per scale (csrc/sa_fused.cu).
+    The JAX package's fused, fused2 and fused3 (its v1, v2 and v3 Pallas
+    kernels, which compute the same values) are all served by that one
+    kernel, which computes the factored (v2 / v3) arithmetic.  A scale
+    the kernel does not take falls to "factored" if it has three convs,
+    else to "xla", as the JAX package's fused3 branch does;
+  - ``fps`` (``CASPR_TPU_FPS``): "hier", one FPS per cloud, since once one
+    real FPS has run each later level's centroids are a prefix of its
+    FPS-ordered input; "level", an FPS per level;
+  - ``factored_fp`` (``CASPR_TPU_FACTORED_FP``): 3-NN interpolation is
+    linear with scalar weights, so conv1(concat([interp(F), skip])) ==
+    interp(F @ Wi^T) + skip @ Ws^T + b and the wide matmul runs on the
+    coarse level's points;
+  - ``bq_pair`` (``CASPR_TPU_BQ_PAIR``): both radii of a level from one
+    ball-query launch, or one launch per radius (the same indices).
 
 The point-cloud primitives come from ``ops`` and run the CUDA kernels for
 CUDA tensors.
@@ -35,8 +47,16 @@ from ..ops import (
     three_interpolate,
     three_nn,
 )
+from ..ops.sa_fused import (
+    NUM_GROUPS,
+    can_fuse,
+    fused_sa_scale,
+    mini_pointnet_apply,
+    sa_scale_factored,
+)
 
-NUM_GROUPS = 16
+SA_IMPLS = ("xla", "factored", "fused")
+FPS_MODES = ("hier", "level")
 
 
 @dataclass(frozen=True)
@@ -54,6 +74,16 @@ class PointNet2Config:
     use_xyz_feature: bool = True
     sa_points: Tuple[int, ...] = (1024, 512, 256, 64, 16)
     ball_samples: Tuple[int, int] = (16, 32)
+    sa_impl: str = "xla"
+    fps: str = "hier"
+    factored_fp: bool = True
+    bq_pair: bool = True
+
+    def __post_init__(self):
+        if self.sa_impl not in SA_IMPLS:
+            raise ValueError(f"sa_impl={self.sa_impl!r}: expected one of {SA_IMPLS}")
+        if self.fps not in FPS_MODES:
+            raise ValueError(f"fps={self.fps!r}: expected one of {FPS_MODES}")
 
     def sa_levels(self) -> List[SALevel]:
         r = self.radii_list
@@ -110,15 +140,16 @@ def pointnet2_param_shapes(cfg: PointNet2Config):
     return shapes
 
 
-def _mini_pointnet_apply(params, x):
-    """x: (B', K, C_in) -> (B', feat): conv + GN on every layer, ReLU on all
-    but the last, max over the K ball samples."""
-    n = len(params["convs"])
-    for i in range(n):
-        x = group_norm(params["norms"][i], conv1x1(params["convs"][i], x), NUM_GROUPS)
-        if i < n - 1:
-            x = torch.relu(x)
-    return x.amax(dim=1)
+def _sa_impl(cfg: PointNet2Config, sp, k: int) -> str:
+    """How one SA scale runs: "xla" | "factored" | "fused" (see the module
+    docstring); without relative-xyz features every mode runs "xla"."""
+    if not cfg.use_xyz_feature:
+        return "xla"
+    if cfg.sa_impl == "fused" and can_fuse(sp, k):
+        return "fused"
+    if cfg.sa_impl in ("fused", "factored") and len(sp["convs"]) == 3:
+        return "factored"
+    return "xla"
 
 
 def pointnet2_apply(params, cfg: PointNet2Config, points):
@@ -131,7 +162,7 @@ def pointnet2_apply(params, cfg: PointNet2Config, points):
     fps_ordered = False  # is `xyz` in FPS selection order?
     for lvl, lvl_params in zip(cfg.sa_levels(), params["set_abstractions"]):
         m, n = lvl.num_points_out, xyz.shape[1]
-        if fps_ordered and m <= n:
+        if cfg.fps == "hier" and fps_ordered and m <= n:
             new_xyz = xyz[:, :m].contiguous()
         else:
             idx = farthest_point_sampling(xyz, m)
@@ -140,18 +171,25 @@ def pointnet2_apply(params, cfg: PointNet2Config, points):
                 fps_ordered = True  # gather order = FPS selection order
             elif m > n:
                 fps_ordered = False  # repeat-padded: ordering broken
-        if len(lvl.scales) == 2:
+        if len(lvl.scales) == 2 and cfg.bq_pair:
             (r1, k1, _), (r2, k2, _) = lvl.scales
             gidxs = list(ball_query_pair(xyz, new_xyz, r1, k1, r2, k2))
         else:
             gidxs = [ball_query(xyz, new_xyz, radius, k) for (radius, k, _) in lvl.scales]
         scale_feats = []
-        for sp, gidx in zip(lvl_params["scales"], gidxs):
-            grouped = group_points(xyz, new_xyz, features, gidx, cfg.use_xyz_feature,
-                                   gather=gather_points)  # (B, M, K, C_in)
-            b, mm, kk, cin = grouped.shape
-            h = _mini_pointnet_apply(sp, grouped.reshape(b * mm, kk, cin))
-            scale_feats.append(h.reshape(b, mm, -1))
+        for (_, k, _), sp, gidx in zip(lvl.scales, lvl_params["scales"], gidxs):
+            impl = _sa_impl(cfg, sp, k)
+            if impl == "fused":
+                scale_feats.append(fused_sa_scale(sp, xyz, features, new_xyz, gidx))
+            elif impl == "factored":
+                scale_feats.append(sa_scale_factored(sp, xyz, features, new_xyz, gidx,
+                                                     gather=gather_points))
+            else:
+                grouped = group_points(xyz, new_xyz, features, gidx, cfg.use_xyz_feature,
+                                       gather=gather_points)  # (B, M, K, C_in)
+                b, mm, kk, cin = grouped.shape
+                h = mini_pointnet_apply(sp, grouped.reshape(b * mm, kk, cin))
+                scale_feats.append(h.reshape(b, mm, -1))
         features = torch.cat(scale_feats, dim=-1)
         xyz = new_xyz
         xyz_list.append(xyz)
@@ -167,7 +205,7 @@ def pointnet2_apply(params, cfg: PointNet2Config, points):
         skip = feat_list[target]
         conv0 = fp_params["convs"][0]
         c_src = src.shape[-1]
-        if conv0["weight"].shape[0] <= c_src:  # factored FP conv1
+        if cfg.factored_fp and conv0["weight"].shape[0] <= c_src:
             g = conv1x1({"weight": conv0["weight"][:, :c_src]}, src)
             h = three_interpolate(g.contiguous(), idx, w.contiguous())
             if skip is not None:

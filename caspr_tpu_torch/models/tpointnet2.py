@@ -30,6 +30,7 @@ class TPointNet2Config:
     space_time_pt_feat: int = 64
     sa_points: Tuple[int, ...] = (1024, 512, 256, 64, 16)
     ball_samples: Tuple[int, int] = (16, 32)
+    sa_impl: str = "xla"  # how each SA scale runs: see models/pointnet2.py
 
     def pointnet2_config(self) -> PointNet2Config:
         in_features = (3 if self.augment_quad else 0) + (3 if self.augment_pairs else 0)
@@ -40,6 +41,7 @@ class TPointNet2Config:
             radii_list=tuple(self.radii_list),
             sa_points=tuple(self.sa_points),
             ball_samples=tuple(self.ball_samples),
+            sa_impl=self.sa_impl,
         )
 
     @property

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, dispatch.
 
-Nine kernels, one per TPU kernel of the reconstruct, evaluation and
+Ten kernels, one per TPU kernel of the reconstruct, evaluation and
 training paths (sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
 
   fps                -> farthest_point_sampling
@@ -14,13 +14,16 @@ training paths (sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
   cnf_dynamics_vjp   -> cnf_dynamics_vjp (its VJP: the adjoint's augmented
                         dynamics in training)
   emd                -> approx_match_emd (the approxmatch EMD cost)
+  sa_fused           -> sa_fused (one set-abstraction scale after the
+                        factored conv1: gather, GroupNorms, conv2, conv3,
+                        max over the ball)
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then takes one of two routes by the device of its inputs: a
 CPU tensor goes to the plain PyTorch version (``ops/pointops.py``,
 ``ops/cnf_fused.py::primal_packed``, ``dynamics_packed`` and
 ``dynamics_vjp_packed``,
-``ops/emd_plain.py::emd_plain``); a CUDA tensor launches the kernel on
+``ops/emd_plain.py::emd_plain``, ``ops/sa_fused.py::sa_stack_plain``); a CUDA tensor launches the kernel on
 the current stream, raises if the launch fails, and adds one to
 ``launches[name]``.  There is no fallback from the card to the plain
 version.  ``approx_match_emd_float64`` runs the emd kernel's body in
@@ -46,6 +49,7 @@ import torch
 from . import pointops
 from .cnf_fused import dynamics_packed, dynamics_vjp_packed, primal_packed
 from .emd_plain import emd_plain
+from .sa_fused import MAX_K, MAX_WIDTH, NUM_GROUPS, sa_stack_plain
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -60,6 +64,7 @@ SOURCES = (
     "cnf_dynamics.cu",
     "cnf_dynamics_vjp.cu",
     "emd.cu",
+    "sa_fused.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,7 +72,7 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
-           "cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp", "emd")
+           "cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp", "emd", "sa_fused")
 EMD_MAX_POINTS = 11520  # N + M the emd kernel's shared-memory layout holds (float32)
 # Launches of each kernel since the last reset_launches(); bumped only where
 # a kernel is launched on the card.
@@ -85,6 +90,7 @@ _SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
     "caspr_cnf_dynamics_vjp": [_P] * 13 + [_I] * 6 + [_P],
     "caspr_approx_match_emd": [_P, _P, _P, _I, _I, _I, _P],
     "caspr_approx_match_emd_f64": [_P, _P, _P, _I, _I, _I, _P],
+    "caspr_sa_fused": [_P] * 10 + [_I] * 7 + [_P],
 }
 _lib = None
 _lib_lock = threading.Lock()
@@ -189,6 +195,11 @@ def _check(name, t, dtype, ndim, last=None):
         raise ValueError(f"{name}: expected last dim {last}, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _check_shape(name, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} {tuple(t.shape)}, expected {tuple(shape)}")
 
 
 def _on_card(*tensors) -> bool:
@@ -533,3 +544,57 @@ def approx_match_emd_float64(xyz1, xyz2):
     _launch(None, "caspr_approx_match_emd_f64", xyz1.device,
             xyz1.data_ptr(), xyz2.data_ptr(), cost.data_ptr(), pairs, n, m)
     return cost
+
+
+def sa_fused(t, u, gidx, sp):
+    """One SA scale after its factored conv1 (ops/sa_fused.py): t (B, N, d1)
+    over the source points, u (B, M, d1) over the centres, gidx (B, M, K)
+    int32, sp the mini-PointNet's parameters (three convs in (out, in)
+    layout, the first folded into t and u; three GroupNorms) -> (B, M, d3):
+    GroupNorm(16) + ReLU of t[idx] - u (indices clamped to [0, N)), conv2 +
+    GroupNorm + ReLU, conv3 + GroupNorm, max over K.  No gradient flows
+    through it on either device: ``ops.sa_fused.fused_sa_scale`` is the
+    differentiable form.  Deterministic on the card (fixed sum orders).
+    The kernel forms t[idx] - u and the first GroupNorm in float64 (see
+    csrc/sa_fused.cu), so on the card it is closer to the float64 value of
+    the stack than its float32 plain version is."""
+    _check("t", t, torch.float32, 3)
+    _check("u", u, torch.float32, 3)
+    _check("gidx", gidx, torch.int32, 3)
+    _same_batch(t, u, gidx)
+    b, n, d1 = t.shape
+    m, k = gidx.shape[1:]
+    convs, norms = sp["convs"], sp["norms"]
+    if len(convs) != 3 or len(norms) != 3:
+        raise ValueError(f"sa_fused: expected 3 convs and 3 norms, got {len(convs)}, {len(norms)}")
+    _check_shape("u", u, (b, m, d1))
+    d2, d3 = convs[1]["weight"].shape[0], convs[2]["weight"].shape[0]
+    # the parameters need not be contiguous: the kernel reads copies
+    params = {"w2": (convs[1]["weight"], (d2, d1)), "b2": (convs[1]["bias"], (d2,)),
+              "w3": (convs[2]["weight"], (d3, d2)), "b3": (convs[2]["bias"], (d3,))}
+    for i, d in enumerate((d1, d2, d3)):
+        params[f"gn{i}_weight"] = (norms[i]["weight"], (d,))
+        params[f"gn{i}_bias"] = (norms[i]["bias"], (d,))
+    for name, (tensor, shape) in params.items():
+        if not isinstance(tensor, torch.Tensor) or tensor.dtype != torch.float32:
+            raise TypeError(f"sa_fused: {name} must be a float32 tensor")
+        _check_shape(name, tensor, shape)
+    if not _on_card(t, u, gidx, *(tensor for tensor, _ in params.values())):
+        with torch.no_grad():
+            return sa_stack_plain(t, u, gidx, sp)
+    if (n < 1 or not 1 <= k <= MAX_K
+            or any(d % NUM_GROUPS or d > MAX_WIDTH for d in (d1, d2, d3))):
+        raise ValueError(f"sa_fused kernel takes N >= 1, K <= {MAX_K} and widths that are multiples "
+                         f"of {NUM_GROUPS} up to {MAX_WIDTH}, got N={n}, K={k}, {(d1, d2, d3)}")
+    w2t = convs[1]["weight"].T.contiguous()  # (in, out): coalesced rows
+    w3t = convs[2]["weight"].T.contiguous()
+    b2, b3 = convs[1]["bias"].contiguous(), convs[2]["bias"].contiguous()
+    gn_weight = torch.cat([nm["weight"] for nm in norms])
+    gn_bias = torch.cat([nm["bias"] for nm in norms])
+    out = torch.empty((b, m, d3), dtype=torch.float32, device=t.device)
+    if out.numel():
+        _launch("sa_fused", "caspr_sa_fused", t.device,
+                t.data_ptr(), u.data_ptr(), gidx.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+                w3t.data_ptr(), b3.data_ptr(),
+                gn_weight.data_ptr(), gn_bias.data_ptr(), out.data_ptr(), b, n, m, k, d1, d2, d3)
+    return out

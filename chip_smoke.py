@@ -5,18 +5,25 @@
 
 Phases, each of which raises on failure:
 
-  1. print the card's name and power limit; build the nine CUDA kernels
+  1. print the card's name and power limit; build the ten CUDA kernels
      from caspr_tpu_torch/csrc and print the build time;
   2. hold every kernel against its plain PyTorch version on the card, at
      the shapes of the batch-4 reconstruct and evaluation paths (the VJP at
-     the training path's), and time kernel, plain version and (where one
-     PyTorch call computes the same function) the library call with CUDA
-     events;
+     the training path's; sa_fused at all ten SA scale shapes of the
+     reconstruct's encoder, on the phase-3 input, against its plain version
+     in float64), and time kernel, plain version and (where one PyTorch
+     call computes the same function) the library call with CUDA events;
   3. run full-width CaSPRModel.reconstruct (B=4, T=10, N=2048, trained
      weights from artifacts/demo_trained.pkl) with every launch count set
      to 0 just before, and check that each of its kernels ran and the
      output is finite and of the right shape; time three more runs, and
      profile one (device time by kernel, the card's idle share);
+ 3b. the same reconstruct with each SA mode (sa_impl "xla", "factored",
+     "fused"), the launch counts set to 0 before each: sa_fused 10 times
+     and gather once with "fused", gather 11 times and no sa_fused
+     otherwise; the fused encode (z0, T-NOCS) against the factored one in
+     relative L2; encode and reconstruct times and NFE per mode; one fused
+     reconstruct profiled;
   4. run the evaluation path at full width with the same weights on
      synthetic protocol-shaped batches, the launch counts set to 0 before
      each step: (a) the shape-reconstruction protocol with observed steps
@@ -39,6 +46,11 @@ Phases, each of which raises on failure:
      one) and cnf_primal must not; the loss finite, every parameter moved;
      steps 2-3 timed and one more profiled; one step from the trained demo
      weights; a checkpoint saved and read back;
+ 6b. train with sa_impl="fused": two steps at 5 x 5 x 1024 from caspr_init
+     (seed 0), sa_fused launched 10 times a step, the loss finite, every
+     parameter moved; the encoder's gradient of the T-NOCS loss through
+     "fused" against "xla" on phase 7's input, in relative L2 within 4x the
+     float32 floor of phase 7;
   7. one train step of a small full-width problem (demo weights, B=1, T=2,
      1024 input and target points, injected noise) on the card and on the
      CPU: loss within 1e-4 relative, equal forward and backward NFE, every
@@ -54,6 +66,7 @@ repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -98,6 +111,10 @@ KERNEL_INFO = {
                          "caspr_tpu/ops/cnf_fused.py:485"),
     "emd": ("caspr_tpu_torch/csrc/emd.cu",
             "caspr_tpu/ops/emd_pallas.py:133"),
+    # one kernel for _sa3_call (here), _sa2_call (sa_fused2.py:228) and
+    # _sa_call (sa_fused.py:163)
+    "sa_fused": ("caspr_tpu_torch/csrc/sa_fused.cu",
+                 "caspr_tpu/ops/sa_fused2.py:357"),
 }
 RECONSTRUCT_KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
                        "cnf_primal")
@@ -402,10 +419,114 @@ def check_kernels(torch, gen):
               10 * pairs_nm * (2 * 11 + 9), 10 * pairs_nm * 2),
         shape=f"({BT}, {POINTS}, 3) x ({BT}, {POINTS}, 3) -> ({BT},)",
     )
+    rows["sa_fused"] = check_sa_fused(torch)
     for name, row in rows.items():
         print(json.dumps({"kernel": name, **{k: v for k, v in row.items() if k != "work"}}),
               flush=True)
     return rows
+
+
+def sa_scale_inputs(torch):
+    """(sp, xyz, features, new_xyz, gidx) of the ten SA scales of the
+    phase-3 reconstruct's encoder (its input, the demo weights, the port's
+    FPS and ball query), captured from an encode with sa_impl="factored"."""
+    from caspr_tpu_torch.models import pointnet2
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.weights import load_demo
+
+    model = CaSPRModel(CaSPRConfig(sa_impl="factored"), device="cuda")
+    params, _ = load_demo(device=model.device)
+    x, _, _ = reconstruct_input(torch)
+    captured = []
+    real = pointnet2.sa_scale_factored
+
+    def capture(sp, xyz, features, new_xyz, gidx, gather=None):
+        captured.append((sp, xyz, features, new_xyz, gidx))
+        return real(sp, xyz, features, new_xyz, gidx, gather=gather)
+
+    pointnet2.sa_scale_factored = capture
+    try:
+        with torch.no_grad():
+            model.encode(params, x)
+    finally:
+        pointnet2.sa_scale_factored = real
+    if len(captured) != 10:
+        raise AssertionError(f"captured {len(captured)} SA scales, expected 10")
+    return captured
+
+
+def check_sa_fused(torch):
+    """Phase 2, sa_fused: the kernel at the ten SA scale shapes of the
+    reconstruct, held to its plain version run in float64 on the card, each
+    output within 1e-4 of its largest magnitude; two launches must give the
+    same bits.  Where a ball's variance is far below GroupNorm's eps (balls
+    of one or two distinct points at the small radii), GroupNorm scales a
+    float32 rounding by up to 316: the float32 plain version lands up to
+    6.5e-4 from the float64 value at level 1, so the kernel forms t[idx] - u
+    and the first GroupNorm in double (csrc/sa_fused.cu).  No PyTorch call computes the stack: library none."""
+    from caspr_tpu_torch.ops import kernels
+    from caspr_tpu_torch.ops.sa_fused import factors, sa_stack_plain
+
+    f4 = 4.0
+    per_shape, errs, work = [], [], [0.0, 0.0]
+    for sp, xyz, features, new_xyz, gidx in sa_scale_inputs(torch):
+        with torch.no_grad():
+            t, u = factors(sp, xyz, features, new_xyz)
+            got = kernels.sa_fused(t, u, gidx, sp)
+            if not torch.equal(got, kernels.sa_fused(t, u, gidx, sp)):
+                raise AssertionError(f"sa_fused {tuple(gidx.shape)}: two launches differ")
+            sp64 = {part: [{k: v.double() for k, v in layer.items()} for layer in sp[part]]
+                    for part in ("convs", "norms")}
+            exact = sa_stack_plain(t.double(), u.double(), gidx, sp64)
+            plain = sa_stack_plain(t, u, gidx, sp)
+        largest = float(exact.abs().max())
+        err = float((got.double() - exact).abs().max())
+        plain_err = float((plain.double() - exact).abs().max())
+        b, m, k = gidx.shape
+        d1, d2, d3 = (c["weight"].shape[0] for c in sp["convs"])
+        rows_r = b * m * k
+        weights = sum(v.numel() for part in ("convs", "norms") for layer in sp[part][1:]
+                      for v in layer.values()) + 2 * d1
+        # conv2 and conv3 at 2 operations a multiply-add, and about 8 an
+        # activation for the subtraction, the GroupNorms and the ReLUs
+        shape_work = ((t.numel() + u.numel() + gidx.numel() + weights + got.numel()) * f4,
+                      2.0 * rows_r * (d1 * d2 + d2 * d3) + 8.0 * rows_r * (d1 + d2 + d3))
+        work[0] += shape_work[0]
+        work[1] += shape_work[1]
+        bound_ms, bound_by = bound(*shape_work)
+        row = dict(shape=f"B {b}, N {t.shape[1]}, M {m}, K {k}, widths {(d1, d2, d3)}",
+                   rel_err_vs_float64=err / largest, plain_rel_err_vs_float64=plain_err / largest,
+                   max_abs_err=err,
+                   ms=time_ms(torch, lambda: kernels.sa_fused(t, u, gidx, sp)),
+                   plain_ms=time_ms(torch, lambda: sa_stack_plain(t, u, gidx, sp)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        print(json.dumps({"kernel": "sa_fused", "scale": len(per_shape), **row}), flush=True)
+        per_shape.append(row)
+        errs.append(err / largest)
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"sa_fused: relative errors against float64 {errs} > 1e-4")
+    largest_shape = max(per_shape, key=lambda r: r["ms"])
+    return dict(
+        max_abs_err=max(r["max_abs_err"] for r in per_shape),
+        tolerance="each output 1e-4 of its max magnitude against the float64 plain version; "
+                  "deterministic",
+        rel_err_vs_float64=max(errs),
+        plain_rel_err_vs_float64=max(r["plain_rel_err_vs_float64"] for r in per_shape),
+        ms=sum(r["ms"] for r in per_shape), plain_ms=sum(r["plain_ms"] for r in per_shape),
+        library_ms=None, work=tuple(work),
+        largest_shape_ms=largest_shape["ms"], largest_shape=largest_shape["shape"],
+        shape="sum over the 10 SA scale shapes of one batch-4 reconstruct, one launch each",
+    )
+
+
+def reconstruct_input(torch):
+    """The phase-3 reconstruct's input: (x (B, T, N, 4) uniform clouds with
+    times 0..5, the decode times, a generator), on the card from SEED."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand((BATCH, FRAMES, POINTS, 4), generator=gen, device=dev)
+    x[..., 3] = torch.linspace(0.0, 5.0, FRAMES, device=dev)[None, :, None]
+    return x, torch.linspace(0.0, 1.0, FRAMES, device=dev), gen
 
 
 def run_path(torch, kernels):
@@ -417,10 +538,7 @@ def run_path(torch, kernels):
     cfg = CaSPRConfig()
     model = CaSPRModel(cfg, device="cuda")
     params, state = load_demo(device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    x = torch.rand((BATCH, FRAMES, POINTS, 4), generator=gen, device=dev)
-    x[..., 3] = torch.linspace(0.0, 5.0, FRAMES, device=dev)[None, :, None]
-    timestamps = torch.linspace(0.0, 1.0, FRAMES, device=dev)
+    x, timestamps, gen = reconstruct_input(torch)
 
     def recon():
         return model.reconstruct(params, state, x, gen, num_points=POINTS,
@@ -452,6 +570,88 @@ def run_path(torch, kernels):
                       "seqs_per_s": BATCH / median, "launches": counts}), flush=True)
     profile_path(torch, recon, median * 1e3, "reconstruct B=4 T=10 N=2048")
     return counts
+
+
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def encode_float32_floor(torch, params, x):
+    """How far float32 itself lands from float64 on the encode of x: the
+    relative L2 distances of z0 and T-NOCS between the card's float32
+    encode (sa_impl "xla", the kernels) and its float64 encode (the plain
+    point ops), on the card."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.ops.odeint import flatten_tree
+
+    model = CaSPRModel(CaSPRConfig(), device="cuda")
+    leaves, rebuild = flatten_tree(params["encoder"])
+    with torch.no_grad():
+        z32, t32 = model.encode(params, x)
+        with plain_point_ops():
+            z64, t64 = model.encode({"encoder": rebuild([t.double() for t in leaves])}, x.double())
+    return {"z0": rel_l2(z32, z64), "tnocs": rel_l2(t32, t64)}
+
+
+def run_sa_modes(torch, kernels):
+    """Phase 3b: the phase-3 reconstruct with each SA mode.  Returns the
+    launch counts of the fused reconstruct."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.models.pointnet2 import SA_IMPLS
+    from caspr_tpu_torch.weights import load_demo
+
+    params, state = load_demo(device=torch.device("cuda"))
+    encodes, report = {}, {}
+    for mode in SA_IMPLS:
+        model = CaSPRModel(CaSPRConfig(sa_impl=mode), device="cuda")
+        x, timestamps, gen = reconstruct_input(torch)
+
+        def recon():
+            return model.reconstruct(params, state, x, gen, num_points=POINTS,
+                                     timestamps=timestamps)
+
+        recon()  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        _, _, x_rec, tnocs, nfe = recon()
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        want = {"sa_fused": 10 if mode == "fused" else 0, "gather": 1 if mode == "fused" else 11}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"reconstruct with sa_impl={mode}: launches {counts}, expected {want}")
+        require_launched(counts, RECONSTRUCT_KERNELS, f"reconstruct with sa_impl={mode}")
+        if (tuple(x_rec.shape) != (BATCH, FRAMES, POINTS, 3) or not bool(torch.isfinite(x_rec).all())
+                or not bool(torch.isfinite(tnocs).all())):
+            raise AssertionError(f"reconstruct with sa_impl={mode}: output bad")
+        with torch.no_grad():
+            encodes[mode], _ = event_ms(torch, lambda: model.encode(params, x))
+            encode_ms = float(np.median([event_ms(torch, lambda: model.encode(params, x))[1]
+                                         for _ in range(5)]))
+        repeats = []
+        for _ in range(3):
+            start = time.perf_counter()
+            recon()
+            torch.cuda.synchronize()
+            repeats.append(time.perf_counter() - start)
+        report[mode] = {"encode_ms": encode_ms, "reconstruct_s": float(np.median(repeats)),
+                        "repeat_seconds": repeats, "nfe_ode": nfe[0], "nfe_cnf": nfe[1],
+                        "launches": counts}
+        if mode == "fused":
+            fused = (recon, counts)
+    rel = {name: rel_l2(encodes["fused"][i], encodes["factored"][i])
+           for i, name in enumerate(("z0", "tnocs"))}
+    floor = encode_float32_floor(torch, params, reconstruct_input(torch)[0])
+    bar = {name: max(1e-4, 4.0 * floor[name]) for name in rel}
+    print(json.dumps({"path": "reconstruct by SA mode", "batch": BATCH, "frames": FRAMES,
+                      "points": POINTS, "modes": report,
+                      "fused_vs_factored_rel_l2": rel, "float32_floor_rel_l2": floor,
+                      "tolerance": "relative L2 1e-4, or 4x the float32 floor where larger",
+                      "bar": bar}), flush=True)
+    if not all(rel[name] <= bar[name] for name in rel):
+        raise AssertionError(f"fused encode against factored: {rel} > {bar}")
+    profile_path(torch, fused[0], report["fused"]["reconstruct_s"] * 1e3,
+                 "reconstruct B=4 T=10 N=2048, sa_impl=fused")
+    return fused[1]
 
 
 def require_launched(counts, names, path):
@@ -832,39 +1032,137 @@ class GradRecorder:
             p.grad = None
 
 
-def encoder_float32_floor(torch, model, params, x, target):
-    """How far float32 itself lands from float64 on the encoder's gradient:
-    the relative L2 distance between the CPU's float32 and float64
-    gradients of the T-NOCS loss (the encoder alone) on this input.  The
-    float64 run takes the plain point ops (the kernel wrappers take float32
-    only), whose backward the wrappers' equals."""
+@contextlib.contextmanager
+def plain_point_ops():
+    """The encoder's point ops as their plain versions, for float64 runs
+    (the kernel wrappers take float32 only); their backward equals the
+    wrappers'."""
     from caspr_tpu_torch.models import pointnet2
     from caspr_tpu_torch.ops import pointops
-    from caspr_tpu_torch.ops.odeint import flatten_tree
 
-    leaves, rebuild = flatten_tree(params["encoder"])
-
-    def grads(dtype):
-        enc = rebuild([t.detach().to(dtype).requires_grad_() for t in leaves])
-        _, tnocs = model.encode({"encoder": enc}, torch.from_numpy(x).to(dtype))
-        loss = (tnocs - torch.from_numpy(target[..., :4]).to(dtype)).abs().mean()
-        return torch.cat([g.flatten().double() for g in torch.autograd.grad(loss, flatten_tree(enc)[0])])
-
-    g32 = grads(torch.float32)
     names = ("farthest_point_sampling", "gather_points", "ball_query", "ball_query_pair", "three_nn",
              "three_interpolate")
     saved = {n: getattr(pointnet2, n) for n in names}
     try:
         for n in names:
             setattr(pointnet2, n, getattr(pointops, n))
-        g64 = grads(torch.float64)
+        yield
     finally:
         for n, fn in saved.items():
             setattr(pointnet2, n, fn)
+
+
+def encoder_grads(torch, model, params, x, target, dtype):
+    """The gradient of the T-NOCS loss (the encoder alone) on input x with
+    respect to every encoder leaf, flattened in float64, on the device of
+    params."""
+    from caspr_tpu_torch.ops.odeint import flatten_tree
+
+    leaves, rebuild = flatten_tree(params["encoder"])
+    dev = leaves[0].device
+    enc = rebuild([t.detach().to(dtype).requires_grad_() for t in leaves])
+    _, tnocs = model.encode({"encoder": enc}, torch.from_numpy(x).to(dev, dtype))
+    loss = (tnocs - torch.from_numpy(target[..., :4]).to(dev, dtype)).abs().mean()
+    return torch.cat([g.flatten().double() for g in torch.autograd.grad(loss, flatten_tree(enc)[0])])
+
+
+def encoder_float32_floor(torch, model, params, x, target):
+    """How far float32 itself lands from float64 on the encoder's gradient:
+    the relative L2 distance between the CPU's float32 and float64
+    gradients of the T-NOCS loss (the encoder alone) on this input (params
+    and model on the CPU)."""
+    g32 = encoder_grads(torch, model, params, x, target, torch.float32)
+    with plain_point_ops():
+        g64 = encoder_grads(torch, model, params, x, target, torch.float64)
     return float((g32 - g64).norm() / g64.norm())
 
 
-def cross_device_train(torch):
+def train_step_input():
+    """Phase 7's problem, 1 sequence x 2 frames x 1024 points: (x, target,
+    noise) as numpy arrays."""
+    rng = np.random.default_rng(SEED + 5)
+    x = rng.random((1, 2, 1024, 4), dtype=np.float32)
+    x[..., 3] = np.array([0.0, 2.5], np.float32)[None, :, None]
+    # the T-NOCS loss compares the prediction at each input point with the
+    # target point of the same index, so the two clouds are of one size
+    target = rng.random((1, 2, 1024, 4), dtype=np.float32)
+    target[..., 3] = np.array([0.0, 0.5], np.float32)[None, :, None]
+    noise = rng.standard_normal((2, 1024, 3)).astype(np.float32)
+    return x, target, noise
+
+
+def train_step_floor(torch):
+    """encoder_float32_floor on phase 7's input, with the demo weights."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.weights import load_demo
+
+    x, target, _ = train_step_input()
+    params, _ = load_demo(device="cpu")
+    return encoder_float32_floor(torch, CaSPRModel(CaSPRConfig(), device="cpu"), params, x, target)
+
+
+def run_fused_train(torch, kernels, out_dir, floor):
+    """Phase 6b: training with sa_impl="fused"."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel, caspr_init
+    from caspr_tpu_torch.ops.odeint import flatten_tree
+    from caspr_tpu_torch.train import (TrainLossTracker, make_optimizer, make_train_step,
+                                       run_one_epoch)
+    from caspr_tpu_torch.weights import load_demo
+
+    dev = torch.device("cuda")
+    cfg = CaSPRConfig(sa_impl="fused")
+    model = CaSPRModel(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params, state = caspr_init(gen, cfg, device=dev)
+    before = [t.clone() for t in flatten_tree(params)[0]]
+    tx = make_optimizer(1e-4)
+    step = make_train_step(model, tx, 0.01, 100.0)
+    metrics, seconds = [], []
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+        metrics.append(out[3])
+        return out
+
+    kernels.reset_launches()
+    params, _, _ = run_one_epoch(timed_step, params, tx.init(params), state, TrainLoader(2, SEED + 6),
+                                 gen, 0, TrainLossTracker(),
+                                 os.path.join(out_dir, "train_fused_log.txt"), mode="train",
+                                 print_stats_every=1)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    require_launched(counts, TRAIN_KERNELS + ("sa_fused",), "training with sa_impl=fused")
+    if counts["sa_fused"] != 10 * len(metrics):
+        raise AssertionError(f"sa_fused launched {counts['sa_fused']} times in {len(metrics)} steps")
+    if not all(np.isfinite(m["loss"]) for m in metrics):
+        raise AssertionError(f"fused training loss not finite: {[m['loss'] for m in metrics]}")
+    still = [p for p, a, b in zip(leaf_paths(params), before, flatten_tree(params)[0])
+             if torch.equal(a, b)]
+    if still:
+        raise AssertionError(f"{len(still)} parameter leaves did not change: {still}")
+
+    # the encoder's gradient through "fused" against "xla", phase 7's input
+    x, target, _ = train_step_input()
+    demo, _ = load_demo(device=dev)
+    grads = {mode: encoder_grads(torch, CaSPRModel(CaSPRConfig(sa_impl=mode), device=dev), demo,
+                                 x, target, torch.float32) for mode in ("fused", "xla")}
+    rel = rel_l2(grads["fused"], grads["xla"])
+    print(json.dumps({"train": "run_one_epoch(mode=train), sa_impl=fused, caspr_init seed 0",
+                      "batch": TRAIN_B, "frames": TRAIN_T, "points": TRAIN_N,
+                      "step_seconds": seconds, "losses": [m["loss"] for m in metrics],
+                      "nfe": [m["nfe"] for m in metrics], "launches": counts,
+                      "encoder_grad_fused_vs_xla_rel_l2": rel,
+                      "encoder_float32_floor_rel_l2": floor,
+                      "tolerance": "4 x the float32 floor"}), flush=True)
+    if not rel <= 4.0 * floor:
+        raise AssertionError(f"encoder gradient, fused against xla: relative L2 {rel} > 4 x {floor}")
+
+
+def cross_device_train(torch, floor):
     """Phase 7: one small full-width train step on the card and on the CPU.
 
     The flow's and the latent ODE's gradients are held leaf by leaf to 1e-3
@@ -882,14 +1180,7 @@ def cross_device_train(torch):
     from caspr_tpu_torch.weights import load_demo
 
     cfg = CaSPRConfig()
-    rng = np.random.default_rng(SEED + 5)
-    x = rng.random((1, 2, 1024, 4), dtype=np.float32)
-    x[..., 3] = np.array([0.0, 2.5], np.float32)[None, :, None]
-    # the T-NOCS loss compares the prediction at each input point with the
-    # target point of the same index, so the two clouds are of one size
-    target = rng.random((1, 2, 1024, 4), dtype=np.float32)
-    target[..., 3] = np.array([0.0, 0.5], np.float32)[None, :, None]
-    noise = rng.standard_normal((2, 1024, 3)).astype(np.float32)
+    x, target, noise = train_step_input()
     out = {}
     for dev in ("cuda", "cpu"):
         model = CaSPRModel(cfg, device=dev)
@@ -900,7 +1191,6 @@ def cross_device_train(torch):
         _, _, _, m = step(params, recorder, state, x, target, e=torch.from_numpy(noise).to(dev))
         out[dev] = (m, recorder.grads, time.perf_counter() - start)
     paths = leaf_paths(params)
-    floor = encoder_float32_floor(torch, model, params, x, target)
     (card, card_grads, card_s), (cpu, cpu_grads, cpu_s) = out["cuda"], out["cpu"]
     loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     rel = {p: float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
@@ -950,6 +1240,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(torch, gen)
     counts = run_path(torch, kernels)
+    counts["sa_fused"] = run_sa_modes(torch, kernels)["sa_fused"]
     from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
     from caspr_tpu_torch.weights import load_demo
 
@@ -959,7 +1250,9 @@ def main() -> int:
         counts.update(run_eval_path(torch, kernels, model, params, state, out_dir))
         cross_device(torch)
         counts.update(run_train_path(torch, kernels, out_dir))
-    cross_device_train(torch)
+        floor = train_step_floor(torch)
+        run_fused_train(torch, kernels, out_dir, floor)
+    cross_device_train(torch, floor)
 
     listing = []
     for name, row in rows.items():

@@ -14,6 +14,12 @@ interpolation wrappers is plain PyTorch on both devices: on the card it is
 held to the CPU's within 1e-5 of each gradient's max magnitude (atomic
 scatter-adds sum in another order).
 
+The fused SA kernel is held to its plain version within 1e-4 of each
+output's largest magnitude, in float32 (random balls) and against the plain
+version in float64 at model-like shapes (chip_smoke.py's bar: GroupNorm
+scales the rounding of a group with a variance far below its eps by up to
+316); two launches give the same bits.
+
 The EMD cost is held to the float64 value of the plain version, as the JAX
 package holds its TPU kernel (tools/hw_exactness.py), in two steps.  The
 kernel's body compiled in float64 agrees with that value to 1e-9 (measured:
@@ -32,7 +38,7 @@ plain version's own mean (or 2e-4 at the protocol's size, if that is more).
 import pytest
 import torch
 
-from caspr_tpu_torch.ops import cnf_fused, emd_plain, kernels, pointops
+from caspr_tpu_torch.ops import cnf_fused, emd_plain, kernels, pointops, sa_fused
 
 
 @pytest.fixture
@@ -59,6 +65,29 @@ def _cnf_inputs(device, bt=4, n=100, h=64, seed=0):
     wh = torch.randn((2, h, h), generator=g) / h ** 0.5
     wl = torch.randn((3, h), generator=g) / h ** 0.5
     return [t.to(device) for t in (y, gb, wf, wh, wl)]
+
+
+def _sa_inputs(device, b=2, n=256, m=40, k=16, dims=(16, 16, 32), seed=0):
+    """sa_fused's arguments: t, u, gidx (random sources, some indices out of
+    range for the clamp) and a mini-PointNet's parameters."""
+    g = torch.Generator().manual_seed(seed)
+    d1 = dims[0]
+    t = torch.randn((b, n, d1), generator=g)
+    u = 0.5 * torch.randn((b, m, d1), generator=g)
+    gidx = torch.randint(-2, n + 3, (b, m, k), generator=g, dtype=torch.int32)
+    all_dims = (9,) + tuple(dims)
+    sp = {"convs": [{"weight": torch.randn((d, all_dims[i]), generator=g) / all_dims[i] ** 0.5,
+                     "bias": 0.1 * torch.randn((d,), generator=g)} for i, d in enumerate(dims)],
+          "norms": [{"weight": 1.0 + 0.1 * torch.randn((d,), generator=g),
+                     "bias": 0.1 * torch.randn((d,), generator=g)} for d in dims]}
+    move = lambda tree: {part: [{key: v.to(device) for key, v in layer.items()} for layer in layers]
+                         for part, layers in tree.items()}
+    return t.to(device), u.to(device), gidx.to(device), move(sp)
+
+
+def _float64(sp):
+    return {part: [{key: v.double() for key, v in layer.items()} for layer in layers]
+            for part, layers in sp.items()}
 
 
 def _noise(like, seed=7):
@@ -98,6 +127,8 @@ def _calls(x):
         ("emd", kernels.approx_match_emd(xyz[:, :100].contiguous(), dup[:, :150].contiguous()),
          emd_plain.emd_plain(xyz[:, :100], dup[:, :150])),
         ("emd", kernels.approx_match_emd(xyz, xyz), emd_plain.emd_plain(xyz, xyz)),
+        ("sa_fused", kernels.sa_fused(*_sa_inputs(xyz.device)),
+         sa_fused.sa_stack_plain(*_sa_inputs(xyz.device))),
     ]
 
 
@@ -170,6 +201,44 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
                                       torch.rand((2, 6, 3)))
 
 
+def test_sa_fused_wrapper_checks_and_carries_no_gradient():
+    t, u, gidx, sp = _sa_inputs("cpu")
+    sp["convs"][1]["weight"].requires_grad_()
+    out = kernels.sa_fused(t, u, gidx, sp)
+    assert not out.requires_grad and out.shape == (2, 40, 32)
+    with pytest.raises(ValueError, match="u "):
+        kernels.sa_fused(t, u[:, :, :8].contiguous(), gidx, sp)
+    with pytest.raises(ValueError, match="w3 "):
+        sp["convs"][2]["weight"] = sp["convs"][2]["weight"][:, :8].contiguous()
+        kernels.sa_fused(t, u, gidx, sp)
+    with pytest.raises(TypeError):
+        kernels.sa_fused(t, u, gidx.long(), sp)
+    with pytest.raises(ValueError, match="batch"):
+        kernels.sa_fused(t, u[:1].contiguous(), gidx, sp)
+
+
+@pytest.mark.parametrize("shape", [
+    dict(m=1024, k=16, dims=(16, 16, 32), b=4),    # SA level 1, scale 1
+    dict(m=16, k=32, dims=(256, 256, 512), b=3),   # SA level 5, scale 2: one ball a block
+    dict(m=37, k=5, dims=(64, 96, 128)),           # M odd, K no power of two: padded rows
+])
+def test_sa_fused_against_float64_on_the_card(cuda, shape):
+    """The kernel within 1e-4 of each output's largest magnitude of its
+    plain version in float64 (chip_smoke.py's bar), and two launches equal."""
+    t, u, gidx, sp = _sa_inputs(cuda, **shape)
+    got = kernels.sa_fused(t, u, gidx, sp)
+    assert torch.equal(got, kernels.sa_fused(t, u, gidx, sp))
+    want = sa_fused.sa_stack_plain(t.double(), u.double(), gidx, _float64(sp))
+    assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+def test_sa_fused_refuses_what_the_kernel_does_not_take_on_the_card(cuda):
+    with pytest.raises(ValueError, match="sa_fused kernel takes"):
+        kernels.sa_fused(*_sa_inputs(cuda, k=33))
+    with pytest.raises(ValueError, match="sa_fused kernel takes"):
+        kernels.sa_fused(*_sa_inputs(cuda, dims=(24, 16, 32)))
+
+
 def test_emd_wrapper_carries_no_gradient_and_its_float64_form_needs_the_card():
     """The differentiable EMD is ops.metrics.approx_match_emd; the wrapper
     gives the same non-differentiable cost on either device."""
@@ -201,7 +270,7 @@ def test_kernel_matches_plain_on_the_card(cuda, kernel):
     assert cases and kernels.launches[kernel] == len(cases)
     for got, want in cases:
         for g, w in zip(_leaves(got), _leaves(want)):
-            if kernel in ("cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp"):
+            if kernel in ("cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp", "sa_fused"):
                 assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
             elif kernel == "emd":  # coarse here; the float64 gate is below
                 assert torch.allclose(g, w, rtol=5e-3, atol=1e-5)
