@@ -1,5 +1,6 @@
-// Fused concatsquash dynamics of the CNF with the Hutchinson divergence: the
-// likelihood direction's f(y) and e^T J_f(y) e in one pass.
+// Fused concatsquash dynamics of the CNF with the Hutchinson divergence, on
+// the tensor cores: the likelihood direction's f(y) and e^T J_f(y) e in one
+// pass.
 //
 // Replaces: caspr_tpu/ops/cnf_fused.py::_fused_call
 // (fused_concatsquash_dynamics, _fused_kernel).  Plain version:
@@ -16,175 +17,222 @@
 //   dx = zp_L,  div = sum_d zt_L[d] * e[d].
 // The caller applies the sign of the divergence.
 //
-// Bound: operations.  4 * BT * N * (D*H + num_hidden*H*H + H*D) flops in
-// float32, twice cnf_primal's, with a few MB moved.
+// Bound: operations.  Twice cnf_primal's rows: 4 * BT * N * num_hidden * H^2
+// flops in the hidden layers, run three times by the 3xTF32 split on the
+// tensor cores (1.05 ms at 495 TFLOP/s for BT = 40, N = 2048, H = 512;
+// 2.58 ms at float32's 67 TFLOP/s), with a few MB moved.
 //
-// Design: cnf_primal's, with the tile split between the streams.  One block
-// per (cloud, tile of kPoints = 16 points), one thread per hidden channel
-// (blockDim = H).  A block's activations are kCols = 32 columns per channel
-// -- columns 0..15 the primal of its points, 16..31 their tangents -- in two
-// shared buffers of H x 32 floats (128 KB at H = 512): a full tile of 32
-// points with both streams would need 256 KB, over the 227 KB a block may
-// have.  A thread reads the 32 columns of input channel i as 8 broadcast
-// float4 loads and adds them into 32 register accumulators, so one weight
-// (from the transposed (in, out) hidden weights: one coalesced row per
-// input channel, from L2) serves both streams.  The epilogue pairs column r
-// with column 16 + r for the sigmoid factor.  The last layer (H -> D): lane
-// = column, the warps split the input channels, partial sums meet in the
-// free buffer, and one thread per point forms the divergence.  No
-// activation touches device memory.
+// Design: cnf_primal's, on the layer tile of cnf_tc.cuh, with the 64 rows
+// of a block's tile split between the streams of 32 points: in the 16-row
+// slab of warp w, rows 0-7 are the primal rows of points 8w .. 8w + 7 and
+// rows 8-15 their tangent rows.  The m64 accumulator layout gives a thread
+// rows g and g + 8 of its warp's slab, so it holds a point's primal and
+// tangent values of the same channels, and the epilogue forms
+// sigmoid(pre_p) (from the exp that softplus needs too) and the tangent in
+// registers, with no exchange.  First layer (D -> H) and last (H -> D) on
+// CUDA cores as in cnf_primal; the divergence is formed per tangent row
+// from its butterfly sums, in a fixed order.  The weights stream from L2
+// once per 32 points (4 MB of hi and lo parts per block, 10.7 GB a launch
+// at the size above), as the CUDA-core kernel it replaced streamed 2 MB per
+// 16 points.
 
-#include <math.h>
-
-#include "common.cuh"
+#include "cnf_tc.cuh"
 
 namespace {
 
-constexpr int kPoints = 16;          // points per block
-constexpr int kCols = 2 * kPoints;   // primal and tangent columns; the warp width
-constexpr int kMaxDim = 8;           // point dimension D
-constexpr int kMaxHidden = 512;      // threads per block = H
+using namespace caspr::cnf_tc;
 
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
+constexpr int kPoints = kRows / 2;  // points per block
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+// tile row of point p's primal stream; its tangent row is 8 further
+__device__ __forceinline__ int primal_row(int p) { return (p >> 3) * 16 + (p & 7); }
 
-__global__ void __launch_bounds__(kMaxHidden)
+template <int NCH>
+__global__ void __launch_bounds__(kThreads, 1)
 cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
                     const float* __restrict__ gb, const float* __restrict__ w_first,
-                    const float* __restrict__ w_hidden_t, const float* __restrict__ w_last,
+                    const float* __restrict__ w_split, const float* __restrict__ w_last,
                     float* __restrict__ dx, float* __restrict__ div,
                     int n, int h, int d, int num_hidden, int gb_rows) {
-  extern __shared__ float4 smem4[];
-  float* buf_a = reinterpret_cast<float*>(smem4);  // [h][kCols]
-  float* buf_b = buf_a + h * kCols;
+  constexpr int kHpad = 2 * kChunkN * NCH;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];
   __shared__ float ys[kPoints * kMaxDim];
   __shared__ float es[kPoints * kMaxDim];
+  const Smem sm = make_smem(smem, bars, kHpad);
+  start_ring(sm, w_split, kHpad, num_hidden);
 
+  const int tid = threadIdx.x;
   const int bt = blockIdx.y;
   const int n0 = blockIdx.x * kPoints;
   const int rows = min(kPoints, n - n0);
-  const int o = threadIdx.x;  // hidden channel
   const int num_layers = num_hidden + 2;
   const float* g = gb + static_cast<size_t>(bt) * gb_rows * h;  // row l gate, L+l bias
   const size_t base = (static_cast<size_t>(bt) * n + n0) * d;
-  for (int t = threadIdx.x; t < kPoints * d; t += blockDim.x) {
-    ys[t] = t < rows * d ? y[base + t] : 0.f;
-    es[t] = t < rows * d ? e[base + t] : 0.f;
+  float* tile = sm.tile;
+  for (int i = tid; i < kPoints * d; i += kThreads) {
+    ys[i] = i < rows * d ? y[base + i] : 0.f;
+    es[i] = i < rows * d ? e[base + i] : 0.f;
   }
-  __syncthreads();
+  consumer_sync();
 
-  {  // first layer: D -> H
+  // first layer: D -> H, a thread per channel
+  for (int c = tid; c < kHpad; c += kThreads) {
+    if (c >= h) {
+      for (int r = 0; r < kRows; ++r) tile[tile_at(r, c, kHpad)] = 0.f;
+      continue;
+    }
     float w[kMaxDim];
 #pragma unroll
-    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? w_first[o * d + k] : 0.f;
-    const float gate = g[o], beff = g[num_layers * h + o];
-    for (int r = 0; r < kPoints; ++r) {
+    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? w_first[c * d + k] : 0.f;
+    const float gate = g[c], beff = g[num_layers * h + c];
+#pragma unroll 4  // independent rows: room for the softplus latencies to overlap
+    for (int p = 0; p < kPoints; ++p) {
       float accp = 0.f, acct = 0.f;
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
         if (k < d) {
-          accp = fmaf(w[k], ys[r * d + k], accp);
-          acct = fmaf(w[k], es[r * d + k], acct);
+          accp = fmaf(w[k], ys[p * d + k], accp);
+          acct = fmaf(w[k], es[p * d + k], acct);
         }
       const float pre = accp * gate + beff;
-      buf_a[o * kCols + r] = softplus(pre);
-      buf_a[o * kCols + kPoints + r] = acct * gate * sigmoid(pre);
+      const float ex = expf(-fabsf(pre));
+      const float sig = pre >= 0.f ? 1.f / (1.f + ex) : ex / (1.f + ex);
+      tile[tile_at(primal_row(p), c, kHpad)] = fmaxf(pre, 0.f) + log1pf(ex);
+      tile[tile_at(primal_row(p) + 8, c, kHpad)] = acct * gate * sig;
     }
   }
-  __syncthreads();
+  consumer_sync();
 
-  float* in = buf_a;
-  float* out = buf_b;
-  for (int l = 0; l < num_hidden; ++l) {  // hidden layers: H -> H
-    const float* wt = w_hidden_t + static_cast<size_t>(l) * h * h;
-    float acc[kCols];
+  // hidden layers: H -> H on the tensor cores
+  const int lane = tid & 31, wg = tid >> 7, w = (tid >> 5) & 3;
+  const int gr = lane >> 2, t = lane & 3;
+  const int r0 = 16 * w + gr, r1 = r0 + 8;  // a point's primal and tangent rows
+  const int n_wg = wg * kChunkN * NCH;
+  float acc[NCH][32];
+  for (int l = 0; l < num_hidden; ++l) {
+    layer_product<NCH>(acc, sm, w_split, kHpad, l, num_hidden, n_wg);
+    // the epilogue in the accumulators, while the other warpgroup may still
+    // be reading the tile; padded channels become 0.  Floats 4j + q are a
+    // point's primal values, 4j + 2 + q its tangent's, of channel ch + q.
+    const float* gate = g + (1 + l) * h;
+    const float* beff = g + (num_layers + 1 + l) * h;
 #pragma unroll
-    for (int r = 0; r < kCols; ++r) acc[r] = 0.f;
-    for (int i = 0; i < h; ++i) {
-      const float wi = __ldg(wt + static_cast<size_t>(i) * h + o);
-      const float4* a = reinterpret_cast<const float4*>(in + i * kCols);
+    for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int q = 0; q < kCols / 4; ++q) {
-        const float4 v = a[q];
-        acc[4 * q] = fmaf(wi, v.x, acc[4 * q]);
-        acc[4 * q + 1] = fmaf(wi, v.y, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(wi, v.z, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(wi, v.w, acc[4 * q + 3]);
+      for (int j = 0; j < kChunkN / 8; ++j) {
+        const int ch = n_wg + c * kChunkN + 8 * j + 2 * t;  // and ch + 1; h is even
+        float2 ga = make_float2(0.f, 0.f), be = ga;
+        if (ch < h) {
+          ga = *reinterpret_cast<const float2*>(gate + ch);
+          be = *reinterpret_cast<const float2*>(beff + ch);
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float gs = q ? ga.y : ga.x;
+          const float pre = acc[c][4 * j + q] * gs + (q ? be.y : be.x);
+          const float ex = expf(-fabsf(pre));
+          const float sig = pre >= 0.f ? 1.f / (1.f + ex) : ex / (1.f + ex);
+          acc[c][4 * j + q] = ch < h ? fmaxf(pre, 0.f) + log1pf(ex) : 0.f;
+          acc[c][4 * j + 2 + q] = ch < h ? acc[c][4 * j + 2 + q] * gs * sig : 0.f;
+        }
       }
-    }
-    const float gate = g[(1 + l) * h + o], beff = g[(num_layers + 1 + l) * h + o];
+    consumer_sync();  // both warpgroups are done reading the tile
 #pragma unroll
-    for (int r = 0; r < kPoints; ++r) {
-      const float pre = acc[r] * gate + beff;
-      acc[kPoints + r] = acc[kPoints + r] * gate * sigmoid(pre);
-      acc[r] = softplus(pre);
-    }
-    float4* dst = reinterpret_cast<float4*>(out + o * kCols);
+    for (int c = 0; c < NCH; ++c)
 #pragma unroll
-    for (int q = 0; q < kCols / 4; ++q)
-      dst[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-    __syncthreads();
-    float* tmp = in;
-    in = out;
-    out = tmp;
+      for (int j = 0; j < kChunkN / 8; ++j) {
+        const int ch = n_wg + c * kChunkN + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(tile + tile_at(r0, ch, kHpad)) =
+            make_float2(acc[c][4 * j], acc[c][4 * j + 1]);
+        *reinterpret_cast<float2*>(tile + tile_at(r1, ch, kHpad)) =
+            make_float2(acc[c][4 * j + 2], acc[c][4 * j + 3]);
+      }
+    consumer_sync();  // the layer's output is in the tile
   }
 
-  {  // last layer: H -> D; lane = column, warp = a 32-channel slice of the input
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  // last layer: H -> D, warp wid takes rows 8 wid .. 8 wid + 7: the primal
+  // rows of points 8 (wid / 2) .. 8 (wid / 2) + 7 for even wid, their
+  // tangent rows for odd wid
+  const int wid = tid >> 5;
+  const bool tangent = wid & 1;
+  const float* gl = g + (num_layers - 1) * h;
+  const float* bl = g + (2 * num_layers - 1) * h;
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * wid + i;
+    const int p = (wid >> 1) * 8 + i;
     float s[kMaxDim];
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k) s[k] = 0.f;
-    for (int i = warp * 32; i < warp * 32 + 32; ++i) {
-      const float a = in[i * kCols + lane];
+    for (int c = lane; c < h; c += 32) {
+      const float a = tile[tile_at(r, c, kHpad)];
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
-        if (k < d) s[k] = fmaf(__ldg(w_last + k * h + i), a, s[k]);
+        if (k < d) s[k] = fmaf(__ldg(w_last + k * h + c), a, s[k]);
     }
-    float* part = out;  // free now: [warps][d][kCols] partial sums
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k)
-      if (k < d) part[(warp * d + k) * kCols + lane] = s[k];
-    __syncthreads();
-    const float* gl = g + (num_layers - 1) * h;
-    const float* bl = g + (2 * num_layers - 1) * h;
-    for (int t = threadIdx.x; t < rows * d; t += blockDim.x) {
-      const int r = t / d, k = t - (t / d) * d;
-      float v = 0.f;
-      for (int w = 0; w < warps; ++w) v += part[(w * d + k) * kCols + r];
-      dx[base + t] = v * gl[k] + bl[k];
-    }
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      float acc = 0.f;
-      for (int k = 0; k < d; ++k) {
-        float v = 0.f;
-        for (int w = 0; w < warps; ++w) v += part[(w * d + k) * kCols + kPoints + r];
-        acc += v * gl[k] * es[r * d + k];
-      }
-      div[static_cast<size_t>(bt) * n + n0 + r] = acc;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s[k] += __shfl_xor_sync(0xffffffffu, s[k], off);
+    if (p >= rows) continue;
+    if (!tangent) {
+#pragma unroll
+      for (int k = 0; k < kMaxDim; ++k)
+        if (k == lane && k < d) dx[base + p * d + k] = s[k] * gl[k] + bl[k];
+    } else if (lane == 0) {
+      float acc_div = 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxDim; ++k)
+        if (k < d) acc_div += s[k] * gl[k] * es[p * d + k];
+      div[static_cast<size_t>(bt) * n + n0 + p] = acc_div;
     }
   }
+}
+
+template <int NCH>
+cudaError_t launch(const float* y, const float* e, const float* gb, const float* w_first,
+                   const float* w_split, const float* w_last, float* dx, float* div, int bt,
+                   int n, int h, int d, int num_hidden, int gb_rows, cudaStream_t stream) {
+  const size_t smem = smem_bytes(2 * kChunkN * NCH);
+  cudaError_t err = cudaFuncSetAttribute(cnf_dynamics_kernel<NCH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kPoints - 1) / kPoints, bt);
+  cnf_dynamics_kernel<NCH><<<grid, kThreads, smem, stream>>>(
+      y, e, gb, w_first, w_split, w_last, dx, div, n, h, d, num_hidden, gb_rows);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // h must be a multiple of 32 in [32, kMaxHidden] and d <= kMaxDim; the
-// wrapper checks both.
+// wrapper checks both.  w_split is scratch of num_hidden * H_pad^2 * 2
+// floats, H_pad = 128 * ceil(h / 128), for the TF32 parts of w_hidden.
 extern "C" int caspr_cnf_dynamics(const float* y, const float* e, const float* gb,
-                                  const float* w_first, const float* w_hidden_t,
-                                  const float* w_last, float* dx, float* div,
+                                  const float* w_first, const float* w_hidden,
+                                  const float* w_last, float* w_split, float* dx, float* div,
                                   int bt, int n, int h, int d, int num_hidden, int gb_rows,
                                   void* stream) {
-  if (h % 32 != 0 || h < 32 || h > kMaxHidden || d < 1 || d > kMaxDim)
+  if (h % 32 != 0 || h < 32 || h > kMaxHidden || d < 1 || d > kMaxDim || num_hidden < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 2 * h * kCols * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      cnf_dynamics_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (bt == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = split_weights(w_hidden, w_split, h, num_hidden, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kPoints - 1) / kPoints, bt);
-  cnf_dynamics_kernel<<<grid, h, smem, static_cast<cudaStream_t>(stream)>>>(
-      y, e, gb, w_first, w_hidden_t, w_last, dx, div, n, h, d, num_hidden, gb_rows);
-  return static_cast<int>(cudaGetLastError());
+#define CASPR_DYNAMICS_CASE(k)                                                                    \
+  case k:                                                                                         \
+    err = launch<k>(y, e, gb, w_first, w_split, w_last, dx, div, bt, n, h, d, num_hidden, gb_rows, \
+                    s);                                                                           \
+    break;
+  switch (padded_width(h) / 128) {
+    CASPR_DYNAMICS_CASE(1)
+    CASPR_DYNAMICS_CASE(2)
+    CASPR_DYNAMICS_CASE(3)
+    default:
+      err = launch<4>(y, e, gb, w_first, w_split, w_last, dx, div, bt, n, h, d, num_hidden,
+                      gb_rows, s);
+  }
+#undef CASPR_DYNAMICS_CASE
+  return static_cast<int>(err);
 }

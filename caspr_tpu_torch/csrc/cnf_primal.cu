@@ -1,7 +1,8 @@
-// Fused concatsquash primal dynamics of the CNF decoder.
+// Fused concatsquash primal dynamics of the CNF decoder, on the tensor cores.
 //
 // Replaces: caspr_tpu/ops/cnf_fused.py::_fused_primal_call
-// (fused_concatsquash_primal, _fused_primal_kernel).
+// (fused_concatsquash_primal, _fused_primal_kernel).  Plain version:
+// caspr_tpu_torch/ops/cnf_fused.py::primal_packed.
 //
 // Per point y (D = 3 coordinates) and cloud bt, with L = num_hidden + 2
 // layers and the per-cloud gates / effective biases in gb (computed outside,
@@ -9,147 +10,184 @@
 //   z_0 = y;  z_{l+1} = (z_l @ W_l^T) * gate_l + beff_l,
 //   softplus (logaddexp(x, 0)) after every layer but the last; dx = z_L.
 //
-// Bound: operations.  2 * BT * N * (D*H + num_hidden*H*H + H*D) flops in
-// float32 (86 GFLOP at BT = 40, N = 2048, H = 512), 1.3 ms at the card's
-// 67 TFLOP/s outside the tensor cores; the bytes moved are a few MB.
+// Bound: operations.  The hidden layers are 2 * BT * N * num_hidden * H^2
+// flops (86 GFLOP at BT = 40, N = 2048, H = 512), which the 3xTF32 split
+// runs three times on the tensor cores: 0.52 ms at 495 TFLOP/s (1.29 ms at
+// the 67 TFLOP/s of float32 outside them); the bytes moved are a few MB.
 //
-// Design: one block per (cloud, tile of kRows = 32 points), one thread per
-// hidden channel (blockDim = H).  The tile's activations live in two
-// shared buffers of H x 32 floats (128 KB at H = 512), stored channel-major
-// so that a thread reads the 32 rows of input channel i as 8 broadcast
-// float4 loads and adds them into 32 register accumulators; the hidden
-// weights arrive transposed (in, out), so the 512 threads read one
-// coalesced 2 KB weight row per input channel, from L2.  No activation
-// touches device memory.  The last layer (H -> D) has too few outputs for
-// a thread each: lane = row, the warps split the input channels, and the
-// partial sums meet in the free buffer.  Tensor cores (TF32 / bf16 wgmma)
-// and a larger tile per weight read are later work.
+// Design: the layer tile of cnf_tc.cuh (a block per cloud and 64 points,
+// two warpgroups), with these parts of its own: the first layer (D -> H,
+// K = 3) on CUDA cores, a thread per channel over the 64 rows; the
+// hidden-layer epilogue z = softplus(acc * gate + beff) in the accumulator
+// registers; the last layer (H -> D) on CUDA cores, a warp per 8 rows with
+// the lanes over the channels and a butterfly sum (a fixed order: two
+// launches give the same bits).  It answers the two faults of the
+// CUDA-core kernel it replaced: the products run on the tensor cores, and
+// the weights stream from L2 once per 64 rows (4 MB of hi and lo parts per
+// block, 5.4 GB a launch at the size above; the old kernel read 2 MB per
+// 32 rows, 5.2 GB, and spent its time in FMAs).  No activation touches
+// device memory.
 
-#include <math.h>
-
-#include "common.cuh"
+#include "cnf_tc.cuh"
 
 namespace {
 
-constexpr int kRows = 32;   // points per block; also the warp width below
-constexpr int kMaxDim = 8;  // point dimension D
-constexpr int kMaxHidden = 512;  // threads per block = H
+using namespace caspr::cnf_tc;
 
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-__global__ void __launch_bounds__(kMaxHidden)
+template <int NCH>
+__global__ void __launch_bounds__(kThreads, 1)
 cnf_primal_kernel(const float* __restrict__ y, const float* __restrict__ gb,
-                  const float* __restrict__ w_first, const float* __restrict__ w_hidden_t,
+                  const float* __restrict__ w_first, const float* __restrict__ w_split,
                   const float* __restrict__ w_last, float* __restrict__ dx,
                   int n, int h, int d, int num_hidden, int gb_rows) {
-  extern __shared__ float4 smem4[];
-  float* buf_a = reinterpret_cast<float*>(smem4);  // [h][kRows]
-  float* buf_b = buf_a + h * kRows;
+  constexpr int kHpad = 2 * kChunkN * NCH;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];
   __shared__ float ys[kRows * kMaxDim];
+  const Smem sm = make_smem(smem, bars, kHpad);
+  start_ring(sm, w_split, kHpad, num_hidden);
 
+  const int tid = threadIdx.x;
   const int bt = blockIdx.y;
   const int n0 = blockIdx.x * kRows;
   const int rows = min(kRows, n - n0);
-  const int o = threadIdx.x;  // hidden channel
   const int num_layers = num_hidden + 2;
   const float* g = gb + static_cast<size_t>(bt) * gb_rows * h;  // row l gate, L+l bias
   const float* yb = y + (static_cast<size_t>(bt) * n + n0) * d;
-  for (int t = threadIdx.x; t < kRows * d; t += blockDim.x) ys[t] = t < rows * d ? yb[t] : 0.f;
-  __syncthreads();
+  float* tile = sm.tile;
+  for (int i = tid; i < kRows * d; i += kThreads) ys[i] = i < rows * d ? yb[i] : 0.f;
+  consumer_sync();
 
-  {  // first layer: D -> H
+  // first layer: D -> H, a thread per channel
+  for (int c = tid; c < kHpad; c += kThreads) {
+    if (c >= h) {
+      for (int r = 0; r < kRows; ++r) tile[tile_at(r, c, kHpad)] = 0.f;
+      continue;
+    }
     float w[kMaxDim];
 #pragma unroll
-    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? w_first[o * d + k] : 0.f;
-    const float gate = g[o], beff = g[num_layers * h + o];
+    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? w_first[c * d + k] : 0.f;
+    const float gate = g[c], beff = g[num_layers * h + c];
+#pragma unroll 4  // independent rows: room for the softplus latencies to overlap
     for (int r = 0; r < kRows; ++r) {
       float acc = 0.f;
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
         if (k < d) acc = fmaf(w[k], ys[r * d + k], acc);
-      buf_a[o * kRows + r] = softplus(acc * gate + beff);
+      tile[tile_at(r, c, kHpad)] = softplus(acc * gate + beff);
     }
   }
-  __syncthreads();
+  consumer_sync();
 
-  float* in = buf_a;
-  float* out = buf_b;
-  for (int l = 0; l < num_hidden; ++l) {  // hidden layers: H -> H
-    const float* wt = w_hidden_t + static_cast<size_t>(l) * h * h;
-    float acc[kRows];
+  // hidden layers: H -> H on the tensor cores
+  const int lane = tid & 31, wg = tid >> 7, w = (tid >> 5) & 3;
+  const int gr = lane >> 2, t = lane & 3;
+  const int r0 = 16 * w + gr, r1 = r0 + 8;
+  const int n_wg = wg * kChunkN * NCH;  // this warpgroup's first output channel
+  float acc[NCH][32];
+  for (int l = 0; l < num_hidden; ++l) {
+    layer_product<NCH>(acc, sm, w_split, kHpad, l, num_hidden, n_wg);
+    // the epilogue in the accumulators, while the other warpgroup may still
+    // be reading the tile; padded channels become 0
+    const float* gate = g + (1 + l) * h;
+    const float* beff = g + (num_layers + 1 + l) * h;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int i = 0; i < h; ++i) {
-      const float wi = __ldg(wt + static_cast<size_t>(i) * h + o);
-      const float4* a = reinterpret_cast<const float4*>(in + i * kRows);
+    for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int q = 0; q < kRows / 4; ++q) {
-        const float4 v = a[q];
-        acc[4 * q] = fmaf(wi, v.x, acc[4 * q]);
-        acc[4 * q + 1] = fmaf(wi, v.y, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(wi, v.z, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(wi, v.w, acc[4 * q + 3]);
+      for (int j = 0; j < kChunkN / 8; ++j) {
+        const int ch = n_wg + c * kChunkN + 8 * j + 2 * t;  // and ch + 1; h is even
+        float2 ga = make_float2(0.f, 0.f), be = ga;
+        if (ch < h) {
+          ga = *reinterpret_cast<const float2*>(gate + ch);
+          be = *reinterpret_cast<const float2*>(beff + ch);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float pre = acc[c][4 * j + q] * (q & 1 ? ga.y : ga.x) + (q & 1 ? be.y : be.x);
+          acc[c][4 * j + q] = ch < h ? softplus(pre) : 0.f;
+        }
       }
-    }
-    const float gate = g[(1 + l) * h + o], beff = g[(num_layers + 1 + l) * h + o];
-    float4* dst = reinterpret_cast<float4*>(out + o * kRows);
+    consumer_sync();  // both warpgroups are done reading the tile
 #pragma unroll
-    for (int q = 0; q < kRows / 4; ++q)
-      dst[q] = make_float4(softplus(acc[4 * q] * gate + beff),
-                           softplus(acc[4 * q + 1] * gate + beff),
-                           softplus(acc[4 * q + 2] * gate + beff),
-                           softplus(acc[4 * q + 3] * gate + beff));
-    __syncthreads();
-    float* tmp = in;
-    in = out;
-    out = tmp;
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < kChunkN / 8; ++j) {
+        const int ch = n_wg + c * kChunkN + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(tile + tile_at(r0, ch, kHpad)) =
+            make_float2(acc[c][4 * j], acc[c][4 * j + 1]);
+        *reinterpret_cast<float2*>(tile + tile_at(r1, ch, kHpad)) =
+            make_float2(acc[c][4 * j + 2], acc[c][4 * j + 3]);
+      }
+    consumer_sync();  // the layer's output is in the tile
   }
 
-  {  // last layer: H -> D; lane = row, warp = a 32-channel slice of the input
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  // last layer: H -> D, warp wid takes rows 8 wid .. 8 wid + 7
+  const int wid = tid >> 5;
+  const float* gl = g + (num_layers - 1) * h;
+  const float* bl = g + (2 * num_layers - 1) * h;
+  for (int r = 8 * wid; r < 8 * wid + 8; ++r) {
     float s[kMaxDim];
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k) s[k] = 0.f;
-    for (int i = warp * 32; i < warp * 32 + 32; ++i) {
-      const float a = in[i * kRows + lane];
+    for (int c = lane; c < h; c += 32) {
+      const float a = tile[tile_at(r, c, kHpad)];
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
-        if (k < d) s[k] = fmaf(__ldg(w_last + k * h + i), a, s[k]);
+        if (k < d) s[k] = fmaf(__ldg(w_last + k * h + c), a, s[k]);
     }
-    float* part = out;  // free now: [warps][d][kRows] partial sums
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k)
-      if (k < d) part[(warp * d + k) * kRows + lane] = s[k];
-    __syncthreads();
-    const float* gl = g + (num_layers - 1) * h;
-    const float* bl = g + (2 * num_layers - 1) * h;
-    for (int t = threadIdx.x; t < rows * d; t += blockDim.x) {
-      const int r = t / d, k = t - (t / d) * d;
-      float v = 0.f;
-      for (int w = 0; w < warps; ++w) v += part[(w * d + k) * kRows + r];
-      dx[(static_cast<size_t>(bt) * n + n0 + r) * d + k] = v * gl[k] + bl[k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s[k] += __shfl_xor_sync(0xffffffffu, s[k], off);
+    if (r < rows) {
+#pragma unroll
+      for (int k = 0; k < kMaxDim; ++k)
+        if (k == lane && k < d)
+          dx[(static_cast<size_t>(bt) * n + n0 + r) * d + k] = s[k] * gl[k] + bl[k];
     }
   }
+}
+
+template <int NCH>
+cudaError_t launch(const float* y, const float* gb, const float* w_first, const float* w_split,
+                   const float* w_last, float* dx, int bt, int n, int h, int d, int num_hidden,
+                   int gb_rows, cudaStream_t stream) {
+  const size_t smem = smem_bytes(2 * kChunkN * NCH);
+  cudaError_t err = cudaFuncSetAttribute(
+      cnf_primal_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kRows - 1) / kRows, bt);
+  cnf_primal_kernel<NCH><<<grid, kThreads, smem, stream>>>(
+      y, gb, w_first, w_split, w_last, dx, n, h, d, num_hidden, gb_rows);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // h must be a multiple of 32 in [32, kMaxHidden] and d <= kMaxDim; the
-// wrapper checks both.
+// wrapper checks both.  w_split is scratch of num_hidden * H_pad^2 * 2
+// floats, H_pad = 128 * ceil(h / 128), for the TF32 parts of w_hidden.
 extern "C" int caspr_cnf_primal(const float* y, const float* gb, const float* w_first,
-                                const float* w_hidden_t, const float* w_last, float* dx,
-                                int bt, int n, int h, int d, int num_hidden, int gb_rows,
-                                void* stream) {
-  if (h % 32 != 0 || h < 32 || h > kMaxHidden || d < 1 || d > kMaxDim)
+                                const float* w_hidden, const float* w_last, float* w_split,
+                                float* dx, int bt, int n, int h, int d, int num_hidden,
+                                int gb_rows, void* stream) {
+  if (h % 32 != 0 || h < 32 || h > kMaxHidden || d < 1 || d > kMaxDim || num_hidden < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 2 * h * kRows * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      cnf_primal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (bt == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = split_weights(w_hidden, w_split, h, num_hidden, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kRows - 1) / kRows, bt);
-  cnf_primal_kernel<<<grid, h, smem, static_cast<cudaStream_t>(stream)>>>(
-      y, gb, w_first, w_hidden_t, w_last, dx, n, h, d, num_hidden, gb_rows);
-  return static_cast<int>(cudaGetLastError());
+#define CASPR_PRIMAL_CASE(k)                                                              \
+  case k:                                                                                 \
+    err = launch<k>(y, gb, w_first, w_split, w_last, dx, bt, n, h, d, num_hidden, gb_rows, s); \
+    break;
+  switch (padded_width(h) / 128) {
+    CASPR_PRIMAL_CASE(1)
+    CASPR_PRIMAL_CASE(2)
+    CASPR_PRIMAL_CASE(3)
+    default:
+      err = launch<4>(y, gb, w_first, w_split, w_last, dx, bt, n, h, d, num_hidden, gb_rows, s);
+  }
+#undef CASPR_PRIMAL_CASE
+  return static_cast<int>(err);
 }

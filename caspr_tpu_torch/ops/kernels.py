@@ -8,9 +8,10 @@ training paths (sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
   gather             -> gather_points
   three_nn           -> three_nn
   three_interpolate  -> three_interpolate
-  cnf_primal         -> cnf_primal (the decode dynamics)
+  cnf_primal         -> cnf_primal (the decode dynamics; tensor cores,
+                        3xTF32: csrc/cnf_tc.cuh)
   cnf_dynamics       -> cnf_dynamics (the likelihood dynamics, with the
-                        Hutchinson divergence)
+                        Hutchinson divergence; the same layer tile)
   cnf_dynamics_vjp   -> cnf_dynamics_vjp (its VJP: the adjoint's augmented
                         dynamics in training)
   emd                -> approx_match_emd (the approxmatch EMD cost)
@@ -85,8 +86,8 @@ _SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
     "caspr_gather_rows": [_P, _P, _P, _I, _I, _I, _LL, _P],
     "caspr_three_nn": [_P, _P, _P, _P, _I, _I, _I, _P],
     "caspr_three_interpolate": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "caspr_cnf_primal": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "caspr_cnf_dynamics": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "caspr_cnf_primal": [_P] * 7 + [_I] * 6 + [_P],
+    "caspr_cnf_dynamics": [_P] * 9 + [_I] * 6 + [_P],
     "caspr_cnf_dynamics_vjp": [_P] * 13 + [_I] * 6 + [_P],
     "caspr_approx_match_emd": [_P, _P, _P, _I, _I, _I, _P],
     "caspr_approx_match_emd_f64": [_P, _P, _P, _I, _I, _I, _P],
@@ -411,6 +412,15 @@ def _check_cnf_kernel_limits(name, h, d):
         raise ValueError(f"{name} kernel takes H a multiple of 32 up to 512 and D <= 8, got H={h}, D={d}")
 
 
+def _tf32_split_scratch(w_hidden):
+    """Scratch for the TF32 hi and lo parts of the hidden weights that the
+    tensor-core CNF kernels make at each call (csrc/cnf_tc.cuh): per layer
+    2 x H_pad x H_pad floats, H_pad = H rounded up to a multiple of 128."""
+    num_hidden, h, _ = w_hidden.shape
+    h_pad = -(-h // 128) * 128
+    return torch.empty(2 * num_hidden * h_pad * h_pad, dtype=torch.float32, device=w_hidden.device)
+
+
 def cnf_primal(y, gb, w_first, w_hidden, w_last):
     """Fused concatsquash stack.  y (BT, N, D); gb (BT, G, H) gates and
     effective biases (ops/cnf_fused.py::context_gb); w_first (H, D),
@@ -419,11 +429,12 @@ def cnf_primal(y, gb, w_first, w_hidden, w_last):
     if not _on_card(y, gb, w_first, w_hidden, w_last):
         return primal_packed(y, gb, w_first, w_hidden, w_last)
     _check_cnf_kernel_limits("cnf_primal", h, d)
-    w_hidden_t = w_hidden.transpose(1, 2).contiguous()  # (in, out): coalesced rows
+    w_split = _tf32_split_scratch(w_hidden)
     dx = torch.empty_like(y)
     _launch("cnf_primal", "caspr_cnf_primal", y.device,
-            y.data_ptr(), gb.data_ptr(), w_first.data_ptr(), w_hidden_t.data_ptr(),
-            w_last.data_ptr(), dx.data_ptr(), bt, n, h, d, num_hidden, gb.shape[1])
+            y.data_ptr(), gb.data_ptr(), w_first.data_ptr(), w_hidden.data_ptr(),
+            w_last.data_ptr(), w_split.data_ptr(), dx.data_ptr(), bt, n, h, d, num_hidden,
+            gb.shape[1])
     return dx
 
 
@@ -444,13 +455,13 @@ def _cnf_dynamics_launch(y, e, gb, w_first, w_hidden, w_last):
     if not _on_card(y, e, gb, w_first, w_hidden, w_last):
         return dynamics_packed(y, e, gb, w_first, w_hidden, w_last)
     _check_cnf_kernel_limits("cnf_dynamics", h, d)
-    w_hidden_t = w_hidden.transpose(1, 2).contiguous()  # (in, out): coalesced rows
+    w_split = _tf32_split_scratch(w_hidden)
     dx = torch.empty_like(y)
     div = torch.empty((bt, n), dtype=torch.float32, device=y.device)
     _launch("cnf_dynamics", "caspr_cnf_dynamics", y.device,
             y.data_ptr(), e.data_ptr(), gb.data_ptr(), w_first.data_ptr(),
-            w_hidden_t.data_ptr(), w_last.data_ptr(), dx.data_ptr(), div.data_ptr(),
-            bt, n, h, d, num_hidden, gb.shape[1])
+            w_hidden.data_ptr(), w_last.data_ptr(), w_split.data_ptr(), dx.data_ptr(),
+            div.data_ptr(), bt, n, h, d, num_hidden, gb.shape[1])
     return dx, div
 
 

@@ -6,7 +6,9 @@
 Phases, each of which raises on failure:
 
   1. print the card's name and power limit; build the ten CUDA kernels
-     from caspr_tpu_torch/csrc and print the build time;
+     from caspr_tpu_torch/csrc and print the build time, and for the
+     tensor-core kernels (cnf_primal, cnf_dynamics) ptxas's registers,
+     shared memory and spills and the HGMMA count of their SASS;
   2. hold every kernel against its plain PyTorch version on the card, at
      the shapes of the batch-4 reconstruct and evaluation paths (the VJP at
      the training path's; sa_fused at all ten SA scale shapes of the
@@ -78,10 +80,12 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet (dense): device memory rate and float32 rate
-# outside the tensor cores.  A card below its 700 W limit runs slower.
+# NVIDIA H100 SXM data sheet (dense): device memory rate, float32 rate
+# outside the tensor cores and TF32 rate on them.  A card below its 700 W
+# limit runs slower.
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 # exp, sqrt and the like go to the special-function units: 16 results per SM
 # per clock against 128 fused multiply-adds (256 float32 operations).
 SPECIAL_PER_S = F32_FLOPS_PER_S / 2 / 8
@@ -132,6 +136,63 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+TENSOR_CORE_KERNELS = ("cnf_primal", "cnf_dynamics")
+
+
+def build_facts(lib_path, build_dir):
+    """Phase 1: for each tensor-core kernel, ptxas's registers, shared memory
+    and spills of every instantiation (from the build's -Xptxas -v log), its
+    warnings, and the count of HGMMA instructions in its SASS (cuobjdump,
+    where the toolkit has it; an instantiation without any fails)."""
+    import re
+    import shutil
+
+    facts = []
+    for name in TENSOR_CORE_KERNELS:
+        entry = f"{name}_kernel"
+        log = (build_dir / f"{name}.cu.log").read_text()
+        current = None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                current = m.group(1) if entry in m.group(1) else None
+                continue
+            if current is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                nch = re.search(r"ILi(\d+)E", current)  # H_pad / 128
+                facts.append({"kernel": name, "mangled": current,
+                              "h_pad": 128 * int(nch.group(1)) if nch else None,
+                              "stack_bytes": int(m.group(1)), "spill_stores": int(m.group(2)),
+                              "spill_loads": int(m.group(3))})
+            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            if m and facts and facts[-1]["mangled"] == current:
+                facts[-1].update(registers=int(m.group(1)), static_smem_bytes=int(m.group(2)))
+        warnings = [w.strip() for w in log.splitlines() if "warning" in w.lower()]
+        print(json.dumps({"ptxas": name, "warnings": warnings[:10]}), flush=True)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    hgmma = {}
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+        current = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = m.group(1)
+                hgmma[current] = 0
+            elif current is not None and "HGMMA" in line:
+                hgmma[current] += 1
+    for fact in facts:
+        mangled = fact.pop("mangled")
+        fact["hgmma_in_sass"] = hgmma.get(mangled, 0) if hgmma else "no cuobjdump"
+        print(json.dumps({"build": "ptxas -v", **fact}), flush=True)
+        if fact["hgmma_in_sass"] == 0:
+            raise AssertionError(f"{fact['kernel']} (H_pad {fact['h_pad']}): no HGMMA in its SASS")
+
+
 def time_ms(torch, fn, reps: int = 10) -> float:
     """Median of ``reps`` CUDA-event timings of fn(), after one warm-up."""
     fn()
@@ -148,12 +209,13 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: float, ops: float, special: float = 0.0):
+def bound(bytes_moved: float, ops: float, special: float = 0.0, tensor_ops: float = 0.0):
     """Least time on the card for the work: (ms, what bounds it).  The
-    operations take the longer of the float32 operations over the float32
-    rate and the special-function evaluations over theirs."""
+    operations take the longest of the float32 operations over the float32
+    rate, the special-function evaluations over theirs and the TF32
+    tensor-core operations over theirs."""
     t_bytes = bytes_moved / MEM_BYTES_PER_S
-    t_ops = max(ops / F32_FLOPS_PER_S, special / SPECIAL_PER_S)
+    t_ops = max(ops / F32_FLOPS_PER_S, special / SPECIAL_PER_S, tensor_ops / TF32_FLOPS_PER_S)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -177,6 +239,7 @@ def scanned_pairs(torch, xyz, centers, r2s, ks):
 
 def check_kernels(torch, gen):
     """Phase 2: every kernel against its plain version at path shapes."""
+    from caspr_tpu_torch.checks import tf32x3_arithmetic as tf32x3
     from caspr_tpu_torch.ops import cnf_fused, kernels, pointops
     from caspr_tpu_torch.ops.emd_plain import emd_plain
     from caspr_tpu_torch.weights import load_demo
@@ -222,12 +285,32 @@ def check_kernels(torch, gen):
             plain_ms=time_ms(torch, lambda: pointops.ball_query_pair(src, cen, r1, 16, r2, 32)),
             work=((BT * n * 3 + BT * mc * 3 + BT * mc * 48) * f4, pairs * 10.0),
         )
+    # the single-radius form (kernels.ball_query, on the path with
+    # bq_pair=False): level 1's second scale, r = .05, 32 per ball; indices
+    # identical but in balls with a source within 1e-5 of r^2
+    src, cen = xyz[:, :2048].contiguous(), xyz[:, :1024].contiguous()
+    got = kernels.ball_query(src, cen, 0.05, 32)
+    want = pointops.ball_query(src, cen, 0.05, 32)
+    r2 = pointops.radius_sq(0.05)
+    differ = (got != want).any(-1)
+    near = ((pointops.pairwise_sqdist(cen, src) - r2).abs() <= 1e-5).any(-1)
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"ball query, one radius: {int((differ & ~near).sum())} balls differ")
+    single_work = ((BT * 2048 * 3 + BT * 1024 * 3 + BT * 1024 * 32) * f4,
+                   scanned_pairs(torch, src, cen, [r2], [32]) * 10.0)
+    single = dict(
+        ms=time_ms(torch, lambda: kernels.ball_query(src, cen, 0.05, 32)),
+        plain_ms=time_ms(torch, lambda: pointops.ball_query(src, cen, 0.05, 32)),
+        bound_ms=bound(*single_work)[0], bound_by=bound(*single_work)[1],
+        balls_differing_in_the_band=int(differ.sum()),
+        shape=f"level 1: ({BT}, 2048, 3) x ({BT}, 1024, 3), r .05 -> 32")
     rows["ball_query"] = dict(
-        max_abs_err=0.0, tolerance="indices identical",
+        max_abs_err=0.0, tolerance="indices identical (one radius: but within 1e-5 of r^2)",
         ms=ball["level1"]["ms"], plain_ms=ball["level1"]["plain_ms"], library_ms=None,
         work=ball["level1"]["work"],
         shape=f"level 1: ({BT}, 2048, 3) x ({BT}, 1024, 3) -> 16 + 32; "
               f"level 5 ms {ball['level5']['ms']:.4f}, plain {ball['level5']['plain_ms']:.4f}",
+        single_radius=single,
     )
 
     # gather: the largest site, SA level 1 scale 2 ([xyz | 6 features],
@@ -289,7 +372,14 @@ def check_kernels(torch, gen):
         shape=f"({BT}, 1024, 512) -> ({BT}, {POINTS}, 512)",
     )
 
-    # CNF primal: the trained decoder at one dynamics evaluation
+    # CNF primal and dynamics (the tensor-core kernels, 3xTF32): the trained
+    # decoder at one dynamics evaluation, the likelihood direction's with
+    # noise e.  Each output is held (a) within 1e-4 of its largest magnitude
+    # of the float32 plain version, (b) within 4x the distance the float32
+    # plain version keeps from the float64 plain version, and (c) two
+    # launches must give the same bits.  (d) The bound counts the hidden
+    # layers as 3 TF32 tensor-core passes at 495 TFLOP/s; the float32
+    # CUDA-core bound of the earlier kernels is printed beside it.
     params, _ = load_demo(device=dev)
     odenet = params["point_cnf"][1]["odenet"]
     tc = torch.cat([torch.full((BT, 1), 0.25, device=dev),
@@ -297,42 +387,55 @@ def check_kernels(torch, gen):
     y = torch.randn((BT, POINTS, 3), generator=gen, device=dev)
     gb = cnf_fused.context_gb(odenet, tc)
     wf, wh, wl = cnf_fused.pack_weights(odenet)
-    got = kernels.cnf_primal(y, gb, wf, wh, wl)
-    want = cnf_fused.primal_packed(y, gb, wf, wh, wl)
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    if not rel <= 1e-4:
-        raise AssertionError(f"cnf_primal: relative err {rel} > 1e-4")
-    h = wf.shape[0]
-    rows["cnf_primal"] = dict(
-        max_abs_err=err, tolerance="1e-4 relative to max |dx|",
-        ms=time_ms(torch, lambda: kernels.cnf_primal(y, gb, wf, wh, wl)),
-        plain_ms=time_ms(torch, lambda: cnf_fused.primal_packed(y, gb, wf, wh, wl)),
-        library_ms=None,
-        work=((y.numel() * 2 + gb.numel() + wf.numel() + wh.numel() + wl.numel()) * f4,
-              2.0 * BT * POINTS * (3 * h + wh.shape[0] * h * h + h * 3)),
-        shape=f"y ({BT}, {POINTS}, 3), H {h}",
-    )
-
-    # CNF dynamics with the Hutchinson divergence: the same decoder, the
-    # likelihood direction's evaluation
     e = torch.randn((BT, POINTS, 3), generator=gen, device=dev)
-    got = kernels.cnf_dynamics(y, e, gb, wf, wh, wl)
-    want = cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl)
-    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-    rels = [err / float(w.abs().max()) for err, w in zip(errs, want)]
-    if not max(rels) <= 1e-4:
-        raise AssertionError(f"cnf_dynamics: relative err (dx, div) {rels} > 1e-4")
-    rows["cnf_dynamics"] = dict(
-        max_abs_err=max(errs), tolerance="dx and div each 1e-4 relative to their max magnitude",
-        ms=time_ms(torch, lambda: kernels.cnf_dynamics(y, e, gb, wf, wh, wl)),
-        plain_ms=time_ms(torch, lambda: cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl)),
-        library_ms=None,
-        work=((y.numel() * 3 + BT * POINTS + gb.numel() + wf.numel() + wh.numel() + wl.numel())
-              * f4,
-              4.0 * BT * POINTS * (3 * h + wh.shape[0] * h * h + h * 3)),
-        shape=f"y, e ({BT}, {POINTS}, 3), H {h}",
-    )
+    h = wf.shape[0]
+    w64 = [t.double() for t in (gb, wf, wh, wl)]
+    weights_bytes = (gb.numel() + wf.numel() + wh.numel() + wl.numel()) * f4
+    cnf_rows = {
+        "cnf_primal": dict(
+            run=lambda: (kernels.cnf_primal(y, gb, wf, wh, wl),),
+            plain=lambda: (cnf_fused.primal_packed(y, gb, wf, wh, wl),),
+            emulation=lambda: (tf32x3.primal_tf32x3(y, gb, wf, wh, wl),),
+            exact=(cnf_fused.primal_packed(y.double(), *w64),), streams=1,
+            bytes=y.numel() * 2 * f4 + weights_bytes, shape=f"y ({BT}, {POINTS}, 3), H {h}"),
+        "cnf_dynamics": dict(
+            run=lambda: kernels.cnf_dynamics(y, e, gb, wf, wh, wl),
+            plain=lambda: cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl),
+            emulation=lambda: tf32x3.dynamics_tf32x3(y, e, gb, wf, wh, wl),
+            exact=cnf_fused.dynamics_packed(y.double(), e.double(), *w64), streams=2,
+            bytes=(y.numel() * 3 + BT * POINTS) * f4 + weights_bytes,
+            shape=f"y, e ({BT}, {POINTS}, 3), H {h}"),
+    }
+    for name, c in cnf_rows.items():
+        got, plain = c["run"](), c["plain"]()
+        if not all(torch.equal(a, b) for a, b in zip(got, c["run"]())):
+            raise AssertionError(f"{name}: two launches on the same input differ")
+        errs = [float((g - p).abs().max()) for g, p in zip(got, plain)]
+        rels = [err / float(p.abs().max()) for err, p in zip(errs, plain)]
+        dist = lambda a, x: float((a.double() - x).abs().max() / x.abs().max())
+        vs64 = [dist(g, x) for g, x in zip(got, c["exact"])]
+        plain_vs64 = [dist(p, x) for p, x in zip(plain, c["exact"])]
+        emulation_vs64 = [dist(m, x) for m, x in zip(c["emulation"](), c["exact"])]
+        if not max(rels) <= 1e-4:
+            raise AssertionError(f"{name}: relative err against the float32 plain version {rels} > 1e-4")
+        if not all(k <= 4.0 * p for k, p in zip(vs64, plain_vs64)):
+            raise AssertionError(f"{name}: relative err against float64 {vs64} > 4 x the float32 "
+                                 f"plain version's {plain_vs64}")
+        rows_r = c["streams"] * BT * POINTS
+        tc_ops = 3 * 2.0 * rows_r * wh.shape[0] * h * h
+        edge_ops = 2.0 * rows_r * (3 * h + h * 3)
+        rows[name] = dict(
+            max_abs_err=max(errs),
+            tolerance="each output 1e-4 relative to its max magnitude of the float32 plain "
+                      "version; within 4x the float32 plain version's distance from float64; "
+                      "deterministic",
+            rel_err_vs_plain=rels, rel_err_vs_float64=vs64, plain_rel_err_vs_float64=plain_vs64,
+            tf32x3_emulation_rel_err_vs_float64=emulation_vs64,
+            ms=time_ms(torch, c["run"]), plain_ms=time_ms(torch, c["plain"]), library_ms=None,
+            work=(c["bytes"], edge_ops, 0.0, tc_ops),
+            f32_bound_ms=bound(c["bytes"], edge_ops + tc_ops / 3)[0],
+            shape=c["shape"],
+        )
 
     # CNF dynamics VJP: the training path's evaluation of the adjoint's
     # augmented dynamics (25 clouds of 1024 points), random cotangents.
@@ -421,8 +524,9 @@ def check_kernels(torch, gen):
     )
     rows["sa_fused"] = check_sa_fused(torch)
     for name, row in rows.items():
-        print(json.dumps({"kernel": name, **{k: v for k, v in row.items() if k != "work"}}),
-              flush=True)
+        bound_ms, bound_by = bound(*row["work"])
+        print(json.dumps({"kernel": name, **{k: v for k, v in row.items() if k != "work"},
+                          "bound_ms": bound_ms, "bound_by": bound_by}), flush=True)
     return rows
 
 
@@ -568,7 +672,7 @@ def run_path(torch, kernels):
                       "points": POINTS, "nfe_ode": nfe_ode, "nfe_cnf": nfe_cnf,
                       "seconds": seconds, "repeat_seconds": repeats,
                       "seqs_per_s": BATCH / median, "launches": counts}), flush=True)
-    profile_path(torch, recon, median * 1e3, "reconstruct B=4 T=10 N=2048")
+    profile_path(torch, recon, median * 1e3, "reconstruct B=4 T=10 N=2048", nfe=[nfe_ode, nfe_cnf])
     return counts
 
 
@@ -650,7 +754,8 @@ def run_sa_modes(torch, kernels):
     if not all(rel[name] <= bar[name] for name in rel):
         raise AssertionError(f"fused encode against factored: {rel} > {bar}")
     profile_path(torch, fused[0], report["fused"]["reconstruct_s"] * 1e3,
-                 "reconstruct B=4 T=10 N=2048, sa_impl=fused")
+                 "reconstruct B=4 T=10 N=2048, sa_impl=fused",
+                 nfe=[report["fused"]["nfe_ode"], report["fused"]["nfe_cnf"]])
     return fused[1]
 
 
@@ -660,10 +765,11 @@ def require_launched(counts, names, path):
         raise AssertionError(f"{path} ran without kernels {missing}: {counts}")
 
 
-def profile_path(torch, fn, wall_ms, label):
+def profile_path(torch, fn, wall_ms, label, nfe=None):
     """One more fn() under torch.profiler: device time by kernel, and the
     share of the unprofiled wall time ``wall_ms`` in which the card ran no
-    kernel (the profiler's own host overhead would inflate its wall)."""
+    kernel (the profiler's own host overhead would inflate its wall); ``nfe``
+    is printed beside the times when given."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -682,6 +788,7 @@ def profile_path(torch, fn, wall_ms, label):
     print(json.dumps({
         "profile": f"{label} under torch.profiler",
         "unprofiled_wall_ms": wall_ms,
+        **({"nfe": nfe} if nfe is not None else {}),
         "device_busy_ms": busy if busy else "not measured",
         "device_idle_share": 1.0 - busy / wall_ms if busy else "not measured",
         "top": [{"name": k, "ms": ms, "calls": n} for k, (ms, n) in top],
@@ -1236,6 +1343,7 @@ def main() -> int:
     print(card, flush=True)
     lib = kernels.build()
     print(json.dumps({"build_seconds": time.perf_counter() - begun, "library": lib.name}), flush=True)
+    build_facts(lib, kernels.BUILD_DIR)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(torch, gen)

@@ -296,6 +296,35 @@ def test_cnf_kernels_ragged_tile_on_the_card(cuda):
         assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
 
 
+def _rel(got, want):
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("h, n", [(64, 100), (64, 77), (512, 77), (512, 256), (32, 77), (96, 77)])
+def test_cnf_forward_kernels_against_float64_on_the_card(cuda, h, n):
+    """The tensor-core CNF kernels (3xTF32, csrc/cnf_tc.cuh) held to the
+    float64 plain version at chip_smoke.py's phase-2 bar: each output within
+    4x the distance the float32 plain version keeps from it, and two launches
+    give the same bits.  H = 32, 64 and 96 are no multiples of 128: the
+    kernel pads the channels to 128 and computes them right (it refuses no H
+    that is a multiple of 32 up to 512)."""
+    y, gb, wf, wh, wl = _cnf_inputs(cuda, bt=2, n=n, h=h, seed=2)
+    e = _noise(y)
+    args64 = [t.double() for t in (y, gb, wf, wh, wl)]
+    cases = [
+        ("cnf_primal", lambda: (kernels.cnf_primal(y, gb, wf, wh, wl),),
+         (cnf_fused.primal_packed(y, gb, wf, wh, wl),), (cnf_fused.primal_packed(*args64),)),
+        ("cnf_dynamics", lambda: kernels.cnf_dynamics(y, e, gb, wf, wh, wl),
+         cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl),
+         cnf_fused.dynamics_packed(args64[0], e.double(), *args64[1:])),
+    ]
+    for name, run, plain, exact in cases:
+        got = run()
+        assert all(torch.equal(a, b) for a, b in zip(got, run())), name
+        for g, p, x in zip(got, plain, exact):
+            assert _rel(g, x) <= 4.0 * _rel(p, x), (name, _rel(g, x), _rel(p, x))
+
+
 @pytest.mark.parametrize("op", ["gather", "three_interpolate"])
 def test_wrapper_gradients_on_the_card_match_the_cpu(cuda, op):
     x = _inputs("cpu")
