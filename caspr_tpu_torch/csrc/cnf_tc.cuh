@@ -259,9 +259,11 @@ __device__ __forceinline__ void start_ring(const Smem& sm, const float* __restri
 // at H = 512).  So each K-slice's three products (the two small ones
 // first) go into a fresh accumulator, part, and are added to acc in float32
 // with rounding to nearest: the truncation then acts on one slice's sum
-// only.  The chunks of 64 channels alternate between two part buffers, so
-// that one chunk's products run while the previous chunk's are added.
-template <int NCH>
+// only.  With kOverlap the chunks of 64 channels alternate between two part
+// buffers, so that one chunk's products run while the previous chunk's are
+// added; without it one buffer serves them in turn, 32 registers fewer (for
+// a caller whose epilogue needs them: cnf_dynamics_vjp.cu).
+template <int NCH, bool kOverlap = true>
 __device__ __forceinline__ void layer_product(float (&acc)[NCH][32], const Smem& sm,
                                               const float* __restrict__ w_split, int hpad,
                                               int layer, int num_hidden, int n0) {
@@ -274,7 +276,7 @@ __device__ __forceinline__ void layer_product(float (&acc)[NCH][32], const Smem&
   const int ks = hpad / kSliceK;
   const int slices = num_hidden * ks;
   const uint32_t part_bytes = hpad * kSliceK * sizeof(float);
-  float part[2][32];
+  float part[kOverlap ? 2 : 1][32];
 #pragma unroll
   for (int c = 0; c < NCH; ++c)
 #pragma unroll
@@ -294,33 +296,45 @@ __device__ __forceinline__ void layer_product(float (&acc)[NCH][32], const Smem&
       lo[i] = to_tf32(a[i] - __uint_as_float(hi[i]));
     }
     const uint32_t base = sm.stages + stage * 2 * part_bytes + (n0 / 8) * 256;
+    constexpr int kParts = kOverlap ? 2 : 1;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       const uint64_t b_hi = b_desc(base + c * (kChunkN / 8) * 256);
       const uint64_t b_lo = b_desc(base + part_bytes + c * (kChunkN / 8) * 256);
+      float (&p)[32] = part[c % kParts];
       wgmma_fence();
-      mma_m64n64k8(part[c & 1], lo, b_hi, 0);
-      mma_m64n64k8(part[c & 1], hi, b_lo, 1);
-      mma_m64n64k8(part[c & 1], hi, b_hi, 1);
+      mma_m64n64k8(p, lo, b_hi, 0);
+      mma_m64n64k8(p, hi, b_lo, 1);
+      mma_m64n64k8(p, hi, b_hi, 1);
       wgmma_commit();
       if (c == 0) {  // refill the ring while the tensor cores work
         if (threadIdx.x == 0 && s + kStages - 1 < slices)
           load_slice(sm, w_split, hpad, s + kStages - 1);
         __syncwarp();
-      } else {
+      }
+      if (!kOverlap) {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          fence_operand(p[i]);
+          acc[c][i] += p[i];
+        }
+      } else if (c > 0) {
         wgmma_wait<1>();
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
-          fence_operand(part[(c - 1) & 1][i]);
-          acc[c - 1][i] += part[(c - 1) & 1][i];
+          fence_operand(part[(c - 1) % kParts][i]);
+          acc[c - 1][i] += part[(c - 1) % kParts][i];
         }
       }
     }
-    wgmma_wait<0>();
+    if (kOverlap) {
+      wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      fence_operand(part[(NCH - 1) & 1][i]);
-      acc[NCH - 1][i] += part[(NCH - 1) & 1][i];
+      for (int i = 0; i < 32; ++i) {
+        fence_operand(part[(NCH - 1) % kParts][i]);
+        acc[NCH - 1][i] += part[(NCH - 1) % kParts][i];
+      }
     }
     if (lane == 0) mbar_arrive(sm.empty + 8 * stage);
   }

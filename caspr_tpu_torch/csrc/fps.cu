@@ -8,11 +8,16 @@
 // M-1 steps is ~9 flops per point, but the steps depend on each other, so
 // the time is M-1 block-wide argmax rounds (two barriers each) per cloud.
 //
-// Design: one block of 1024 threads per cloud.  The coordinates sit in
-// shared memory and every thread keeps the running minimum of its own
-// points (at most kMaxPerThread) in registers, so a step reads no device
-// memory.  The argmax is a warp-shuffle reduction of (value, index) pairs,
-// then one more across the 32 warps.  Only B blocks are busy (40 of the
+// Design: one block of 1024 threads per cloud.  For N <= 8192 the
+// coordinates sit in shared memory and every thread keeps the running
+// minimum of its own points (at most kMaxPerThread) in registers, so a step
+// reads no device memory.  Above that, fps_global_kernel reads the cloud
+// from device memory and keeps the running minima in a scratch buffer there
+// (12 + 4 bytes a point read and 4 written per step: the L2 holds both for
+// any cloud the port meets), with the same scan order and argmax, so the
+// indices are those of the plain version at any N.  The argmax is a
+// warp-shuffle reduction of (value, index) pairs, then one more across the
+// 32 warps.  Only B blocks are busy (40 of the
 // 132 SMs at batch 4 x 10 frames); running several clouds per block or
 // splitting a cloud over a cluster is later work.
 
@@ -107,11 +112,68 @@ fps_kernel(const float* __restrict__ xyz, int32_t* __restrict__ out, int n, int 
   }
 }
 
+// The same steps for any N: coordinates read from device memory, the running
+// minima in min_d (B, N) there.  Thread t owns points t, t + 1024, ... in
+// rising order, so its strict > keeps the lowest index as above.
+__global__ void __launch_bounds__(kThreads)
+fps_global_kernel(const float* __restrict__ xyz, int32_t* __restrict__ out,
+                  float* __restrict__ min_d, int n, int m) {
+  __shared__ float red_v[kWarps];
+  __shared__ int red_i[kWarps];
+  __shared__ int s_pick;
+  const float* p = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
+  float* md = min_d + static_cast<size_t>(blockIdx.x) * n;
+  for (int j = threadIdx.x; j < n; j += kThreads) md[j] = INFINITY;
+  int32_t* o = out + static_cast<size_t>(blockIdx.x) * m;
+  if (threadIdx.x == 0) o[0] = 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int last = 0;
+  for (int s = 1; s < m; ++s) {
+    const float lx = p[3 * last], ly = p[3 * last + 1], lz = p[3 * last + 2];
+    float best_v = -INFINITY;
+    int best_i = 0x7fffffff;
+    for (int j = threadIdx.x; j < n; j += kThreads) {
+      const float d = caspr::sqnorm3(p[3 * j] - lx, p[3 * j + 1] - ly, p[3 * j + 2] - lz);
+      const float v = fminf(md[j], d);
+      md[j] = v;
+      if (v > best_v) {
+        best_v = v;
+        best_i = j;
+      }
+    }
+    warp_argmax(best_v, best_i);
+    if (lane == 0) {
+      red_v[warp] = best_v;
+      red_i[warp] = best_i;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      best_v = red_v[lane];
+      best_i = red_i[lane];
+      warp_argmax(best_v, best_i);
+      if (lane == 0) {
+        s_pick = best_i;
+        o[s] = best_i;
+      }
+    }
+    __syncthreads();
+    last = s_pick;
+  }
+}
+
 }  // namespace
 
-extern "C" int caspr_fps(const float* xyz, int32_t* out, int b, int n, int m,
+// Clouds of N > 8192 points take fps_global_kernel and need min_d, scratch
+// of B * N floats; below that min_d may be null.
+extern "C" int caspr_fps(const float* xyz, int32_t* out, float* min_d, int b, int n, int m,
                          void* stream) {
-  if (n > kThreads * kMaxPerThread) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > kThreads * kMaxPerThread) {
+    if (min_d == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    fps_global_kernel<<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(xyz, out, min_d,
+                                                                             n, m);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int smem = 3 * n * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -15,16 +15,22 @@ The CNF block integrates the two-leaf state (points, log-density) with the
 Hutchinson estimate of the divergence, -e^T J e per point, for one noise
 tensor e drawn per solve and held fixed across evaluations.
 
-The dynamics are the concatsquash ODEnet with softplus, whose per-point
-work runs in the fused kernels (``ops.kernels.cnf_primal`` and
-``cnf_dynamics``) for CUDA tensors.
+The dynamics are the concatsquash ODEnet with softplus.  For a config the
+fused kernels take (``ops.cnf_fused.kernel_takes``: equal hidden widths, a
+multiple of 32 up to 512, 1-6 hidden-to-hidden layers) its per-point work
+runs in them (``ops.kernels.cnf_primal`` and ``cnf_dynamics``, their plain
+versions for CPU tensors); any other config runs the unfused composition
+(``reference_primal``, ``reference_dynamics``) on either device, with
+autograd as its VJP in training, as the JAX package runs ``odenet_apply``
+where ``can_fuse`` is false.
 
 Training (``training=True`` of the likelihood direction) solves each block
 through ``odeint_adjoint`` with the ODEnet's parameters, the context and
 t_end as its args (each evaluation of the adjoint's augmented dynamics
-runs ``cnf_dynamics`` and its VJP kernel ``cnf_dynamics_vjp``); t_end =
-sqrt_end_time^2 enters as the last request time, so its gradient is the
-adjoint's dL/dts.  The MovingBatchNorms update their running statistics
+runs ``cnf_dynamics`` and its VJP kernel ``cnf_dynamics_vjp``, or the
+composition and autograd); t_end = sqrt_end_time^2 enters as the last
+request time, so its gradient is the adjoint's dL/dts.  The
+MovingBatchNorms update their running statistics
 from the batch (PointFlow's transpose-reshape statistics) and normalise
 with the statistics from before the update.
 """
@@ -38,7 +44,8 @@ import numpy as np
 import torch
 
 from ..ops import cnf_dynamics, cnf_primal, odeint
-from ..ops.cnf_fused import context_gb, pack_weights
+from ..ops.cnf_fused import (context_gb, kernel_takes, pack_weights, reference_dynamics,
+                              reference_primal)
 from ..ops.odeint import nfe_add, odeint_adjoint
 
 
@@ -109,6 +116,21 @@ def fused_concatsquash_dynamics(params, tc, y, e):
     return cnf_dynamics(y, e, context_gb(params, tc), *pack_weights(params))
 
 
+def odenet_primal(params, cfg: CNFConfig, tc, y):
+    """f(y): the fused kernel where the config fits it, else the composition."""
+    if kernel_takes(cfg):
+        return fused_concatsquash_primal(params, tc, y)
+    return reference_primal(params, tc, y)
+
+
+def odenet_dynamics(params, cfg: CNFConfig, tc, y, e):
+    """(f(y), e^T J_f(y) e): the fused kernel where the config fits it, else
+    the composition."""
+    if kernel_takes(cfg):
+        return fused_concatsquash_dynamics(params, tc, y, e)
+    return reference_dynamics(params, tc, y, e)
+
+
 def _end_time(params, cfg: CNFConfig) -> np.float32:
     if cfg.train_T:
         return np.float32((params["sqrt_end_time"] * params["sqrt_end_time"]).item())
@@ -134,7 +156,7 @@ def cnf_block_apply(params, cfg: CNFConfig, x, context):
         # t_end - s, and the field is negated.  The state rides flattened
         # (BT, N*D) as in the JAX package.
         tc = _time_context(t_end - s, context)
-        return -fused_concatsquash_primal(odenet, tc, x_flat.reshape(bt, n, d)).reshape(bt, -1)
+        return -odenet_primal(odenet, cfg, tc, x_flat.reshape(bt, n, d)).reshape(bt, -1)
 
     ts = np.array([0.0, t_end], np.float32)
     xs, nfe = odeint(dynamics, x.reshape(bt, n * d), ts, rtol=cfg.rtol, atol=cfg.atol)
@@ -156,8 +178,7 @@ def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training:
         # the state rides flattened, (BT, N*D) and (BT, N), as in the JAX
         # package: the solver's error norm is taken per leaf
         odenet, ctx = args[0], args[1]
-        dx, div = fused_concatsquash_dynamics(
-            odenet, _time_context(t, ctx), state[0].reshape(bt, n, d), e)
+        dx, div = odenet_dynamics(odenet, cfg, _time_context(t, ctx), state[0].reshape(bt, n, d), e)
         return dx.reshape(bt, -1), -div
 
     state0 = (x.reshape(bt, n * d), logpx.reshape(bt, n))

@@ -22,6 +22,37 @@ import torch
 from ..nn import linear
 
 
+# What the fused kernels take (csrc/cnf_tc.cuh, csrc/cnf_dynamics_vjp.cu): the
+# point dimension, the hidden width (a multiple of KERNEL_WIDTH_STEP up to
+# KERNEL_MAX_WIDTH) and the number of hidden-to-hidden layers.
+KERNEL_MAX_DIM = 8
+KERNEL_WIDTH_STEP = 32
+KERNEL_MAX_WIDTH = 512
+KERNEL_HIDDEN_LAYERS = (1, 6)
+
+
+def kernel_takes(cfg) -> bool:
+    """Whether the ODEnet of a CNF config runs in the fused kernels: the
+    port's counterpart of caspr_tpu/ops/cnf_fused.py::can_fuse, read from
+    the config alone.  Concatsquash layers with softplus, D <= 8, every
+    hidden width equal, a multiple of 32 and at most 512, and 1-6
+    hidden-to-hidden layers (the training VJP's range).  Any other config
+    runs the unfused composition (``reference_primal``,
+    ``reference_dynamics``) on either device, as the JAX package runs
+    ``odenet_apply`` for a config its kernel does not take."""
+    dims = tuple(cfg.dims)
+    lo, hi = KERNEL_HIDDEN_LAYERS
+    return (
+        cfg.layer_type == "concatsquash"
+        and cfg.nonlinearity == "softplus"
+        and 1 <= cfg.input_dim <= KERNEL_MAX_DIM
+        and len(set(dims)) == 1
+        and dims[0] % KERNEL_WIDTH_STEP == 0
+        and dims[0] <= KERNEL_MAX_WIDTH
+        and lo <= len(dims) - 1 <= hi
+    )
+
+
 def softplus(x):
     """logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)), the form of
     jax.nn.softplus (torch's F.softplus switches to x above 20)."""

@@ -13,8 +13,10 @@ training paths (sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
   cnf_dynamics       -> cnf_dynamics (the likelihood dynamics, with the
                         Hutchinson divergence; the same layer tile)
   cnf_dynamics_vjp   -> cnf_dynamics_vjp (its VJP: the adjoint's augmented
-                        dynamics in training)
-  emd                -> approx_match_emd (the approxmatch EMD cost)
+                        dynamics in training; the same layer tile, and a
+                        3xTF32 split-K product for the weight gradients)
+  emd                -> approx_match_emd (the approxmatch EMD cost; a
+                        thread-block cluster per cloud pair)
   sa_fused           -> sa_fused (one set-abstraction scale after the
                         factored conv1: gather, GroupNorms, conv2, conv3,
                         max over the ball)
@@ -48,7 +50,8 @@ from pathlib import Path
 import torch
 
 from . import pointops
-from .cnf_fused import dynamics_packed, dynamics_vjp_packed, primal_packed
+from .cnf_fused import (KERNEL_HIDDEN_LAYERS, KERNEL_MAX_DIM, KERNEL_MAX_WIDTH, KERNEL_WIDTH_STEP,
+                        dynamics_packed, dynamics_vjp_packed, primal_packed)
 from .emd_plain import emd_plain
 from .sa_fused import MAX_K, MAX_WIDTH, NUM_GROUPS, sa_stack_plain
 
@@ -74,14 +77,14 @@ NVCC_FLAGS = (
 
 KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
            "cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp", "emd", "sa_fused")
-EMD_MAX_POINTS = 11520  # N + M the emd kernel's shared-memory layout holds (float32)
+FPS_SHARED_POINTS = 8192  # N the fps kernel holds in shared memory and registers
 # Launches of each kernel since the last reset_launches(); bumped only where
 # a kernel is launched on the card.
 launches = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
-    "caspr_fps": [_P, _P, _I, _I, _I, _P],
+    "caspr_fps": [_P, _P, _P, _I, _I, _I, _P],
     "caspr_ball_query_pair": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _P],
     "caspr_gather_rows": [_P, _P, _P, _I, _I, _I, _LL, _P],
     "caspr_three_nn": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -89,8 +92,8 @@ _SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
     "caspr_cnf_primal": [_P] * 7 + [_I] * 6 + [_P],
     "caspr_cnf_dynamics": [_P] * 9 + [_I] * 6 + [_P],
     "caspr_cnf_dynamics_vjp": [_P] * 13 + [_I] * 6 + [_P],
-    "caspr_approx_match_emd": [_P, _P, _P, _I, _I, _I, _P],
-    "caspr_approx_match_emd_f64": [_P, _P, _P, _I, _I, _I, _P],
+    "caspr_approx_match_emd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "caspr_approx_match_emd_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "caspr_sa_fused": [_P] * 10 + [_I] * 7 + [_P],
 }
 _lib = None
@@ -168,6 +171,9 @@ def _library():
             fn = lib.caspr_cnf_dynamics_vjp_workspace
             fn.argtypes = [_I] * 5
             fn.restype = _LL
+            fn = lib.caspr_emd_cluster_size
+            fn.argtypes = [_I] * 3
+            fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -231,10 +237,12 @@ def farthest_point_sampling(xyz, num_samples: int):
         return pointops.farthest_point_sampling(xyz, num_samples)
     if num_samples >= n:  # every point, as the TPU wrapper does: no kernel
         return pointops.fps_identity(b, n, num_samples, xyz.device)
-    if n > 8192:
-        raise ValueError(f"fps kernel takes N <= 8192, got {n}")
     out = torch.empty((b, num_samples), dtype=torch.int32, device=xyz.device)
-    _launch("fps", "caspr_fps", xyz.device, xyz.data_ptr(), out.data_ptr(), b, n, num_samples)
+    # above FPS_SHARED_POINTS the kernel keeps its running minima in scratch
+    min_d = (torch.empty((b, n), dtype=torch.float32, device=xyz.device)
+             if n > FPS_SHARED_POINTS else None)
+    _launch("fps", "caspr_fps", xyz.device, xyz.data_ptr(), out.data_ptr(),
+            None if min_d is None else min_d.data_ptr(), b, n, num_samples)
     return out
 
 
@@ -408,8 +416,11 @@ def _check_cnf(name, y, gb, w_first, w_hidden, w_last):
 
 
 def _check_cnf_kernel_limits(name, h, d):
-    if h % 32 or h > 512 or d > 8:
-        raise ValueError(f"{name} kernel takes H a multiple of 32 up to 512 and D <= 8, got H={h}, D={d}")
+    """What the kernels take (``cnf_fused.kernel_takes`` sends every other
+    config to the composition, so the model never reaches this raise)."""
+    if h % KERNEL_WIDTH_STEP or h > KERNEL_MAX_WIDTH or d > KERNEL_MAX_DIM:
+        raise ValueError(f"{name} kernel takes H a multiple of {KERNEL_WIDTH_STEP} up to "
+                         f"{KERNEL_MAX_WIDTH} and D <= {KERNEL_MAX_DIM}, got H={h}, D={d}")
 
 
 def _tf32_split_scratch(w_hidden):
@@ -496,8 +507,9 @@ def cnf_dynamics_vjp(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
     if not _on_card(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
         return dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div)
     _check_cnf_kernel_limits("cnf_dynamics_vjp", h, d)
-    if not 1 <= num_hidden <= 6:
-        raise ValueError(f"cnf_dynamics_vjp kernel takes 1 to 6 hidden layers, got {num_hidden}")
+    lo, hi = KERNEL_HIDDEN_LAYERS
+    if not lo <= num_hidden <= hi:
+        raise ValueError(f"cnf_dynamics_vjp kernel takes {lo} to {hi} hidden layers, got {num_hidden}")
     lib = _library()
     w_hidden_t = w_hidden.transpose(1, 2).contiguous()
     dy = torch.empty_like(y)
@@ -522,10 +534,30 @@ def _check_emd(xyz1, xyz2, dtype):
     _same_batch(xyz1, xyz2)
     pairs, n, _ = xyz1.shape
     m = xyz2.shape[1]
-    limit = EMD_MAX_POINTS * 4 // xyz1.element_size()
-    if n < 1 or m < 1 or n + m > limit:
-        raise ValueError(f"emd kernel takes 1 <= N, M with N + M <= {limit}, got {n}, {m}")
+    if n < 1 or m < 1:
+        raise ValueError(f"emd takes clouds of at least one point, got {n}, {m}")
     return pairs, n, m
+
+
+def emd_cluster_size(pairs: int, n: int, dtype=torch.float32, device=None) -> int:
+    """CTAs per cloud pair in the emd kernel's thread-block cluster (1 to 8)
+    for a launch of ``pairs`` pairs with N = ``n``: the card's choice, from
+    the clusters of each size it holds at once (csrc/emd.cu)."""
+    with torch.cuda.device(device):
+        size = _library().caspr_emd_cluster_size(pairs, n, int(dtype == torch.float64))
+    if size < 1:
+        raise RuntimeError(f"caspr_emd_cluster_size failed with cudaError_t {-size}")
+    return size
+
+
+def _emd_launch(kernel, entry, xyz1, xyz2, pairs, n, m):
+    cost = torch.empty((pairs,), dtype=xyz1.dtype, device=xyz1.device)
+    if pairs:
+        scratch = torch.empty((pairs, 2 * (n + m)), dtype=xyz1.dtype, device=xyz1.device)
+        _launch(kernel, entry, xyz1.device, xyz1.data_ptr(), xyz2.data_ptr(), cost.data_ptr(),
+                scratch.data_ptr(), pairs, n, m,
+                emd_cluster_size(pairs, n, xyz1.dtype, xyz1.device))
+    return cost
 
 
 def approx_match_emd(xyz1, xyz2):
@@ -536,11 +568,7 @@ def approx_match_emd(xyz1, xyz2):
     if not _on_card(xyz1, xyz2):
         with torch.no_grad():
             return emd_plain(xyz1, xyz2)
-    cost = torch.empty((pairs,), dtype=torch.float32, device=xyz1.device)
-    if pairs:
-        _launch("emd", "caspr_approx_match_emd", xyz1.device,
-                xyz1.data_ptr(), xyz2.data_ptr(), cost.data_ptr(), pairs, n, m)
-    return cost
+    return _emd_launch("emd", "caspr_approx_match_emd", xyz1, xyz2, pairs, n, m)
 
 
 def approx_match_emd_float64(xyz1, xyz2):
@@ -551,10 +579,7 @@ def approx_match_emd_float64(xyz1, xyz2):
     pairs, n, m = _check_emd(xyz1, xyz2, torch.float64)
     if not _on_card(xyz1, xyz2) or not pairs:
         raise ValueError("approx_match_emd_float64 runs only on the card, on at least one pair")
-    cost = torch.empty((pairs,), dtype=torch.float64, device=xyz1.device)
-    _launch(None, "caspr_approx_match_emd_f64", xyz1.device,
-            xyz1.data_ptr(), xyz2.data_ptr(), cost.data_ptr(), pairs, n, m)
-    return cost
+    return _emd_launch(None, "caspr_approx_match_emd_f64", xyz1, xyz2, pairs, n, m)
 
 
 def sa_fused(t, u, gidx, sp):

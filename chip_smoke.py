@@ -7,13 +7,15 @@ Phases, each of which raises on failure:
 
   1. print the card's name and power limit; build the ten CUDA kernels
      from caspr_tpu_torch/csrc and print the build time, and for the
-     tensor-core kernels (cnf_primal, cnf_dynamics) ptxas's registers,
-     shared memory and spills and the HGMMA count of their SASS;
+     tensor-core kernels (cnf_primal, cnf_dynamics, and the two product
+     kernels of cnf_dynamics_vjp) ptxas's registers, shared memory and
+     spills and the HGMMA count of their SASS (none may spill or lack it);
   2. hold every kernel against its plain PyTorch version on the card, at
      the shapes of the batch-4 reconstruct and evaluation paths (the VJP at
      the training path's; sa_fused at all ten SA scale shapes of the
      reconstruct's encoder, on the phase-3 input, against its plain version
-     in float64), and time kernel, plain version and (where one PyTorch
+     in float64; emd also at 12 pairs and at N + M = 16384, fps also at
+     N = 16384), and time kernel, plain version and (where one PyTorch
      call computes the same function) the library call with CUDA events;
   3. run full-width CaSPRModel.reconstruct (B=4, T=10, N=2048, trained
      weights from artifacts/demo_trained.pkl) with every launch count set
@@ -39,6 +41,11 @@ Phases, each of which raises on failure:
      one small forward (the same input, 2048 target points) on the card
      and on the CPU with the same base samples and noise: equal NFE,
      points and nll within 1e-3;
+ 5b. the CNF composition path (configs the fused kernels do not take:
+     cnf_dims (16, 32) and (32,), random weights from a seed): the same
+     small reconstruct and forward on the card and on the CPU, equal NFE,
+     points and nll within 1e-3 of max(1, their largest magnitude), and no
+     CNF kernel launched on the card;
   6. train at full width: fresh weights from caspr_init (seed 0), batches
      of 5 sequences x 5 frames x 1024 points in the form of bench.py's
      train step (uniform clouds, sorted times, input times x 5), three
@@ -46,7 +53,8 @@ Phases, each of which raises on failure:
      before: the encoder's kernels, cnf_dynamics and cnf_dynamics_vjp must
      run (cnf_dynamics once per CNF evaluation, the VJP once per augmented
      one) and cnf_primal must not; the loss finite, every parameter moved;
-     steps 2-3 timed and one more profiled; one step from the trained demo
+     steps 2-3 timed and one more profiled (the VJP's kernels by name);
+     one step from the trained demo
      weights; a checkpoint saved and read back;
  6b. train with sa_impl="fused": two steps at 5 x 5 x 1024 from caspr_init
      (seed 0), sa_fused launched 10 times a step, the loss finite, every
@@ -136,7 +144,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-TENSOR_CORE_KERNELS = ("cnf_primal", "cnf_dynamics")
+# per source: its kernels whose products run on the tensor cores
+TENSOR_CORE_KERNELS = {
+    "cnf_primal": ("cnf_primal_kernel",),
+    "cnf_dynamics": ("cnf_dynamics_kernel",),
+    "cnf_dynamics_vjp": ("vjp_tile_kernel", "wgrad_tc_kernel"),
+}
+# the times of the kernels this version redesigned, from the parent commit's
+# chip_smoke.py phase 2 (PERF.md: NVIDIA H100 80GB HBM3, 700.00 W)
+PARENT_MS = {"cnf_dynamics_vjp": 8.623, "emd": 15.88}
 
 
 def build_facts(lib_path, build_dir):
@@ -148,14 +164,14 @@ def build_facts(lib_path, build_dir):
     import shutil
 
     facts = []
-    for name in TENSOR_CORE_KERNELS:
-        entry = f"{name}_kernel"
+    for name, entries in TENSOR_CORE_KERNELS.items():
         log = (build_dir / f"{name}.cu.log").read_text()
         current = None
         for line in log.splitlines():
             m = re.search(r"Function properties for (\S+)", line)
             if m:
-                current = m.group(1) if entry in m.group(1) else None
+                current = m.group(1) if any(e in m.group(1) for e in entries) else None
+                entry = next((e for e in entries if current and e in current), None)
                 continue
             if current is None:
                 continue
@@ -163,13 +179,15 @@ def build_facts(lib_path, build_dir):
                           line)
             if m:
                 nch = re.search(r"ILi(\d+)E", current)  # H_pad / 128
-                facts.append({"kernel": name, "mangled": current,
+                facts.append({"kernel": name, "function": entry, "mangled": current,
                               "h_pad": 128 * int(nch.group(1)) if nch else None,
                               "stack_bytes": int(m.group(1)), "spill_stores": int(m.group(2)),
                               "spill_loads": int(m.group(3))})
-            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            m = re.search(r"Used (\d+) registers", line)
             if m and facts and facts[-1]["mangled"] == current:
-                facts[-1].update(registers=int(m.group(1)), static_smem_bytes=int(m.group(2)))
+                smem = re.search(r"(\d+) bytes smem", line)
+                facts[-1].update(registers=int(m.group(1)),
+                                 static_smem_bytes=int(smem.group(1)) if smem else 0)
         warnings = [w.strip() for w in log.splitlines() if "warning" in w.lower()]
         print(json.dumps({"ptxas": name, "warnings": warnings[:10]}), flush=True)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -190,7 +208,9 @@ def build_facts(lib_path, build_dir):
         fact["hgmma_in_sass"] = hgmma.get(mangled, 0) if hgmma else "no cuobjdump"
         print(json.dumps({"build": "ptxas -v", **fact}), flush=True)
         if fact["hgmma_in_sass"] == 0:
-            raise AssertionError(f"{fact['kernel']} (H_pad {fact['h_pad']}): no HGMMA in its SASS")
+            raise AssertionError(f"{fact['function']} (H_pad {fact['h_pad']}): no HGMMA in its SASS")
+        if fact["spill_stores"] or fact["spill_loads"]:
+            raise AssertionError(f"{fact['function']} (H_pad {fact['h_pad']}): spills")
 
 
 def time_ms(torch, fn, reps: int = 10) -> float:
@@ -258,6 +278,13 @@ def check_kernels(torch, gen):
     want = pointops.farthest_point_sampling(xyz, m)
     if not torch.equal(got, want):
         raise AssertionError(f"fps: {int((got != want).sum())} indices differ")
+    # and a cloud past what shared memory holds (N = 16384: the kernel's
+    # device-memory path), 4 clouds -> 1024
+    big = rand(4, 16384, 3)
+    if not torch.equal(kernels.farthest_point_sampling(big, m),
+                       pointops.farthest_point_sampling(big, m)):
+        raise AssertionError("fps at N = 16384: indices differ")
+    big_work = (big.numel() * f4 + 4 * m * f4, 4 * (m - 1) * 16384 * 10.0)
     rows["fps"] = dict(
         max_abs_err=0.0, tolerance="indices identical",
         ms=time_ms(torch, lambda: kernels.farthest_point_sampling(xyz, m)),
@@ -265,6 +292,10 @@ def check_kernels(torch, gen):
         library_ms=None,
         work=(BT * POINTS * 3 * f4 + BT * m * f4, BT * (m - 1) * POINTS * 10.0),
         shape=f"xyz ({BT}, {POINTS}, 3) -> ({BT}, {m})",
+        large=dict(shape="xyz (4, 16384, 3) -> (4, 1024), device-memory path",
+                   indices_identical=True,
+                   ms=time_ms(torch, lambda: kernels.farthest_point_sampling(big, m)),
+                   bound_ms=bound(*big_work)[0], bound_by=bound(*big_work)[1]),
     )
 
     # ball query: SA level 1 (2048 sources, 1024 centroids, r .02/.05) and
@@ -461,18 +492,27 @@ def check_kernels(torch, gen):
     if not max(rels.values()) <= 1e-4:
         raise AssertionError(f"cnf_dynamics_vjp: relative err against float64 {rels} > 1e-4")
     rows_r = 2 * bt * n
+    emulated = tf32x3.dynamics_vjp_tf32x3(*args)
+    vjp_bytes = (sum(a.numel() for a in args) + sum(g.numel() for g in got)) * f4
+    # three matrix passes over the rows (forward recompute, input
+    # cotangents, weight gradients), 2 operations per multiply-add; the
+    # hidden layers' on the tensor cores, three TF32 products each (3xTF32)
+    vjp_tc_ops = 3 * 3 * 2.0 * rows_r * wh.shape[0] * h * h
+    vjp_edge_ops = 3 * 2.0 * rows_r * (3 * h + h * 3)
     rows["cnf_dynamics_vjp"] = dict(
         max_abs_err=max(float((g.double() - w).abs().max()) for g, w in zip(got, exact)),
         tolerance="each output 1e-4 relative to its max magnitude, against the float64 plain "
                   "version; deterministic",
         rel_err_vs_float64=rels, plain_float32_rel_err_vs_float64=plain_rels,
+        tf32x3_emulation_rel_err_vs_float64={
+            k: float((m.double() - w).abs().max() / w.abs().max())
+            for k, m, w in zip(names, emulated, exact)},
         ms=time_ms(torch, lambda: kernels.cnf_dynamics_vjp(*args)),
+        parent_ms=PARENT_MS["cnf_dynamics_vjp"],
         plain_ms=time_ms(torch, lambda: cnf_fused.dynamics_vjp_packed(*args)),
         library_ms=None,
-        # three matrix passes over the rows (forward recompute, input
-        # cotangents, weight gradients), 2 operations per multiply-add
-        work=((sum(a.numel() for a in args) + sum(g.numel() for g in got)) * f4,
-              3 * 2.0 * rows_r * (3 * h + wh.shape[0] * h * h + h * 3)),
+        work=(vjp_bytes, vjp_edge_ops, 0.0, vjp_tc_ops),
+        f32_bound_ms=bound(vjp_bytes, vjp_edge_ops + vjp_tc_ops / 3)[0],
         shape=f"y, e, ct_dx ({bt}, {n}, 3), H {h}: {rows_r} rows",
     )
 
@@ -487,41 +527,73 @@ def check_kernels(torch, gen):
     # its value, which an error of the algorithm would exceed, and the mean
     # over the pairs to 2e-4, or twice the float32 plain version's own mean
     # error where that is larger.
-    pred, target = rand(BT, POINTS, 3), rand(BT, POINTS, 3)
-    got = kernels.approx_match_emd(pred, target)
-    want = emd_plain(pred, target)
-    exact = emd_plain(pred.double(), target.double())
-    body = kernels.approx_match_emd_float64(pred.double(), target.double())
-    body_err = float(((body - exact).abs() / exact).max())
-    if not body_err <= 1e-9:
-        raise AssertionError(f"emd: the kernel's body in float64 is {body_err} from the plain version")
-    kernel_rel = (got.double() - exact).abs() / exact
-    plain_rel = (want.double() - exact).abs() / exact
-    kernel_err, plain_err = float(kernel_rel.max()), float(plain_rel.max())
-    if not (kernel_err <= 1e-3
-            and float(kernel_rel.mean()) <= max(2.0 * float(plain_rel.mean()), 2e-4)):
-        raise AssertionError(
-            f"emd: max / mean relative error against float64 {kernel_err} / "
-            f"{float(kernel_rel.mean())} (plain float32: {plain_err} / {float(plain_rel.mean())})")
-    pairs_nm = float(BT) * POINTS * POINTS
+    def emd_case(pairs, n, m, reps=5):
+        a, b = rand(pairs, n, 3), rand(pairs, m, 3)
+        got = kernels.approx_match_emd(a, b)
+        if not torch.equal(got, kernels.approx_match_emd(a, b)):
+            raise AssertionError(f"emd {pairs} x {n} x {m}: two launches differ")
+        want = emd_plain(a, b)
+        exact = emd_plain(a.double(), b.double())
+        body = kernels.approx_match_emd_float64(a.double(), b.double())
+        body_err = float(((body - exact).abs() / exact).max())
+        if not body_err <= 1e-9:
+            raise AssertionError(f"emd {pairs} x {n} x {m}: the kernel's body in float64 is "
+                                 f"{body_err} from the plain version")
+        kernel_rel = (got.double() - exact).abs() / exact
+        plain_rel = (want.double() - exact).abs() / exact
+        if not (float(kernel_rel.max()) <= 1e-3
+                and float(kernel_rel.mean()) <= max(2.0 * float(plain_rel.mean()), 2e-4)):
+            raise AssertionError(
+                f"emd {pairs} x {n} x {m}: max / mean relative error against float64 "
+                f"{float(kernel_rel.max())} / {float(kernel_rel.mean())} (plain float32: "
+                f"{float(plain_rel.max())} / {float(plain_rel.mean())})")
+        cluster = kernels.emd_cluster_size(pairs, n, device=dev)
+        # per (i, j, level) three sweeps, each with d2 (8 operations), the
+        # exponent and the affinity's product and sum (3), the third also the
+        # flow's factor and the cost's product, sum and max (5); special
+        # functions: the three sweeps' exponentials (the affinity is not
+        # stored, so each of the level's three dependent reductions needs it
+        # anew) and the cost's square root.  The last level's affinity is
+        # exp(0) = 1: no exponential, and d2 only for the cost (8 + 10).
+        nm = float(pairs) * n * m
+        return dict(
+            shape=f"({pairs}, {n}, 3) x ({pairs}, {m}, 3) -> ({pairs},)",
+            cluster=cluster, ctas=pairs * cluster,
+            max_abs_err=float((got - want).abs().max()),
+            float64_body_rel_err=body_err,
+            rel_err_vs_float64=float(kernel_rel.max()),
+            plain_rel_err_vs_float64=float(plain_rel.max()),
+            mean_rel_err_vs_float64=float(kernel_rel.mean()),
+            plain_mean_rel_err_vs_float64=float(plain_rel.mean()),
+            rel_err_vs_plain=float(((got - want).abs() / want).max()),
+            ms=time_ms(torch, lambda: kernels.approx_match_emd(a, b), reps=reps),
+            work=((a.numel() + b.numel() + pairs) * f4, nm * (9 * (3 * 11 + 5) + 18),
+                  nm * (9 * 3 + 10)),
+        ), (a, b)
+
+    # EMD: one evaluation batch's clouds (4 sequences x 10 frames), predicted
+    # against target, both in the unit cube, then 12 pairs and one pair of
+    # N + M = 16384.  Held to the float64 value of the plain version, as the
+    # TPU kernel is (tools/hw_exactness.py), in two steps.  The kernel's body
+    # compiled in float64 must agree with it to 1e-9: the body is the
+    # algorithm.  The float32 kernel then differs from it by rounding, which
+    # the annealing amplifies: any float32 version, the plain one included,
+    # lands about 4e-5 in the mean and a few 1e-4 at worst from the float64
+    # value, pair by pair.  So every pair is held to 1e-3 of its value, which
+    # an error of the algorithm would exceed, and the mean over the pairs to
+    # 2e-4, or twice the float32 plain version's own mean error where that is
+    # larger.  Two launches must give the same bits.
+    emd_row, (pred, target) = emd_case(BT, POINTS, POINTS)
+    emd_row["plain_ms"] = time_ms(torch, lambda: emd_plain(pred, target), reps=3)
+    extra = {}
+    for key, (pairs, n, m) in {"pairs_12": (12, POINTS, POINTS),
+                               "n_plus_m_16384": (1, 12000, 4384)}.items():
+        extra[key], _ = emd_case(pairs, n, m, reps=3)
+        extra[key]["bound_ms"], extra[key]["bound_by"] = bound(*extra[key].pop("work"))
     rows["emd"] = dict(
-        max_abs_err=float((got - want).abs().max()),
+        emd_row, parent_ms=PARENT_MS["emd"], library_ms=None,
         tolerance="against float64 plain: body in float64 1e-9; float32 each pair 1e-3 relative, "
-                  "mean 2e-4 (or 2x plain's mean)",
-        float64_body_rel_err=body_err,
-        rel_err_vs_float64=kernel_err, plain_rel_err_vs_float64=plain_err,
-        mean_rel_err_vs_float64=float(kernel_rel.mean()),
-        plain_mean_rel_err_vs_float64=float(plain_rel.mean()),
-        rel_err_vs_plain=float(((got - want).abs() / want).max()),
-        ms=time_ms(torch, lambda: kernels.approx_match_emd(pred, target), reps=5),
-        plain_ms=time_ms(torch, lambda: emd_plain(pred, target), reps=3),
-        library_ms=None,
-        # per (i, j, level): two sweeps, each d2 (8), the exponent and the
-        # affinity (3); the second also the flow, its two sums and the cost (9)
-        work=((pred.numel() + target.numel() + BT) * f4,
-              10 * pairs_nm * (2 * 11 + 9), 10 * pairs_nm * 2),
-        shape=f"({BT}, {POINTS}, 3) x ({BT}, {POINTS}, 3) -> ({BT},)",
-    )
+                  "mean 2e-4 (or 2x plain's mean); deterministic", **extra)
     rows["sa_fused"] = check_sa_fused(torch)
     for name, row in rows.items():
         bound_ms, bound_by = bound(*row["work"])
@@ -765,11 +837,12 @@ def require_launched(counts, names, path):
         raise AssertionError(f"{path} ran without kernels {missing}: {counts}")
 
 
-def profile_path(torch, fn, wall_ms, label, nfe=None):
+def profile_path(torch, fn, wall_ms, label, nfe=None, focus=()):
     """One more fn() under torch.profiler: device time by kernel, and the
     share of the unprofiled wall time ``wall_ms`` in which the card ran no
     kernel (the profiler's own host overhead would inflate its wall); ``nfe``
-    is printed beside the times when given."""
+    is printed beside the times when given, and the time and calls of every
+    kernel whose name holds one of ``focus``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -792,6 +865,8 @@ def profile_path(torch, fn, wall_ms, label, nfe=None):
         "device_busy_ms": busy if busy else "not measured",
         "device_idle_share": 1.0 - busy / wall_ms if busy else "not measured",
         "top": [{"name": k, "ms": ms, "calls": n} for k, (ms, n) in top],
+        **({"focus": [{"name": k, "ms": ms, "calls": n} for k, (ms, n) in device_ms.items()
+                      if any(f in k for f in focus)]} if focus else {}),
     }), flush=True)
 
 
@@ -990,6 +1065,67 @@ def cross_device(torch):
                           "tolerance": 1e-3}), flush=True)
 
 
+# Configs the fused CNF kernels do not take (ops.cnf_fused.kernel_takes):
+# unequal widths, and no hidden-to-hidden layer.  With caspr_init's weights
+# the flow's field is close to linear, dopri5's error estimate sits at
+# float32 rounding and the step sequence follows the order of the sums; the
+# CNF layers' weights get the gain of tests/test_torch_port_composition.py
+# (6, and 9 with one hidden layer), where the estimate is truncation error.
+COMPOSED = {(16, 32): 6.0, (32,): 9.0}
+
+
+def composition_path(torch, kernels):
+    """Phase 5b: the CNF composition path, card against CPU."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel, caspr_init
+    from caspr_tpu_torch.ops.odeint import flatten_tree
+
+    rng = np.random.default_rng(SEED + 7)
+    x = rng.random((1, 2, POINTS, 4), dtype=np.float32)
+    x[..., 3] = np.array([0.0, 5.0], np.float32)[None, :, None]
+    base = rng.standard_normal((1, 2, 512, 3)).astype(np.float32)
+    ts = np.array([0.0, 1.0], np.float32)
+    target = rng.random((1, 2, POINTS, 4), dtype=np.float32)
+    target[..., 3] = np.array([0.2, 0.9], np.float32)[None, :, None]
+    noise = rng.standard_normal((2, POINTS, 3)).astype(np.float32)
+    for dims, gain in COMPOSED.items():
+        cfg = CaSPRConfig(cnf_dims=dims)
+        params, state = caspr_init(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+        for layer in params["point_cnf"][1]["odenet"]["layers"]:
+            layer["_layer"]["weight"] *= gain
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = CaSPRModel(cfg, device=dev)
+            move = lambda tree: (lambda lv: lv[1]([t.to(dev) for t in lv[0]]))(flatten_tree(tree))
+            p, st = move(params), move(state)
+            to = lambda a: torch.from_numpy(a).to(dev)
+            kernels.reset_launches()
+            with torch.no_grad():
+                _, _, rec, _, nfe = model.reconstruct(p, st, to(x), None, num_points=512,
+                                                      timestamps=to(ts), base_samples=to(base))
+                res, _ = model.forward(p, st, to(x), to(target), e=to(noise))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = dict(kernels.launches)
+                cnf = {k: counts[k] for k in ("cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp")}
+                if any(cnf.values()):
+                    raise AssertionError(f"cnf_dims={dims}: CNF kernels launched {cnf}")
+                require_launched(counts, RECONSTRUCT_KERNELS[:-1], f"cnf_dims={dims} encoder")
+            out[dev] = (rec.cpu(), nfe, res["nll"].cpu(), res["nfe"])
+        (rec, nfe, nll, fnfe), (crec, cnfe, cnll, cfnfe) = out["cuda"], out["cpu"]
+        errs = {"points": float((rec - crec).abs().max()), "nll": float((nll - cnll).abs().max())}
+        # phase 5's 1e-3 is for O(1) values; the gained flow's are larger,
+        # and the same step sequence carries rounding in proportion
+        scale = {"points": max(1.0, float(crec.abs().max())), "nll": max(1.0, float(cnll.abs().max()))}
+        print(json.dumps({"composition": f"cnf_dims={dims}, caspr_init seed {SEED}, CNF gain "
+                                         f"{gain}: reconstruct B=1 T=2 N=2048 -> 512, forward",
+                          "nfe": {"reconstruct": [nfe, cnfe], "forward": [fnfe, cfnfe]},
+                          "max_abs_err": errs, "scale": scale,
+                          "tolerance": "1e-3 x max(1, the CPU's largest magnitude)",
+                          "cnf_launches": cnf, "launches": counts}), flush=True)
+        if nfe != cnfe or fnfe != cfnfe or any(errs[k] > 1e-3 * scale[k] for k in errs):
+            raise AssertionError(f"cnf_dims={dims}, card vs CPU: see the line above")
+
+
 class TrainLoader:
     """Batches in the form of bench.py's train step: uniform clouds, times
     sorted per sequence from 0, input times x 5, target times as they are."""
@@ -1077,7 +1213,9 @@ def run_train_path(torch, kernels, out_dir):
                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
     batch = loader.batches[-1]
     profile_path(torch, lambda: step(params, opt, state, batch["input"], batch["target"], gen),
-                 median * 1e3, f"train step B={TRAIN_B} T={TRAIN_T} N={TRAIN_N}")
+                 median * 1e3, f"train step B={TRAIN_B} T={TRAIN_T} N={TRAIN_N}",
+                 focus=("vjp_tile_kernel", "wgrad_tc_kernel", "thin_grad_kernel",
+                        "finalize_kernel", "split_weights_kernel"))
 
     # the trained weights: one step
     demo_params, demo_state = load_demo(device=dev)
@@ -1357,6 +1495,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         counts.update(run_eval_path(torch, kernels, model, params, state, out_dir))
         cross_device(torch)
+        composition_path(torch, kernels)
         counts.update(run_train_path(torch, kernels, out_dir))
         floor = train_step_floor(torch)
         run_fused_train(torch, kernels, out_dir, floor)

@@ -325,6 +325,28 @@ def test_cnf_forward_kernels_against_float64_on_the_card(cuda, h, n):
             assert _rel(g, x) <= 4.0 * _rel(p, x), (name, _rel(g, x), _rel(p, x))
 
 
+@pytest.mark.parametrize("h", [32, 128, 512])
+@pytest.mark.parametrize("num_hidden, n", [(1, 77), (6, 45)])
+def test_cnf_dynamics_vjp_against_float64_on_the_card(cuda, h, num_hidden, n):
+    """The tensor-core VJP (csrc/cnf_dynamics_vjp.cu) at ragged point counts
+    (77 and 45: no multiple of the 32-point tile), 1 and 6 hidden layers:
+    each output within 1e-4 of its largest magnitude of the float64 plain
+    version (chip_smoke.py's bar), and two launches give the same bits."""
+    g = torch.Generator().manual_seed(h + num_hidden)
+    bt = 3
+    y = torch.randn((bt, n, 3), generator=g)
+    gb = torch.rand((bt, max(8, 2 * (num_hidden + 2)), h), generator=g)
+    wf = torch.randn((h, 3), generator=g)
+    wh = torch.randn((num_hidden, h, h), generator=g) / h ** 0.5
+    wl = torch.randn((3, h), generator=g) / h ** 0.5
+    args = [t.to(cuda) for t in _vjp_inputs((y, gb, wf, wh, wl))]
+    got = kernels.cnf_dynamics_vjp(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels.cnf_dynamics_vjp(*args)))
+    exact = cnf_fused.dynamics_vjp_packed(*(a.double() for a in args))
+    for name, gg, x in zip(("dy", "dgb", "dw_first", "dw_hidden", "dw_last"), got, exact):
+        assert _rel(gg, x) <= 1e-4, (name, _rel(gg, x))
+
+
 @pytest.mark.parametrize("op", ["gather", "three_interpolate"])
 def test_wrapper_gradients_on_the_card_match_the_cpu(cuda, op):
     x = _inputs("cpu")
@@ -347,7 +369,8 @@ def test_wrapper_gradients_on_the_card_match_the_cpu(cuda, op):
 
 def test_emd_protocol_size_on_the_card(cuda):
     """2048 x 2048 as the evaluation protocol runs it, ragged small pairs,
-    and the shared-memory limit."""
+    and N + M = 16384, past what one block's shared memory held before the
+    kernel streamed the clouds (N != M: a cluster of 8 on one pair)."""
     g = torch.Generator().manual_seed(3)
     a = torch.rand((8, 2048, 3), generator=g).to(cuda)
     b = torch.rand((8, 2048, 3), generator=g).to(cuda)
@@ -355,8 +378,30 @@ def test_emd_protocol_size_on_the_card(cuda):
     c = torch.rand((64, 100, 3), generator=g).to(cuda)  # N != M, not warp multiples
     d = torch.rand((64, 150, 3), generator=g).to(cuda)
     _assert_emd_close_to_float64(c, d, 3e-3)
-    big = torch.rand((1, kernels.EMD_MAX_POINTS, 3), generator=g).to(cuda)
-    with pytest.raises(ValueError, match="emd kernel takes"):
-        kernels.approx_match_emd(big, big[:, :1].contiguous())
-    with pytest.raises(ValueError, match="emd kernel takes"):
-        kernels.approx_match_emd_float64(big[:, :4096].double(), big[:, :2048].double())
+    big = torch.rand((1, 12000, 3), generator=g).to(cuda)
+    other = torch.rand((1, 4384, 3), generator=g).to(cuda)
+    _assert_emd_close_to_float64(big, other, 1e-3, mean_floor=2e-4)
+
+
+@pytest.mark.parametrize("pairs", [1, 12, 40])
+def test_emd_cluster_sizes_on_the_card(cuda, pairs):
+    """A pair's cluster of CTAs (the card picks its size per launch: 2 or
+    more here, so the launch spans more SMs than pairs); N != M; two launches
+    give the same bits (the column sums are reduced across the cluster in
+    rank order, no atomics)."""
+    assert kernels.emd_cluster_size(pairs, 1000, device=cuda) >= 2
+    g = torch.Generator().manual_seed(4 + pairs)
+    a = torch.rand((pairs, 1000, 3), generator=g).to(cuda)
+    b = torch.rand((pairs, 1536, 3), generator=g).to(cuda)
+    assert torch.equal(kernels.approx_match_emd(a, b), kernels.approx_match_emd(a, b))
+    _assert_emd_close_to_float64(a, b, 1e-3, mean_floor=2e-4)
+
+
+def test_fps_past_shared_memory_on_the_card(cuda):
+    """N = 16384: the cloud and the running minima in device memory, the
+    indices those of the plain version."""
+    g = torch.Generator().manual_seed(5)
+    xyz = torch.rand((3, 16384, 3), generator=g).to(cuda)
+    xyz[1, 8000:] = xyz[1, :8384].clone()  # exact ties across the old limit
+    got = kernels.farthest_point_sampling(xyz, 700)
+    assert torch.equal(got, pointops.farthest_point_sampling(xyz, 700))

@@ -17,7 +17,15 @@ the card holds the kernels to:
     runs at "highest" precision here, tests/conftest.py);
   - swapped into the model, they leave the solvers' NFE as the float32 plain
     versions give it, on chip_smoke.py phase 5's problem: the prediction for
-    the card-versus-CPU phases, where equal NFE is the bar.
+    the card-versus-CPU phases, where equal NFE is the bar;
+  - the VJP kernel's products (csrc/cnf_dynamics_vjp.cu): the forward
+    recompute, the input cotangents dm W (the weights transposed) and the
+    weight gradients dm^T z, a product over every row (K = 2 x points),
+    each K-slice of 8 rows summed apart and the slices added in float32:
+    each output of the emulated VJP within 1e-5 relative of the float64
+    plain version and 4x the float32 plain version's distance (the card's
+    bar is 1e-4), and the long-K product alone at the training path's
+    51 200 rows within 4x float32's distance.
 """
 
 import numpy as np
@@ -134,3 +142,28 @@ def test_emulated_kernels_keep_the_solvers_nfe(monkeypatch):
     assert nfe_tc == nfe and nfe_forward_tc == nfe_forward
     assert float((rec_tc - rec).abs().max()) <= 1e-3  # phase 5's bars
     assert float((nll_tc - nll).abs().max()) <= 1e-3
+
+
+def test_emulated_vjp_keeps_float32_accuracy_at_full_width(demo_inputs):
+    y, e, gb, wf, wh, wl = demo_inputs
+    g = torch.Generator().manual_seed(4)
+    args = (y, e, gb, wf, wh, wl, torch.randn(y.shape, generator=g),
+            torch.randn(y.shape[:2], generator=g))
+    got = tf32x3.dynamics_vjp_tf32x3(*args)
+    plain = cnf_fused.dynamics_vjp_packed(*args)
+    exact = cnf_fused.dynamics_vjp_packed(*(a.double() for a in args))
+    for name, gg, p, x in zip(("dy", "dgb", "dw_first", "dw_hidden", "dw_last"), got, plain, exact):
+        emulated, float32 = tf32x3.rel_distance(gg, x), tf32x3.rel_distance(p, x)
+        assert emulated <= 1e-5 and emulated <= 4.0 * float32, (name, emulated, float32)
+
+
+def test_emulated_weight_gradient_over_a_long_k():
+    """dm^T z over 51 200 rows (25 clouds x 1024 points x 2 streams), in 16
+    chunks, as the kernel's split-K product runs it: float32-class."""
+    g = torch.Generator().manual_seed(6)
+    dm = torch.randn((51_200, 64), generator=g) * torch.rand((51_200, 1), generator=g)
+    z = torch.nn.functional.softplus(torch.randn((51_200, 96), generator=g))
+    exact = dm.double().T @ z.double()
+    emulated = tf32x3.rel_distance(tf32x3.weight_grad_tf32x3(dm, z, chunks=16), exact)
+    float32 = tf32x3.rel_distance(dm.T @ z, exact)
+    assert emulated <= 4.0 * float32, (emulated, float32)
