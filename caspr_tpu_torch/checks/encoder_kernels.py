@@ -1,0 +1,275 @@
+"""The encoder's point-op kernels at every shape one reconstruct launches.
+
+    python3 -m caspr_tpu_torch.checks.encoder_kernels      (needs a CUDA card)
+
+``capture_calls`` records the arguments of every call one encode makes to
+the wrappers of fps, ball_query, gather, three_nn and three_interpolate
+(the batch-4 reconstruct: 1, 5, 11, 5 and 5 launches), and the five FPS
+calls the encoder makes with ``fps="level"``.  ``measure`` holds each call's
+kernel to its plain version (indices identical, gathered values bit-exact,
+interpolation within 1e-6) and times kernel and plain version with CUDA
+events, summed per reconstruct beside the summed bound.  A wrapper's host
+work (checks, allocation, the ctypes call: tens of microseconds) is longer
+than many of these kernels, so timing one call between two events times the
+host; ``queued_ms`` queues the calls behind a spin kernel, so that the card
+runs them back to back, and times the kernels alone.
+
+Run from the root of a checkout (it takes chip_smoke.py's reconstruct input
+and bound), it prints one JSON line per kernel with the per-call times and
+the sums, one with fps past what a block holds in registers (chip_smoke.py
+phase 2's (4, 16384, 3) -> 1024), and one with the device time of these
+kernels in one reconstruct under torch.profiler.  To compare two commits, run it from
+both checkouts in one call, in the order parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import torch
+
+from ..models import pointnet2
+from ..ops import kernels, pointops
+
+KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate")
+# substrings of these kernels' names in a profile
+FOCUS = ("fps_kernel", "ball_query", "gather_rows", "three_nn", "three_interp")
+# the wrapper names pointnet2 calls, by kernel
+_WRAPPERS = {"farthest_point_sampling": "fps", "ball_query_pair": "ball_query",
+             "gather_points": "gather", "three_nn": "three_nn",
+             "three_interpolate": "three_interpolate"}
+_PLAIN = {"fps": pointops.farthest_point_sampling, "ball_query": pointops.ball_query_pair,
+          "gather": pointops.gather_points, "three_nn": pointops.three_nn,
+          "three_interpolate": pointops.three_interpolate}
+_KERNEL = {"fps": kernels.farthest_point_sampling, "ball_query": kernels.ball_query_pair,
+           "gather": kernels.gather_points, "three_nn": kernels.three_nn,
+           "three_interpolate": kernels.three_interpolate}
+
+
+def queued_ms(fn, reps: int = 20, spin_cycles: int = 10_000_000) -> float:
+    """Device milliseconds of one fn() call: the median over three rounds of
+    ``reps`` calls enqueued while the card runs a spin kernel of
+    ``spin_cycles`` clocks (about 5 ms, longer than the host takes to
+    enqueue the calls), timed by CUDA events recorded after the spin and
+    after the last call, over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[1]
+
+
+def wall_ms(fn, reps: int = 10) -> float:
+    """Median of ``reps`` CUDA-event timings of one fn() call, after one
+    warm-up: the host's enqueue and the card's work, whichever is longer."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def capture_calls(model, params, x):
+    """{kernel: [args of each call]} of one encode of x (the wrappers
+    pointnet2 calls), and under "fps_level" the five FPS calls of
+    ``fps="level"``: each level's FPS on the previous level's centroids."""
+    calls = {k: [] for k in KERNELS}
+    saved = {name: getattr(pointnet2, name) for name in _WRAPPERS}
+
+    def recorder(name):
+        real = saved[name]
+
+        def record(*args):
+            calls[_WRAPPERS[name]].append(args)
+            return real(*args)
+        return record
+
+    try:
+        for name in _WRAPPERS:
+            setattr(pointnet2, name, recorder(name))
+        with torch.no_grad():
+            model.encode(params, x)
+    finally:
+        for name, fn in saved.items():
+            setattr(pointnet2, name, fn)
+    xyz = calls["fps"][0][0]
+    calls["fps_level"] = []
+    with torch.no_grad():
+        for m in model.cfg.sa_points:
+            calls["fps_level"].append((xyz, m))
+            xyz = kernels.gather_points(xyz, kernels.farthest_point_sampling(xyz, m))
+    return calls
+
+
+def scanned_pairs(xyz, centers, r2s, ks):
+    """(centroid, source) pairs the ball-query scan visits on this data: up
+    to the hit that fills the last of the lists, or all N sources."""
+    d2 = pointops.pairwise_sqdist(centers, xyz)
+    n = xyz.shape[1]
+    stop = torch.zeros(d2.shape[:2], dtype=torch.long, device=d2.device)
+    for r2, k in zip(r2s, ks):
+        count = torch.cumsum((d2 < r2).int(), dim=-1)
+        full = count[..., -1] >= k
+        at = torch.argmax((count >= k).int(), dim=-1) + 1
+        stop = torch.maximum(stop, torch.where(full, at, torch.full_like(at, n)))
+    return int(stop.sum())
+
+
+def work(kernel, args):
+    """(bytes, float32 operations) of one call: each input read once, each
+    output written once; the ball query's and FPS's operations on this
+    data."""
+    f4 = 4.0
+    if kernel in ("fps", "fps_level"):
+        xyz, m = args
+        b, n, _ = xyz.shape
+        return b * n * 3 * f4 + b * m * f4, b * (m - 1) * n * 10.0
+    if kernel == "gather":
+        points, idx = args
+        b, n, c = points.shape
+        r = idx.numel() // b
+        return (b * n * c + b * r + b * r * c) * f4, 0.0
+    if kernel == "ball_query":
+        xyz, cen, r1, k1, r2, k2 = args
+        b, n, _ = xyz.shape
+        m = cen.shape[1]
+        pairs = scanned_pairs(xyz, cen, [pointops.radius_sq(r1), pointops.radius_sq(r2)],
+                              [k1, k2])
+        return (b * n * 3 + b * m * 3 + b * m * (k1 + k2)) * f4, pairs * 10.0
+    if kernel == "three_nn":
+        q, s = args
+        b, nq, _ = q.shape
+        return (b * nq * 3 + b * s.shape[1] * 3 + b * nq * 6) * f4, b * nq * s.shape[1] * 9.0
+    if kernel == "three_interpolate":
+        feats, idx, w = args
+        b, ns, c = feats.shape
+        nq = idx.shape[1]
+        return (b * ns * c + b * nq * 6 + b * nq * c) * f4, b * nq * c * 5.0
+    raise ValueError(kernel)
+
+
+def shape_of(kernel, args):
+    if kernel in ("fps", "fps_level"):
+        return f"{tuple(args[0].shape)} -> {args[1]}"
+    if kernel == "ball_query":
+        return f"{tuple(args[0].shape)} x {tuple(args[1].shape)}, K {args[3]} + {args[5]}"
+    return " x ".join(str(tuple(a.shape)) for a in args)
+
+
+def _leaves(result):
+    return result if isinstance(result, tuple) else (result,)
+
+
+def check_call(kernel, args):
+    """The kernel's result against the plain version's on the same args:
+    indices and gathered values identical, interpolation within 1e-6.
+    Returns the largest absolute difference."""
+    name = "fps" if kernel == "fps_level" else kernel
+    with torch.no_grad():
+        got = _leaves(_KERNEL[name](*args))
+        want = _leaves(_PLAIN[name](*args))
+    err = max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+              for g, w in zip(got, want))
+    bar = 1e-6 if name == "three_interpolate" else 0.0
+    if not err <= bar:
+        raise AssertionError(f"{kernel} at {shape_of(kernel, args)}: differs from its plain "
+                             f"version by {err} (bar {bar})")
+    return err
+
+
+def measure(calls, bound, kernel_ms=queued_ms, plain_ms=lambda fn: wall_ms(fn, reps=1)):
+    """Per kernel (and "fps_level"): each call checked, the kernel timed by
+    kernel_ms(fn) and the plain version by plain_ms(fn) (one call after a
+    warm-up: the plain FPS takes about 0.15 s), with the sums per
+    reconstruct; bound(bytes, ops) is chip_smoke.py's."""
+    out = {}
+    for kernel, arg_list in calls.items():
+        name = "fps" if kernel == "fps_level" else kernel
+        rows = []
+        for args in arg_list:
+            err = check_call(kernel, args)
+            with torch.no_grad():
+                ms = kernel_ms(lambda: _KERNEL[name](*args))
+                plain = plain_ms(lambda: _PLAIN[name](*args))
+            bound_ms, bound_by = bound(*work(kernel, args))
+            row = dict(shape=shape_of(kernel, args), ms=ms, plain_ms=plain,
+                       bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+            if name == "fps":
+                steps = args[1] - 1
+                row.update(ns_per_step=ms * 1e6 / steps, bound_ns_per_step=bound_ms * 1e6 / steps)
+            rows.append(row)
+        out[kernel] = dict(
+            launches=len(rows), calls=rows,
+            ms_per_reconstruct=sum(r["ms"] for r in rows),
+            plain_ms_per_reconstruct=sum(r["plain_ms"] for r in rows),
+            bound_ms_per_reconstruct=sum(r["bound_ms"] for r in rows),
+            max_abs_err=max(r["max_abs_err"] for r in rows))
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("encoder_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..models.caspr import CaSPRConfig, CaSPRModel
+    from ..weights import load_demo
+
+    kernels.build()
+    print(chip_smoke.card_line(), flush=True)
+    model = CaSPRModel(CaSPRConfig(), device="cuda")
+    params, state = load_demo(device=model.device)
+    x, timestamps, gen = chip_smoke.reconstruct_input(torch)
+    for kernel, row in measure(capture_calls(model, params, x), chip_smoke.bound).items():
+        print(json.dumps({"kernel": kernel, **row}), flush=True)
+
+    big = torch.rand((4, 16384, 3), generator=torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    print(json.dumps({"kernel": "fps", "shape": "(4, 16384, 3) -> 1024",
+                      "ms": queued_ms(lambda: kernels.farthest_point_sampling(big, 1024))}),
+          flush=True)
+
+    def recon():
+        return model.reconstruct(params, state, x, gen, num_points=chip_smoke.POINTS,
+                                 timestamps=timestamps)
+
+    recon()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        recon()
+        torch.cuda.synchronize()
+    focus = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if any(k in evt.key for k in FOCUS):
+            ms = getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0))
+            focus[evt.key[:80]] = {"ms": ms / 1e3, "calls": evt.count}
+    print(json.dumps({"profile": "reconstruct B=4 T=10 N=2048 under torch.profiler, encoder "
+                                 "point-op kernels", "device_ms": focus}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

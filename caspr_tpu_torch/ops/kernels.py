@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -77,7 +78,8 @@ NVCC_FLAGS = (
 
 KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
            "cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp", "emd", "sa_fused")
-FPS_SHARED_POINTS = 8192  # N the fps kernel holds in shared memory and registers
+FPS_SHARED_POINTS = 8192  # N up to which the fps kernel holds a cloud in registers
+GATHER_MAX_FLOATS = 2**31 - 1  # R * C and N * C of one batch of the gather kernel
 # Launches of each kernel since the last reset_launches(); bumped only where
 # a kernel is launched on the card.
 launches = dict.fromkeys(KERNELS, 0)
@@ -298,8 +300,15 @@ def _gather_launch(points, idx):
     if not _on_card(points, idx):
         return pointops.gather_points(points, idx)
     b, n, c = points.shape
-    r = idx.numel() // b
+    r = math.prod(idx.shape[1:])
     out = torch.empty((b, r, c), dtype=points.dtype, device=points.device)
+    if out.numel() == 0:  # nothing to gather: no launch
+        return out.reshape(*idx.shape, c)
+    if n == 0:
+        raise ValueError("gather: no rows to gather from (N = 0)")
+    if r * c > GATHER_MAX_FLOATS or n * c > GATHER_MAX_FLOATS:
+        raise ValueError(f"gather: R * C = {r * c} and N * C = {n * c} must be at most "
+                         f"{GATHER_MAX_FLOATS} (the kernel's offsets within a batch are 32-bit)")
     _launch("gather", "caspr_gather_rows", points.device,
             points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, r)
     return out.reshape(*idx.shape, c)

@@ -17,6 +17,14 @@ Phases, each of which raises on failure:
      in float64; emd also at 12 pairs and at N + M = 16384, fps also at
      N = 16384), and time kernel, plain version and (where one PyTorch
      call computes the same function) the library call with CUDA events;
+     the five encoder point-op kernels also at every shape one reconstruct
+     launches them, captured from an encode of the phase-3 input (fps 1,
+     ball_query 5, gather 11, three_nn 5, three_interpolate 5, and the five
+     FPS calls of fps="level"; caspr_tpu_torch/checks/encoder_kernels.py),
+     each held to its plain version and timed, with the sums per
+     reconstruct beside the summed bound, and fps's time per step (these
+     kernels are shorter than their wrappers' host work, so they are timed
+     queued behind a spin kernel, back to back on the card);
   3. run full-width CaSPRModel.reconstruct (B=4, T=10, N=2048, trained
      weights from artifacts/demo_trained.pkl) with every launch count set
      to 0 just before, and check that each of its kernels ran and the
@@ -151,8 +159,11 @@ TENSOR_CORE_KERNELS = {
     "cnf_dynamics_vjp": ("vjp_tile_kernel", "wgrad_tc_kernel"),
 }
 # the times of the kernels this version redesigned, from the parent commit's
-# chip_smoke.py phase 2 (PERF.md: NVIDIA H100 80GB HBM3, 700.00 W)
-PARENT_MS = {"cnf_dynamics_vjp": 8.623, "emd": 15.88}
+# kernels in the parent-against-change call (caspr_tpu_torch/checks/
+# encoder_kernels.py, its first parent run; PERF.md: NVIDIA H100 80GB HBM3,
+# 700.00 W): fps at (40, 2048, 3) -> 1024, gather summed over one
+# reconstruct's 11 launches
+PARENT_MS = {"fps": 0.9489, "gather": 0.9374}
 
 
 def build_facts(lib_path, build_dir):
@@ -215,18 +226,9 @@ def build_facts(lib_path, build_dir):
 
 def time_ms(torch, fn, reps: int = 10) -> float:
     """Median of ``reps`` CUDA-event timings of fn(), after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    from caspr_tpu_torch.checks.encoder_kernels import wall_ms
+
+    return wall_ms(fn, reps)
 
 
 def bound(bytes_moved: float, ops: float, special: float = 0.0, tensor_ops: float = 0.0):
@@ -241,25 +243,11 @@ def bound(bytes_moved: float, ops: float, special: float = 0.0, tensor_ops: floa
     return t_ops * 1e3, "operations"
 
 
-def scanned_pairs(torch, xyz, centers, r2s, ks):
-    """(centroid, source) pairs the ball-query scan visits on this data: up
-    to the hit that fills the last of the lists, or all N sources."""
-    from caspr_tpu_torch.ops.pointops import pairwise_sqdist
-
-    d2 = pairwise_sqdist(centers, xyz)
-    n = xyz.shape[1]
-    stop = torch.zeros(d2.shape[:2], dtype=torch.long, device=d2.device)
-    for r2, k in zip(r2s, ks):
-        count = torch.cumsum((d2 < r2).int(), dim=-1)
-        full = count[..., -1] >= k
-        at = torch.argmax((count >= k).int(), dim=-1) + 1
-        stop = torch.maximum(stop, torch.where(full, at, torch.full_like(at, n)))
-    return int(stop.sum())
-
-
 def check_kernels(torch, gen):
     """Phase 2: every kernel against its plain version at path shapes."""
+    from caspr_tpu_torch.checks import encoder_kernels
     from caspr_tpu_torch.checks import tf32x3_arithmetic as tf32x3
+    from caspr_tpu_torch.checks.encoder_kernels import scanned_pairs
     from caspr_tpu_torch.ops import cnf_fused, kernels, pointops
     from caspr_tpu_torch.ops.emd_plain import emd_plain
     from caspr_tpu_torch.weights import load_demo
@@ -267,6 +255,9 @@ def check_kernels(torch, gen):
     dev = torch.device("cuda")
     f4 = 4.0
     rows = {}
+    # the encoder's point-op kernels (and the gather's library call) are
+    # shorter than their wrappers' host work: timed queued behind a spin
+    queued_ms = encoder_kernels.queued_ms
 
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=dev)
@@ -286,17 +277,19 @@ def check_kernels(torch, gen):
         raise AssertionError("fps at N = 16384: indices differ")
     big_work = (big.numel() * f4 + 4 * m * f4, 4 * (m - 1) * 16384 * 10.0)
     rows["fps"] = dict(
-        max_abs_err=0.0, tolerance="indices identical",
-        ms=time_ms(torch, lambda: kernels.farthest_point_sampling(xyz, m)),
+        max_abs_err=0.0, tolerance="indices identical", parent_ms=PARENT_MS["fps"],
+        ms=queued_ms(lambda: kernels.farthest_point_sampling(xyz, m)),
         plain_ms=time_ms(torch, lambda: pointops.farthest_point_sampling(xyz, m)),
         library_ms=None,
         work=(BT * POINTS * 3 * f4 + BT * m * f4, BT * (m - 1) * POINTS * 10.0),
         shape=f"xyz ({BT}, {POINTS}, 3) -> ({BT}, {m})",
         large=dict(shape="xyz (4, 16384, 3) -> (4, 1024), device-memory path",
                    indices_identical=True,
-                   ms=time_ms(torch, lambda: kernels.farthest_point_sampling(big, m)),
+                   ms=queued_ms(lambda: kernels.farthest_point_sampling(big, m)),
                    bound_ms=bound(*big_work)[0], bound_by=bound(*big_work)[1]),
     )
+    rows["fps"].update(ns_per_step=rows["fps"]["ms"] * 1e6 / (m - 1),
+                       bound_ns_per_step=bound(*rows["fps"]["work"])[0] * 1e6 / (m - 1))
 
     # ball query: SA level 1 (2048 sources, 1024 centroids, r .02/.05) and
     # level 5 (64 sources, 16 centroids, r .4/.8); 16 and 32 per ball
@@ -309,10 +302,10 @@ def check_kernels(torch, gen):
         w1, w2 = pointops.ball_query_pair(src, cen, r1, 16, r2, 32)
         if not (torch.equal(g1, w1) and torch.equal(g2, w2)):
             raise AssertionError(f"ball query {name}: indices differ")
-        pairs = scanned_pairs(torch, src, cen,
+        pairs = scanned_pairs(src, cen,
                               [pointops.radius_sq(r1), pointops.radius_sq(r2)], [16, 32])
         ball[name] = dict(
-            ms=time_ms(torch, lambda: kernels.ball_query_pair(src, cen, r1, 16, r2, 32)),
+            ms=queued_ms(lambda: kernels.ball_query_pair(src, cen, r1, 16, r2, 32)),
             plain_ms=time_ms(torch, lambda: pointops.ball_query_pair(src, cen, r1, 16, r2, 32)),
             work=((BT * n * 3 + BT * mc * 3 + BT * mc * 48) * f4, pairs * 10.0),
         )
@@ -328,9 +321,9 @@ def check_kernels(torch, gen):
     if bool((differ & ~near).any()):
         raise AssertionError(f"ball query, one radius: {int((differ & ~near).sum())} balls differ")
     single_work = ((BT * 2048 * 3 + BT * 1024 * 3 + BT * 1024 * 32) * f4,
-                   scanned_pairs(torch, src, cen, [r2], [32]) * 10.0)
+                   scanned_pairs(src, cen, [r2], [32]) * 10.0)
     single = dict(
-        ms=time_ms(torch, lambda: kernels.ball_query(src, cen, 0.05, 32)),
+        ms=queued_ms(lambda: kernels.ball_query(src, cen, 0.05, 32)),
         plain_ms=time_ms(torch, lambda: pointops.ball_query(src, cen, 0.05, 32)),
         bound_ms=bound(*single_work)[0], bound_by=bound(*single_work)[1],
         balls_differing_in_the_band=int(differ.sum()),
@@ -356,9 +349,9 @@ def check_kernels(torch, gen):
     r = idx.numel() // BT
     rows["gather"] = dict(
         max_abs_err=0.0, tolerance="bit-exact",
-        ms=time_ms(torch, lambda: kernels.gather_points(pts, idx)),
+        ms=queued_ms(lambda: kernels.gather_points(pts, idx)),
         plain_ms=time_ms(torch, lambda: pointops.gather_points(pts, idx)),
-        library_ms=time_ms(torch, lambda: torch.take_along_dim(pts, idx64, dim=1)),
+        library_ms=queued_ms(lambda: torch.take_along_dim(pts, idx64, dim=1)),
         work=((BT * POINTS * 9 + BT * r + BT * r * 9) * f4, 0.0),
         shape=f"({BT}, {POINTS}, 9) x ({BT}, {r}) -> ({BT}, {r}, 9)",
     )
@@ -375,7 +368,7 @@ def check_kernels(torch, gen):
         raise AssertionError(f"three_nn: distances differ by {err}")
     rows["three_nn"] = dict(
         max_abs_err=err, tolerance="indices identical, distances exact",
-        ms=time_ms(torch, lambda: kernels.three_nn(q, s)),
+        ms=queued_ms(lambda: kernels.three_nn(q, s)),
         plain_ms=time_ms(torch, lambda: pointops.three_nn(q, s)),
         library_ms=None,
         work=((BT * POINTS * 3 + BT * 1024 * 3 + BT * POINTS * 6) * f4,
@@ -395,7 +388,7 @@ def check_kernels(torch, gen):
         raise AssertionError(f"three_interpolate: max abs err {err} > 1e-6")
     rows["three_interpolate"] = dict(
         max_abs_err=err, tolerance="1e-6 abs (same rounding order: expect 0)",
-        ms=time_ms(torch, lambda: kernels.three_interpolate(feats, wi, w)),
+        ms=queued_ms(lambda: kernels.three_interpolate(feats, wi, w)),
         plain_ms=time_ms(torch, lambda: pointops.three_interpolate(feats, wi, w)),
         library_ms=None,
         work=((BT * 1024 * 512 + BT * POINTS * 6 + BT * POINTS * 512) * f4,
@@ -508,7 +501,6 @@ def check_kernels(torch, gen):
             k: float((m.double() - w).abs().max() / w.abs().max())
             for k, m, w in zip(names, emulated, exact)},
         ms=time_ms(torch, lambda: kernels.cnf_dynamics_vjp(*args)),
-        parent_ms=PARENT_MS["cnf_dynamics_vjp"],
         plain_ms=time_ms(torch, lambda: cnf_fused.dynamics_vjp_packed(*args)),
         library_ms=None,
         work=(vjp_bytes, vjp_edge_ops, 0.0, vjp_tc_ops),
@@ -591,15 +583,44 @@ def check_kernels(torch, gen):
         extra[key], _ = emd_case(pairs, n, m, reps=3)
         extra[key]["bound_ms"], extra[key]["bound_by"] = bound(*extra[key].pop("work"))
     rows["emd"] = dict(
-        emd_row, parent_ms=PARENT_MS["emd"], library_ms=None,
+        emd_row, library_ms=None,
         tolerance="against float64 plain: body in float64 1e-9; float32 each pair 1e-3 relative, "
                   "mean 2e-4 (or 2x plain's mean); deterministic", **extra)
     rows["sa_fused"] = check_sa_fused(torch)
+    add_per_reconstruct(torch, rows, encoder_kernels)
     for name, row in rows.items():
         bound_ms, bound_by = bound(*row["work"])
         print(json.dumps({"kernel": name, **{k: v for k, v in row.items() if k != "work"},
                           "bound_ms": bound_ms, "bound_by": bound_by}), flush=True)
     return rows
+
+
+def add_per_reconstruct(torch, rows, encoder_kernels):
+    """Phase 2, the encoder's point-op kernels at every shape one
+    reconstruct launches them (an encode of the phase-3 input with the demo
+    weights), each held to its plain version: their sums per reconstruct
+    go into each kernel's row (for fps also those of fps="level"), and one
+    line per kernel lists the calls."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.weights import load_demo
+
+    model = CaSPRModel(CaSPRConfig(), device="cuda")
+    params, _ = load_demo(device=model.device)
+    calls = encoder_kernels.capture_calls(model, params, reconstruct_input(torch)[0])
+    want = {"fps": 1, "ball_query": 5, "gather": 11, "three_nn": 5, "three_interpolate": 5,
+            "fps_level": 5}
+    if {k: len(v) for k, v in calls.items()} != want:
+        raise AssertionError(f"encode calls {[(k, len(v)) for k, v in calls.items()]}, expected {want}")
+    sums = encoder_kernels.measure(calls, bound)
+    for kernel, row in sums.items():
+        print(json.dumps({"kernel": kernel, "per_reconstruct": row}), flush=True)
+        if kernel == "fps_level":
+            continue
+        rows[kernel].update({k: row[k] for k in ("ms_per_reconstruct", "plain_ms_per_reconstruct",
+                                                 "bound_ms_per_reconstruct")})
+    rows["gather"]["parent_ms_per_reconstruct"] = PARENT_MS["gather"]
+    rows["fps"].update(level_ms_per_reconstruct=sums["fps_level"]["ms_per_reconstruct"],
+                       level_bound_ms_per_reconstruct=sums["fps_level"]["bound_ms_per_reconstruct"])
 
 
 def sa_scale_inputs(torch):
@@ -707,6 +728,7 @@ def reconstruct_input(torch):
 
 def run_path(torch, kernels):
     """Phase 3: full-width reconstruct through the kernels."""
+    from caspr_tpu_torch.checks.encoder_kernels import FOCUS
     from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
     from caspr_tpu_torch.weights import load_demo
 
@@ -744,7 +766,8 @@ def run_path(torch, kernels):
                       "points": POINTS, "nfe_ode": nfe_ode, "nfe_cnf": nfe_cnf,
                       "seconds": seconds, "repeat_seconds": repeats,
                       "seqs_per_s": BATCH / median, "launches": counts}), flush=True)
-    profile_path(torch, recon, median * 1e3, "reconstruct B=4 T=10 N=2048", nfe=[nfe_ode, nfe_cnf])
+    profile_path(torch, recon, median * 1e3, "reconstruct B=4 T=10 N=2048", nfe=[nfe_ode, nfe_cnf],
+                 focus=FOCUS)
     return counts
 
 
@@ -829,6 +852,24 @@ def run_sa_modes(torch, kernels):
                  "reconstruct B=4 T=10 N=2048, sa_impl=fused",
                  nfe=[report["fused"]["nfe_ode"], report["fused"]["nfe_cnf"]])
     return fused[1]
+
+
+def per_reconstruct(row, launches, bound_ms):
+    """The kernels line's per-reconstruct keys of one kernel: the encoder
+    kernels' sums over their captured calls; cnf_primal's launches in phase 3
+    times its time and bound; null for a kernel the default reconstruct does
+    not launch.  fps adds its time per step and bound per step."""
+    if "ms_per_reconstruct" in row:
+        keys = {"ms_per_reconstruct": row["ms_per_reconstruct"],
+                "bound_ms_per_reconstruct": row["bound_ms_per_reconstruct"]}
+    elif launches:
+        keys = {"ms_per_reconstruct": launches * row["ms"],
+                "bound_ms_per_reconstruct": launches * bound_ms}
+    else:
+        keys = {"ms_per_reconstruct": None, "bound_ms_per_reconstruct": None}
+    if "ns_per_step" in row:
+        keys.update(ns_per_step=row["ns_per_step"], bound_ns_per_step=row["bound_ns_per_step"])
+    return keys
 
 
 def require_launched(counts, names, path):
@@ -1465,6 +1506,11 @@ def cross_device_train(torch, floor):
         raise AssertionError("train step, card vs CPU: see the line above")
 
 
+def phase_done(name: str, begun: float):
+    print(json.dumps({"phase_done": name, "seconds_since_start": time.perf_counter() - begun}),
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1485,8 +1531,11 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(torch, gen)
+    phase_done("2", begun)
     counts = run_path(torch, kernels)
+    phase_done("3", begun)
     counts["sa_fused"] = run_sa_modes(torch, kernels)["sa_fused"]
+    phase_done("3b", begun)
     from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
     from caspr_tpu_torch.weights import load_demo
 
@@ -1494,12 +1543,18 @@ def main() -> int:
     params, state = load_demo(device=model.device)
     with tempfile.TemporaryDirectory() as out_dir:
         counts.update(run_eval_path(torch, kernels, model, params, state, out_dir))
+        phase_done("4", begun)
         cross_device(torch)
+        phase_done("5", begun)
         composition_path(torch, kernels)
+        phase_done("5b", begun)
         counts.update(run_train_path(torch, kernels, out_dir))
+        phase_done("6", begun)
         floor = train_step_floor(torch)
         run_fused_train(torch, kernels, out_dir, floor)
+        phase_done("6b", begun)
     cross_device_train(torch, floor)
+    phase_done("7", begun)
 
     listing = []
     for name, row in rows.items():
@@ -1510,6 +1565,7 @@ def main() -> int:
             "launches": counts[name], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": row["library_ms"],
+            **per_reconstruct(row, counts[name] if name == "cnf_primal" else None, bound_ms),
         })
     print(json.dumps({"seconds_since_start": time.perf_counter() - begun}), flush=True)
     print(card, flush=True)

@@ -405,3 +405,33 @@ def test_fps_past_shared_memory_on_the_card(cuda):
     xyz[1, 8000:] = xyz[1, :8384].clone()  # exact ties across the old limit
     got = kernels.farthest_point_sampling(xyz, 700)
     assert torch.equal(got, pointops.farthest_point_sampling(xyz, 700))
+
+
+@pytest.mark.parametrize("n", [3, 33, 257, 1024, 2048, 4097, 8192, 8193])
+def test_fps_sizes_and_ties_on_the_card(cuda, n):
+    """Each block shape of the fps kernel (and its device-memory path past
+    8192 points), M from 2 to N - 1, on a uniform cloud, a cloud of
+    duplicated points and one of all-equal points, where every step ties:
+    indices identical to the plain version."""
+    g = torch.Generator().manual_seed(n)
+    xyz = torch.rand((3, n, 3), generator=g)
+    half = (n + 1) // 2
+    xyz[1, half:] = xyz[1, : n - half].clone()
+    xyz[2] = xyz[2, :1].clone()
+    xyz = xyz.to(cuda)
+    for m in sorted({2, max(2, n // 3), n - 1}):
+        got = kernels.farthest_point_sampling(xyz, m)
+        assert torch.equal(got, pointops.farthest_point_sampling(xyz, m)), m
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 9, 99, 131, 259, 515, 1024])
+def test_gather_widths_on_the_card(cuda, c):
+    """Odd row counts, indices below 0 and at or above N (clamped), and a
+    source at no 16-byte alignment: bit-exact against the plain version."""
+    g = torch.Generator().manual_seed(c)
+    flat = torch.randn(3 * 50 * c + 1, generator=g).to(cuda)
+    for pts in (flat[: 3 * 50 * c].view(3, 50, c), flat[1:].view(3, 50, c)):
+        for shape in ((3, 1), (3, 7), (3, 13, 3), (3, 31, 5)):
+            idx = torch.randint(-4, 54, shape, generator=g, dtype=torch.int32).to(cuda)
+            got = kernels.gather_points(pts, idx)
+            assert torch.equal(got, pointops.gather_points(pts, idx)), (shape, pts.data_ptr() % 16)
