@@ -6,8 +6,8 @@
 the wrappers of fps, ball_query, gather, three_nn and three_interpolate
 (the batch-4 reconstruct: 1, 5, 11, 5 and 5 launches), and the five FPS
 calls the encoder makes with ``fps="level"``.  ``measure`` holds each call's
-kernel to its plain version (indices identical, gathered values bit-exact,
-interpolation within 1e-6) and times kernel and plain version with CUDA
+kernel to its plain version (indices identical, gathered and interpolated
+values bit-exact) and times kernel and plain version with CUDA
 events, summed per reconstruct beside the summed bound.  A wrapper's host
 work (checks, allocation, the ctypes call: tens of microseconds) is longer
 than many of these kernels, so timing one call between two events times the
@@ -17,9 +17,11 @@ runs them back to back, and times the kernels alone.
 Run from the root of a checkout (it takes chip_smoke.py's reconstruct input
 and bound), it prints one JSON line per kernel with the per-call times and
 the sums, one with fps past what a block holds in registers (chip_smoke.py
-phase 2's (4, 16384, 3) -> 1024), and one with the device time of these
-kernels in one reconstruct under torch.profiler.  To compare two commits, run it from
-both checkouts in one call, in the order parent, change, change, parent.
+phase 2's (4, 16384, 3) -> 1024), and one with one reconstruct under
+torch.profiler: its NFE, unprofiled wall, device busy time and idle share
+(chip_smoke.py's profile_path) and the device time of these kernels.  To
+compare two commits, run it from both checkouts in one call, in the order
+parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import time
 
 import torch
 
@@ -180,19 +183,18 @@ def _leaves(result):
 
 def check_call(kernel, args):
     """The kernel's result against the plain version's on the same args:
-    indices and gathered values identical, interpolation within 1e-6.
-    Returns the largest absolute difference."""
+    indices identical, gathered and interpolated values bit-exact
+    (torch.equal).  Returns the largest absolute difference (0)."""
     name = "fps" if kernel == "fps_level" else kernel
     with torch.no_grad():
         got = _leaves(_KERNEL[name](*args))
         want = _leaves(_PLAIN[name](*args))
-    err = max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
-              for g, w in zip(got, want))
-    bar = 1e-6 if name == "three_interpolate" else 0.0
-    if not err <= bar:
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        err = max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+                  for g, w in zip(got, want))
         raise AssertionError(f"{kernel} at {shape_of(kernel, args)}: differs from its plain "
-                             f"version by {err} (bar {bar})")
-    return err
+                             f"version by {err} (bar: identical)")
+    return 0.0
 
 
 def measure(calls, bound, kernel_ms=queued_ms, plain_ms=lambda fn: wall_ms(fn, reps=1)):
@@ -231,7 +233,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.getcwd())
     import chip_smoke
-    from torch.profiler import ProfilerActivity, profile
 
     from ..models.caspr import CaSPRConfig, CaSPRModel
     from ..weights import load_demo
@@ -256,18 +257,14 @@ def main() -> int:
 
     recon()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        recon()
+    walls = []
+    for _ in range(3):
+        start = time.perf_counter()
+        nfe = recon()[-1]
         torch.cuda.synchronize()
-    focus = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if any(k in evt.key for k in FOCUS):
-            ms = getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0))
-            focus[evt.key[:80]] = {"ms": ms / 1e3, "calls": evt.count}
-    print(json.dumps({"profile": "reconstruct B=4 T=10 N=2048 under torch.profiler, encoder "
-                                 "point-op kernels", "device_ms": focus}), flush=True)
+        walls.append(time.perf_counter() - start)
+    chip_smoke.profile_path(torch, recon, sorted(walls)[1] * 1e3, "reconstruct B=4 T=10 N=2048",
+                            nfe=list(nfe), focus=FOCUS)
     return 0
 
 

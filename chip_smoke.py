@@ -15,8 +15,11 @@ Phases, each of which raises on failure:
      the training path's; sa_fused at all ten SA scale shapes of the
      reconstruct's encoder, on the phase-3 input, against its plain version
      in float64; emd also at 12 pairs and at N + M = 16384, fps also at
-     N = 16384), and time kernel, plain version and (where one PyTorch
-     call computes the same function) the library call with CUDA events;
+     N = 16384; ball_query also with balls that fill early and with 16384
+     sources, past one shared-memory chunk; three_interpolate bit-exact,
+     also at C = 1030, its scalar walk), and time kernel, plain version
+     and (where one PyTorch call computes the same function) the library
+     call with CUDA events;
      the five encoder point-op kernels also at every shape one reconstruct
      launches them, captured from an encode of the phase-3 input (fps 1,
      ball_query 5, gather 11, three_nn 5, three_interpolate 5, and the five
@@ -158,12 +161,13 @@ TENSOR_CORE_KERNELS = {
     "cnf_dynamics": ("cnf_dynamics_kernel",),
     "cnf_dynamics_vjp": ("vjp_tile_kernel", "wgrad_tc_kernel"),
 }
-# the times of the kernels this version redesigned, from the parent commit's
-# kernels in the parent-against-change call (caspr_tpu_torch/checks/
-# encoder_kernels.py, its first parent run; PERF.md: NVIDIA H100 80GB HBM3,
-# 700.00 W): fps at (40, 2048, 3) -> 1024, gather summed over one
-# reconstruct's 11 launches
-PARENT_MS = {"fps": 0.9489, "gather": 0.9374}
+# the times of the kernels the last two versions redesigned, from their
+# parent commits' kernels in each parent-against-change call
+# (caspr_tpu_torch/checks/encoder_kernels.py, its first parent run; PERF.md:
+# NVIDIA H100 80GB HBM3, 700.00 W): fps at (40, 2048, 3) -> 1024; gather,
+# ball_query and three_interpolate summed over one reconstruct's 11, 5 and
+# 5 launches
+PARENT_MS = {"fps": 0.9489, "gather": 0.9374, "ball_query": 0.6191, "three_interpolate": 0.5244}
 
 
 def build_facts(lib_path, build_dir):
@@ -292,12 +296,18 @@ def check_kernels(torch, gen):
                        bound_ns_per_step=bound(*rows["fps"]["work"])[0] * 1e6 / (m - 1))
 
     # ball query: SA level 1 (2048 sources, 1024 centroids, r .02/.05) and
-    # level 5 (64 sources, 16 centroids, r .4/.8); 16 and 32 per ball
+    # level 5 (64 sources, 16 centroids, r .4/.8); 16 and 32 per ball.  Also
+    # level 1's shape with r .2/.4, where nearly every ball fills within its
+    # first few hundred sources (the early exit), and 4 clouds of 16384
+    # sources (big) with 1024 centroids, past one shared-memory chunk (4096)
     ball = {}
-    for name, (n, mc, r1, r2) in {"level1": (2048, 1024, 0.02, 0.05),
-                                  "level5": (64, 16, 0.4, 0.8)}.items():
-        src = xyz[:, :n].contiguous()
-        cen = xyz[:, :mc].contiguous()
+    for name, (pts, n, mc, r1, r2) in {"level1": (xyz, 2048, 1024, 0.02, 0.05),
+                                       "level5": (xyz, 64, 16, 0.4, 0.8),
+                                       "early_fill": (xyz, 2048, 1024, 0.2, 0.4),
+                                       "n16384": (big, 16384, 1024, 0.02, 0.05)}.items():
+        src = pts[:, :n].contiguous()
+        cen = pts[:, :mc].contiguous()
+        nb = pts.shape[0]
         g1, g2 = kernels.ball_query_pair(src, cen, r1, 16, r2, 32)
         w1, w2 = pointops.ball_query_pair(src, cen, r1, 16, r2, 32)
         if not (torch.equal(g1, w1) and torch.equal(g2, w2)):
@@ -307,8 +317,9 @@ def check_kernels(torch, gen):
         ball[name] = dict(
             ms=queued_ms(lambda: kernels.ball_query_pair(src, cen, r1, 16, r2, 32)),
             plain_ms=time_ms(torch, lambda: pointops.ball_query_pair(src, cen, r1, 16, r2, 32)),
-            work=((BT * n * 3 + BT * mc * 3 + BT * mc * 48) * f4, pairs * 10.0),
+            work=((nb * n * 3 + nb * mc * 3 + nb * mc * 48) * f4, pairs * 10.0),
         )
+        ball[name]["bound_ms"], ball[name]["bound_by"] = bound(*ball[name]["work"])
     # the single-radius form (kernels.ball_query, on the path with
     # bq_pair=False): level 1's second scale, r = .05, 32 per ball; indices
     # identical but in balls with a source within 1e-5 of r^2
@@ -331,10 +342,15 @@ def check_kernels(torch, gen):
     rows["ball_query"] = dict(
         max_abs_err=0.0, tolerance="indices identical (one radius: but within 1e-5 of r^2)",
         ms=ball["level1"]["ms"], plain_ms=ball["level1"]["plain_ms"], library_ms=None,
-        work=ball["level1"]["work"],
+        work=ball["level1"]["work"], parent_ms_per_reconstruct=PARENT_MS["ball_query"],
         shape=f"level 1: ({BT}, 2048, 3) x ({BT}, 1024, 3) -> 16 + 32; "
               f"level 5 ms {ball['level5']['ms']:.4f}, plain {ball['level5']['plain_ms']:.4f}",
         single_radius=single,
+        early_fill=dict(shape="level 1, r .2 / .4", indices_identical=True,
+                        **{k: ball["early_fill"][k] for k in ("ms", "bound_ms", "bound_by")}),
+        large=dict(shape="(4, 16384, 3) x (4, 1024, 3), r .02 / .05, 4 chunks",
+                   indices_identical=True,
+                   **{k: ball["n16384"][k] for k in ("ms", "bound_ms", "bound_by")}),
     )
 
     # gather: the largest site, SA level 1 scale 2 ([xyz | 6 features],
@@ -383,11 +399,26 @@ def check_kernels(torch, gen):
     w = (inv / inv.sum(-1, keepdim=True)).contiguous()
     got = kernels.three_interpolate(feats, wi, w)
     want = pointops.three_interpolate(feats, wi, w)
-    err = float((got - want).abs().max())
-    if err > 1e-6:
-        raise AssertionError(f"three_interpolate: max abs err {err} > 1e-6")
+    if not torch.equal(got, want):
+        raise AssertionError(f"three_interpolate: not bit-exact, max abs err "
+                             f"{float((got - want).abs().max())}")
+    # C = 1030 (no multiple of 4: the scalar walk), 4 clouds, indices out of
+    # range on both sides (clamped)
+    wide = rand(4, 1024, 1030) - 0.5
+    wide_idx = torch.randint(-2, 1026, (4, POINTS, 3), generator=gen, device=dev,
+                             dtype=torch.int32)
+    wide_w = w[:4].contiguous()
+    if not torch.equal(kernels.three_interpolate(wide, wide_idx, wide_w),
+                       pointops.three_interpolate(wide, wide_idx, wide_w)):
+        raise AssertionError("three_interpolate at C = 1030: not bit-exact")
+    wide_work = ((4 * 1024 * 1030 + 4 * POINTS * 6 + 4 * POINTS * 1030) * f4,
+                 4 * POINTS * 1030 * 5.0)
     rows["three_interpolate"] = dict(
-        max_abs_err=err, tolerance="1e-6 abs (same rounding order: expect 0)",
+        max_abs_err=0.0, tolerance="bit-exact (same rounding order)",
+        parent_ms_per_reconstruct=PARENT_MS["three_interpolate"],
+        scalar_walk=dict(shape=f"(4, 1024, 1030) -> (4, {POINTS}, 1030)", bit_exact=True,
+                         ms=queued_ms(lambda: kernels.three_interpolate(wide, wide_idx, wide_w)),
+                         bound_ms=bound(*wide_work)[0], bound_by=bound(*wide_work)[1]),
         ms=queued_ms(lambda: kernels.three_interpolate(feats, wi, w)),
         plain_ms=time_ms(torch, lambda: pointops.three_interpolate(feats, wi, w)),
         library_ms=None,

@@ -435,3 +435,58 @@ def test_gather_widths_on_the_card(cuda, c):
             idx = torch.randint(-4, 54, shape, generator=g, dtype=torch.int32).to(cuda)
             got = kernels.gather_points(pts, idx)
             assert torch.equal(got, pointops.gather_points(pts, idx)), (shape, pts.data_ptr() % 16)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 2047, 2049, 4095, 4097, 16384])
+def test_ball_query_sizes_on_the_card(cuda, n):
+    """The warp scan at N around a step of 32 and a shared-memory chunk of
+    4096, with radii where some balls fill early and some never do, on a
+    uniform cloud and one of duplicated points (equal distances): indices
+    identical to the plain version, both radii and the one-radius form."""
+    g = torch.Generator().manual_seed(100 + n)
+    xyz = torch.rand((3, n, 3), generator=g)
+    half = (n + 1) // 2
+    xyz[1, half:] = xyz[1, : n - half].clone()
+    xyz = xyz.to(cuda)
+    cen = torch.cat([xyz[:, : min(n, 40)], torch.rand((3, 24, 3), generator=g).to(cuda)], 1)
+    for r1, r2 in ((0.05, 0.1), (0.3, 0.6)):
+        got = kernels.ball_query_pair(xyz, cen, r1, 16, r2, 32)
+        want = pointops.ball_query_pair(xyz, cen, r1, 16, r2, 32)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (r1, r2)
+        assert torch.equal(kernels.ball_query(xyz, cen, r2, 40), pointops.ball_query(xyz, cen, r2, 40))
+
+
+def test_ball_query_boundaries_on_the_card(cuda):
+    """Sources exactly at r (out: the compare is strict) and one float
+    inside, empty balls, K > N, and the level-1 shape with balls that fill
+    in their first steps (r .2 / .4): indices identical to the plain
+    version."""
+    r = 0.25
+    inside = float(torch.nextafter(torch.tensor(r), torch.tensor(0.0)))
+    pts = torch.tensor([[r, 0, 0], [0, -r, 0], [inside, 0, 0], [0, 0, -inside], [0.5, 0.5, 0.5]])
+    xyz = pts.repeat(2, 20, 1).contiguous().to(cuda)
+    cen = torch.zeros((2, 3, 3), device=cuda)
+    cen[1] = 9.0  # empty balls
+    for k1, k2 in ((6, 12), (50, 150)):
+        got = kernels.ball_query_pair(xyz, cen, r, k1, 0.5, k2)
+        want = pointops.ball_query_pair(xyz, cen, r, k1, 0.5, k2)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (k1, k2)
+    g = torch.Generator().manual_seed(6)
+    cloud = torch.rand((4, 2048, 3), generator=g).to(cuda)
+    got = kernels.ball_query_pair(cloud, cloud[:, :1024].contiguous(), 0.2, 16, 0.4, 32)
+    want = pointops.ball_query_pair(cloud, cloud[:, :1024].contiguous(), 0.2, 16, 0.4, 32)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 33, 128, 512, 1029, 1030])
+def test_three_interpolate_widths_on_the_card(cuda, c):
+    """The float4 walk (C % 4 == 0, aligned) and the scalar one (other C,
+    or features at no 16-byte boundary), indices below 0 and at or above M
+    (clamped), N no multiple of the block's 8 rows: bit-exact."""
+    g = torch.Generator().manual_seed(200 + c)
+    flat = torch.randn(3 * 40 * c + 1, generator=g).to(cuda)
+    idx = torch.randint(-3, 43, (3, 77, 3), generator=g, dtype=torch.int32).to(cuda)
+    w = torch.rand((3, 77, 3), generator=g).to(cuda)
+    for feats in (flat[: 3 * 40 * c].view(3, 40, c), flat[1:].view(3, 40, c)):
+        got = kernels.three_interpolate(feats, idx, w)
+        assert torch.equal(got, pointops.three_interpolate(feats, idx, w)), feats.data_ptr() % 16
