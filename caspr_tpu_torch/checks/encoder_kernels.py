@@ -8,7 +8,12 @@ the wrappers of fps, ball_query, gather, three_nn and three_interpolate
 calls the encoder makes with ``fps="level"``.  ``measure`` holds each call's
 kernel to its plain version (indices identical, gathered and interpolated
 values bit-exact) and times kernel and plain version with CUDA
-events, summed per reconstruct beside the summed bound.  A wrapper's host
+events, summed per reconstruct beside the summed bound.
+``capture_sa_calls`` records the ten sa_fused calls of an
+``sa_impl="fused"`` encode, and ``measure_sa`` holds each to its plain
+version in float64 (1e-4 of each output's largest magnitude, two launches
+bit-equal) and times it the same way, beside its tensor-core and float32
+bounds.  A wrapper's host
 work (checks, allocation, the ctypes call: tens of microseconds) is longer
 than many of these kernels, so timing one call between two events times the
 host; ``queued_ms`` queues the calls behind a spin kernel, so that the card
@@ -17,7 +22,8 @@ runs them back to back, and times the kernels alone.
 Run from the root of a checkout (it takes chip_smoke.py's reconstruct input
 and bound), it prints one JSON line per kernel with the per-call times and
 the sums, one with fps past what a block holds in registers (chip_smoke.py
-phase 2's (4, 16384, 3) -> 1024), and one with one reconstruct under
+phase 2's (4, 16384, 3) -> 1024), one with sa_fused's ten calls, one with
+the encode's milliseconds by SA mode, and one with one reconstruct under
 torch.profiler: its NFE, unprofiled wall, device busy time and idle share
 (chip_smoke.py's profile_path) and the device time of these kernels.  To
 compare two commits, run it from both checkouts in one call, in the order
@@ -38,7 +44,7 @@ from ..ops import kernels, pointops
 
 KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate")
 # substrings of these kernels' names in a profile
-FOCUS = ("fps_kernel", "ball_query", "gather_rows", "three_nn", "three_interp")
+FOCUS = ("fps_kernel", "ball_query", "gather_rows", "three_nn", "three_interp", "sa_fused")
 # the wrapper names pointnet2 calls, by kernel
 _WRAPPERS = {"farthest_point_sampling": "fps", "ball_query_pair": "ball_query",
              "gather_points": "gather", "three_nn": "three_nn",
@@ -227,6 +233,114 @@ def measure(calls, bound, kernel_ms=queued_ms, plain_ms=lambda fn: wall_ms(fn, r
     return out
 
 
+def capture_sa_calls(params, x):
+    """The arguments (t, u, gidx, sp) of the ten sa_fused calls of an
+    ``sa_impl="fused"`` encode of x (the default config otherwise)."""
+    from ..models.caspr import CaSPRConfig, CaSPRModel
+
+    model = CaSPRModel(CaSPRConfig(sa_impl="fused"), device=x.device.type)
+    calls = []
+    real = kernels.sa_fused
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    kernels.sa_fused = record
+    try:
+        with torch.no_grad():
+            model.encode(params, x)
+    finally:
+        kernels.sa_fused = real
+    return calls
+
+
+def sa_work(args):
+    """(bytes, conv operations, elementwise operations) of one sa_fused
+    call: t, u, the indices, the weights after conv1 and the (B, M, d3)
+    maxima each moved once; conv2 and conv3 at 2 operations a multiply-add;
+    about 8 operations an activation for the subtraction, the GroupNorms
+    and the ReLUs."""
+    t, u, gidx, sp = args
+    b, m, k = gidx.shape
+    d1, d2, d3 = (c["weight"].shape[0] for c in sp["convs"])
+    rows = b * m * k
+    weights = sum(v.numel() for part in ("convs", "norms") for layer in sp[part][1:]
+                  for v in layer.values()) + 2 * d1
+    moved = (t.numel() + u.numel() + gidx.numel() + weights + b * m * d3) * 4.0
+    return moved, 2.0 * rows * (d1 * d2 + d2 * d3), 8.0 * rows * (d1 + d2 + d3)
+
+
+def check_sa_call(args):
+    """sa_fused against its plain version in float64: each output within
+    1e-4 of its largest magnitude, and two launches give the same bits.
+    Returns (kernel's, float32 plain version's) relative error and the
+    kernel's largest absolute error."""
+    from ..ops.sa_fused import sa_stack_plain
+
+    t, u, gidx, sp = args
+    with torch.no_grad():
+        got = kernels.sa_fused(*args)
+        if not torch.equal(got, kernels.sa_fused(*args)):
+            raise AssertionError(f"sa_fused {tuple(gidx.shape)}: two launches differ")
+        sp64 = {part: [{k: v.double() for k, v in layer.items()} for layer in sp[part]]
+                for part in ("convs", "norms")}
+        exact = sa_stack_plain(t.double(), u.double(), gidx, sp64)
+        plain = sa_stack_plain(t, u, gidx, sp)
+    largest = float(exact.abs().max())
+    err = float((got.double() - exact).abs().max())
+    rel = err / largest
+    if not rel <= 1e-4:
+        raise AssertionError(f"sa_fused {tuple(gidx.shape)}: relative error against float64 "
+                             f"{rel} > 1e-4")
+    return rel, float((plain.double() - exact).abs().max()) / largest, err
+
+
+def measure_sa(calls, bound, kernel_ms=queued_ms, plain_ms=lambda fn: wall_ms(fn, reps=3)):
+    """Each sa_fused call checked (check_sa_call) and timed, with its
+    bounds: bound(bytes, ops, 0, tensor_ops) is chip_smoke.py's, the convs
+    counted as three TF32 passes on the tensor cores, and beside it the
+    float32 bound (the convs on CUDA cores); the sums over the calls."""
+    from ..ops.sa_fused import sa_stack_plain
+
+    rows = []
+    for args in calls:
+        rel, plain_rel, err = check_sa_call(args)
+        t, u, gidx, sp = args
+        moved, conv, elementwise = sa_work(args)
+        d1, d2, d3 = (c["weight"].shape[0] for c in sp["convs"])
+        with torch.no_grad():
+            ms = kernel_ms(lambda: kernels.sa_fused(*args))
+            plain = plain_ms(lambda: sa_stack_plain(t, u, gidx, sp))
+        bound_ms, bound_by = bound(moved, elementwise, 0.0, 3.0 * conv)
+        rows.append(dict(shape=f"B {gidx.shape[0]}, N {t.shape[1]}, M {gidx.shape[1]}, "
+                               f"K {gidx.shape[2]}, widths {(d1, d2, d3)}",
+                         ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                         f32_bound_ms=bound(moved, elementwise + conv)[0],
+                         rel_err_vs_float64=rel, plain_rel_err_vs_float64=plain_rel,
+                         max_abs_err=err))
+    return dict(launches=len(rows), calls=rows,
+                **{f"{key}_sum": sum(r[key] for r in rows)
+                   for key in ("ms", "plain_ms", "bound_ms", "f32_bound_ms")},
+                rel_err_vs_float64=max(r["rel_err_vs_float64"] for r in rows),
+                plain_rel_err_vs_float64=max(r["plain_rel_err_vs_float64"] for r in rows),
+                max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+def encode_ms(params, x, modes=("xla", "fused")):
+    """Milliseconds of one encode of x by SA mode: the median of five
+    CUDA-event timings after a warm-up (host and card, whichever is
+    longer)."""
+    from ..models.caspr import CaSPRConfig, CaSPRModel
+
+    out = {}
+    for mode in modes:
+        model = CaSPRModel(CaSPRConfig(sa_impl=mode), device="cuda")
+        with torch.no_grad():
+            out[mode] = wall_ms(lambda: model.encode(params, x), reps=5)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("encoder_kernels: no CUDA device", file=sys.stderr)
@@ -250,6 +364,10 @@ def main() -> int:
     print(json.dumps({"kernel": "fps", "shape": "(4, 16384, 3) -> 1024",
                       "ms": queued_ms(lambda: kernels.farthest_point_sampling(big, 1024))}),
           flush=True)
+
+    sa = measure_sa(capture_sa_calls(params, x), chip_smoke.bound)
+    print(json.dumps({"kernel": "sa_fused", **sa}), flush=True)
+    print(json.dumps({"encode_ms_by_sa_impl": encode_ms(params, x)}), flush=True)
 
     def recon():
         return model.reconstruct(params, state, x, gen, num_points=chip_smoke.POINTS,

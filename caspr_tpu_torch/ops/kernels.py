@@ -96,7 +96,7 @@ _SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
     "caspr_cnf_dynamics_vjp": [_P] * 13 + [_I] * 6 + [_P],
     "caspr_approx_match_emd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "caspr_approx_match_emd_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "caspr_sa_fused": [_P] * 10 + [_I] * 7 + [_P],
+    "caspr_sa_fused": [_P] * 14 + [_I] * 7 + [_P],
 }
 _lib = None
 _lib_lock = threading.Lock()
@@ -173,9 +173,11 @@ def _library():
             fn = lib.caspr_cnf_dynamics_vjp_workspace
             fn.argtypes = [_I] * 5
             fn.restype = _LL
-            fn = lib.caspr_emd_cluster_size
-            fn.argtypes = [_I] * 3
-            fn.restype = ctypes.c_int
+            for name, count in (("caspr_emd_cluster_size", 3), ("caspr_three_nn_split", 2),
+                                ("caspr_sa_fused_instance", 4)):
+                fn = getattr(lib, name)
+                fn.argtypes = [_I] * count
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -600,9 +602,13 @@ def sa_fused(t, u, gidx, sp):
     GroupNorm + ReLU, conv3 + GroupNorm, max over K.  No gradient flows
     through it on either device: ``ops.sa_fused.fused_sa_scale`` is the
     differentiable form.  Deterministic on the card (fixed sum orders).
-    The kernel forms t[idx] - u and the first GroupNorm in float64 (see
-    csrc/sa_fused.cu), so on the card it is closer to the float64 value of
-    the stack than its float32 plain version is."""
+    The kernel forms t[idx] - u, the first GroupNorm and every GroupNorm's
+    statistics in float64 and runs conv2 and conv3 on the tensor cores in
+    a 3xTF32 split (see csrc/sa_fused.cu), so on the card it is closer to
+    the float64 value of the stack than its float32 plain version is.  It
+    reads the parameters where they lie: the wrapper launches the kernel
+    and nothing else, unless a parameter is not contiguous or not 16-byte
+    aligned, which it copies."""
     _check("t", t, torch.float32, 3)
     _check("u", u, torch.float32, 3)
     _check("gidx", gidx, torch.int32, 3)
@@ -614,7 +620,6 @@ def sa_fused(t, u, gidx, sp):
         raise ValueError(f"sa_fused: expected 3 convs and 3 norms, got {len(convs)}, {len(norms)}")
     _check_shape("u", u, (b, m, d1))
     d2, d3 = convs[1]["weight"].shape[0], convs[2]["weight"].shape[0]
-    # the parameters need not be contiguous: the kernel reads copies
     params = {"w2": (convs[1]["weight"], (d2, d1)), "b2": (convs[1]["bias"], (d2,)),
               "w3": (convs[2]["weight"], (d3, d2)), "b3": (convs[2]["bias"], (d3,))}
     for i, d in enumerate((d1, d2, d3)):
@@ -631,15 +636,35 @@ def sa_fused(t, u, gidx, sp):
             or any(d % NUM_GROUPS or d > MAX_WIDTH for d in (d1, d2, d3))):
         raise ValueError(f"sa_fused kernel takes N >= 1, K <= {MAX_K} and widths that are multiples "
                          f"of {NUM_GROUPS} up to {MAX_WIDTH}, got N={n}, K={k}, {(d1, d2, d3)}")
-    w2t = convs[1]["weight"].T.contiguous()  # (in, out): coalesced rows
-    w3t = convs[2]["weight"].T.contiguous()
-    b2, b3 = convs[1]["bias"].contiguous(), convs[2]["bias"].contiguous()
-    gn_weight = torch.cat([nm["weight"] for nm in norms])
-    gn_bias = torch.cat([nm["bias"] for nm in norms])
+    w2, b2, w3, b3, g1, be1, g2, be2, g3, be3 = (
+        _aligned(tensor) for tensor, _ in params.values())
+    t, u = _aligned(t), _aligned(u)
     out = torch.empty((b, m, d3), dtype=torch.float32, device=t.device)
     if out.numel():
         _launch("sa_fused", "caspr_sa_fused", t.device,
-                t.data_ptr(), u.data_ptr(), gidx.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-                w3t.data_ptr(), b3.data_ptr(),
-                gn_weight.data_ptr(), gn_bias.data_ptr(), out.data_ptr(), b, n, m, k, d1, d2, d3)
+                t.data_ptr(), u.data_ptr(), gidx.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                w3.data_ptr(), b3.data_ptr(), g1.data_ptr(), be1.data_ptr(), g2.data_ptr(),
+                be2.data_ptr(), g3.data_ptr(), be3.data_ptr(), out.data_ptr(),
+                b, n, m, k, d1, d2, d3)
     return out
+
+
+def _aligned(tensor):
+    """tensor itself where it is contiguous and 16-byte aligned (the
+    kernel's float4 and cp.async reads), else a copy that is."""
+    if tensor.is_contiguous() and tensor.data_ptr() % 16 == 0:
+        return tensor
+    return tensor.clone(memory_format=torch.contiguous_format)
+
+
+def sa_fused_instance(k: int, d1: int, d2: int, d3: int) -> int:
+    """Which instantiation of the sa_fused kernel takes balls of K and the
+    widths (d1, d2, d3): 1-9 for the encoder's nine shapes, 0 for the
+    generic one (csrc/sa_fused.cu).  Needs the built library."""
+    return _library().caspr_sa_fused_instance(k, d1, d2, d3)
+
+
+def three_nn_split(b: int, nq: int) -> int:
+    """The lanes the three_nn kernel splits each query's sources over for
+    B x Nq queries (csrc/three_nn.cu).  Needs the built library."""
+    return _library().caspr_three_nn_split(b, nq)

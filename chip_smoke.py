@@ -7,19 +7,24 @@ Phases, each of which raises on failure:
 
   1. print the card's name and power limit; build the ten CUDA kernels
      from caspr_tpu_torch/csrc and print the build time, and for the
-     tensor-core kernels (cnf_primal, cnf_dynamics, and the two product
-     kernels of cnf_dynamics_vjp) ptxas's registers, shared memory and
-     spills and the HGMMA count of their SASS (none may spill or lack it);
+     tensor-core kernels (cnf_primal, cnf_dynamics, the two product
+     kernels of cnf_dynamics_vjp, and every instantiation of sa_fused)
+     ptxas's registers, shared memory and spills and the count of their
+     product instructions in the SASS (HGMMA, HMMA for sa_fused's
+     mma.sync; none may spill or lack it);
   2. hold every kernel against its plain PyTorch version on the card, at
      the shapes of the batch-4 reconstruct and evaluation paths (the VJP at
      the training path's; sa_fused at all ten SA scale shapes of the
-     reconstruct's encoder, on the phase-3 input, against its plain version
-     in float64; emd also at 12 pairs and at N + M = 16384, fps also at
-     N = 16384; ball_query also with balls that fill early and with 16384
-     sources, past one shared-memory chunk; three_interpolate bit-exact,
-     also at C = 1030, its scalar walk), and time kernel, plain version
-     and (where one PyTorch call computes the same function) the library
-     call with CUDA events;
+     reconstruct's encoder, on the phase-3 input, at a ragged last tile and
+     at a shape only its generic instantiation takes, against its plain
+     version in float64, timed queued behind a spin kernel with its
+     tensor-core and float32 bounds; emd also at 12 pairs and at N + M =
+     16384, fps also at N = 16384; ball_query also with balls that fill
+     early and with 16384 sources, past one shared-memory chunk; three_nn
+     also on duplicated points, on a grid, at Ns = 3, 2049 and 16384;
+     three_interpolate bit-exact, also at C = 1030, its scalar walk), and
+     time kernel, plain version and (where one PyTorch call computes the
+     same function) the library call with CUDA events;
      the five encoder point-op kernels also at every shape one reconstruct
      launches them, captured from an encode of the phase-3 input (fps 1,
      ball_query 5, gather 11, three_nn 5, three_interpolate 5, and the five
@@ -155,31 +160,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# per source: its kernels whose products run on the tensor cores
+# per source: its kernels whose products run on the tensor cores, and the
+# SASS instruction of their products (wgmma: HGMMA; mma.sync: HMMA)
 TENSOR_CORE_KERNELS = {
-    "cnf_primal": ("cnf_primal_kernel",),
-    "cnf_dynamics": ("cnf_dynamics_kernel",),
-    "cnf_dynamics_vjp": ("vjp_tile_kernel", "wgrad_tc_kernel"),
+    "cnf_primal": (("cnf_primal_kernel",), "HGMMA"),
+    "cnf_dynamics": (("cnf_dynamics_kernel",), "HGMMA"),
+    "cnf_dynamics_vjp": (("vjp_tile_kernel", "wgrad_tc_kernel"), "HGMMA"),
+    "sa_fused": (("sa_fused_kernel",), "HMMA"),
 }
-# the times of the kernels the last two versions redesigned, from their
+# the times of the kernels the last three versions redesigned, from their
 # parent commits' kernels in each parent-against-change call
 # (caspr_tpu_torch/checks/encoder_kernels.py, its first parent run; PERF.md:
 # NVIDIA H100 80GB HBM3, 700.00 W): fps at (40, 2048, 3) -> 1024; gather,
-# ball_query and three_interpolate summed over one reconstruct's 11, 5 and
-# 5 launches
-PARENT_MS = {"fps": 0.9489, "gather": 0.9374, "ball_query": 0.6191, "three_interpolate": 0.5244}
+# ball_query, three_interpolate and three_nn summed over one reconstruct's
+# 11, 5, 5 and 5 launches; sa_fused summed over the ten SA scales
+PARENT_MS = {"fps": 0.9489, "gather": 0.9374, "ball_query": 0.6191, "three_interpolate": 0.5244,
+             "three_nn": 0.1587, "sa_fused": 13.65}
 
 
 def build_facts(lib_path, build_dir):
     """Phase 1: for each tensor-core kernel, ptxas's registers, shared memory
     and spills of every instantiation (from the build's -Xptxas -v log), its
-    warnings, and the count of HGMMA instructions in its SASS (cuobjdump,
-    where the toolkit has it; an instantiation without any fails)."""
+    warnings, and the count of its product instructions (HGMMA or HMMA) in
+    its SASS (cuobjdump, where the toolkit has it; an instantiation without
+    any fails)."""
     import re
     import shutil
 
     facts = []
-    for name, entries in TENSOR_CORE_KERNELS.items():
+    for name, (entries, opcode) in TENSOR_CORE_KERNELS.items():
         log = (build_dir / f"{name}.cu.log").read_text()
         current = None
         for line in log.splitlines():
@@ -193,9 +202,9 @@ def build_facts(lib_path, build_dir):
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m:
-                nch = re.search(r"ILi(\d+)E", current)  # H_pad / 128
+                args = [int(v) for v in re.findall(r"Li(\d+)E", current)]
                 facts.append({"kernel": name, "function": entry, "mangled": current,
-                              "h_pad": 128 * int(nch.group(1)) if nch else None,
+                              "opcode": opcode, "template_args": args,
                               "stack_bytes": int(m.group(1)), "spill_stores": int(m.group(2)),
                               "spill_loads": int(m.group(3))})
             m = re.search(r"Used (\d+) registers", line)
@@ -206,7 +215,7 @@ def build_facts(lib_path, build_dir):
         warnings = [w.strip() for w in log.splitlines() if "warning" in w.lower()]
         print(json.dumps({"ptxas": name, "warnings": warnings[:10]}), flush=True)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    hgmma = {}
+    counts = {}  # per function: {opcode: count}
     if os.path.exists(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], check=True,
                               capture_output=True, text=True, timeout=300).stdout
@@ -215,17 +224,20 @@ def build_facts(lib_path, build_dir):
             m = re.search(r"Function : (\S+)", line)
             if m:
                 current = m.group(1)
-                hgmma[current] = 0
-            elif current is not None and "HGMMA" in line:
-                hgmma[current] += 1
+                counts[current] = {"HGMMA": 0, "HMMA": 0}
+            elif current is not None:
+                for op in counts[current]:
+                    counts[current][op] += op in line
     for fact in facts:
         mangled = fact.pop("mangled")
-        fact["hgmma_in_sass"] = hgmma.get(mangled, 0) if hgmma else "no cuobjdump"
+        fact["in_sass"] = (counts.get(mangled, {}).get(fact["opcode"], 0) if counts
+                           else "no cuobjdump")
         print(json.dumps({"build": "ptxas -v", **fact}), flush=True)
-        if fact["hgmma_in_sass"] == 0:
-            raise AssertionError(f"{fact['function']} (H_pad {fact['h_pad']}): no HGMMA in its SASS")
+        what = f"{fact['function']} {fact['template_args']}"
+        if fact["in_sass"] == 0:
+            raise AssertionError(f"{what}: no {fact['opcode']} in its SASS")
         if fact["spill_stores"] or fact["spill_loads"]:
-            raise AssertionError(f"{fact['function']} (H_pad {fact['h_pad']}): spills")
+            raise AssertionError(f"{what}: spills")
 
 
 def time_ms(torch, fn, reps: int = 10) -> float:
@@ -372,28 +384,51 @@ def check_kernels(torch, gen):
         shape=f"({BT}, {POINTS}, 9) x ({BT}, {r}) -> ({BT}, {r}, 9)",
     )
 
-    # three-NN: the finest FP level, 2048 queries against 1024 sources
-    q = xyz
-    s = xyz[:, :1024].contiguous()
-    gd, gi = kernels.three_nn(q, s)
-    wd, wi = pointops.three_nn(q, s)
-    if not torch.equal(gi, wi):
-        raise AssertionError(f"three_nn: {int((gi != wi).sum())} indices differ")
-    err = float((gd - wd).abs().max())
-    if err != 0.0:
-        raise AssertionError(f"three_nn: distances differ by {err}")
+    # three-NN: the finest FP level, 2048 queries against 1024 sources; then
+    # ties (every source four times; coordinates on a 1/4 grid), Ns = 3, Ns
+    # past one staged chunk of 2048 and (4, 16384) sources: indices
+    # identical and distances exact (the same float32 operations, and the
+    # plain version's stable sort order on equal distances)
+    def three_nn_exact(name, q, s):
+        gd, gi = kernels.three_nn(q, s)
+        wd, wi = pointops.three_nn(q, s)
+        if not torch.equal(gi, wi):
+            raise AssertionError(f"three_nn {name}: {int((gi != wi).sum())} indices differ")
+        if not torch.equal(gd, wd):
+            raise AssertionError(f"three_nn {name}: distances differ by "
+                                 f"{float((gd - wd).abs().max())}")
+
+    def three_nn_work(q, s):
+        b, nq, ns = q.shape[0], q.shape[1], s.shape[1]
+        return (b * (nq + ns) * 3 + b * nq * 6) * f4, b * nq * ns * 9.0
+
+    q, s = xyz, xyz[:, :1024].contiguous()
+    three_nn_exact("level 1", q, s)
+    grid = lambda *shape: torch.randint(0, 5, shape, generator=gen, device=dev).float() / 4
+    big_q, big_s = xyz[:4, :1024].contiguous(), rand(4, 16384, 3)
+    for name, (cq, cs) in {"duplicated": (xyz, xyz[:, :256].repeat(1, 4, 1)),
+                           "grid": (grid(BT, POINTS, 3), grid(BT, 1024, 3)),
+                           "ns_3": (xyz, xyz[:, :3].contiguous()),
+                           "ns_2049": (xyz[:4].contiguous(), rand(4, 2049, 3)),
+                           "ns_16384": (big_q, big_s)}.items():
+        three_nn_exact(name, cq, cs)
+    big_work = three_nn_work(big_q, big_s)
     rows["three_nn"] = dict(
-        max_abs_err=err, tolerance="indices identical, distances exact",
+        max_abs_err=0.0, tolerance="indices identical, distances exact",
         ms=queued_ms(lambda: kernels.three_nn(q, s)),
         plain_ms=time_ms(torch, lambda: pointops.three_nn(q, s)),
-        library_ms=None,
-        work=((BT * POINTS * 3 + BT * 1024 * 3 + BT * POINTS * 6) * f4,
-              BT * POINTS * 1024 * 9.0),
+        library_ms=None, work=three_nn_work(q, s),
+        parent_ms_per_reconstruct=PARENT_MS["three_nn"],
+        ties_and_sizes_exact=["duplicated", "grid", "ns_3", "ns_2049", "ns_16384"],
+        sources_16384=dict(shape="(4, 1024, 3) x (4, 16384, 3)",
+                           ms=queued_ms(lambda: kernels.three_nn(big_q, big_s)),
+                           bound_ms=bound(*big_work)[0], bound_by=bound(*big_work)[1]),
         shape=f"({BT}, {POINTS}, 3) x ({BT}, 1024, 3) -> ({BT}, {POINTS}, 3)",
     )
 
     # three-interpolate: the finest FP level moves 512 conv channels from
     # 1024 source points to 2048 queries
+    wd, wi = pointops.three_nn(q, s)
     feats = rand(BT, 1024, 512) - 0.5
     inv = 1.0 / (wd + 1e-8)
     w = (inv / inv.sum(-1, keepdim=True)).contiguous()
@@ -654,95 +689,70 @@ def add_per_reconstruct(torch, rows, encoder_kernels):
                        level_bound_ms_per_reconstruct=sums["fps_level"]["bound_ms_per_reconstruct"])
 
 
-def sa_scale_inputs(torch):
-    """(sp, xyz, features, new_xyz, gidx) of the ten SA scales of the
-    phase-3 reconstruct's encoder (its input, the demo weights, the port's
-    FPS and ball query), captured from an encode with sa_impl="factored"."""
-    from caspr_tpu_torch.models import pointnet2
-    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
-    from caspr_tpu_torch.weights import load_demo
-
-    model = CaSPRModel(CaSPRConfig(sa_impl="factored"), device="cuda")
-    params, _ = load_demo(device=model.device)
-    x, _, _ = reconstruct_input(torch)
-    captured = []
-    real = pointnet2.sa_scale_factored
-
-    def capture(sp, xyz, features, new_xyz, gidx, gather=None):
-        captured.append((sp, xyz, features, new_xyz, gidx))
-        return real(sp, xyz, features, new_xyz, gidx, gather=gather)
-
-    pointnet2.sa_scale_factored = capture
-    try:
-        with torch.no_grad():
-            model.encode(params, x)
-    finally:
-        pointnet2.sa_scale_factored = real
-    if len(captured) != 10:
-        raise AssertionError(f"captured {len(captured)} SA scales, expected 10")
-    return captured
+def sa_extra_inputs(torch, b, n, m, k, dims, seed):
+    """sa_fused's arguments (t, u, gidx, sp) at a shape the reconstruct does
+    not launch: random tables, indices partly out of range (clamped), a
+    mini-PointNet's parameters, on the card from ``seed``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    d1 = dims[0]
+    t, u = rand(b, n, d1), 0.5 * rand(b, m, d1)
+    gidx = torch.randint(-2, n + 3, (b, m, k), generator=gen, device=dev, dtype=torch.int32)
+    ins = (9,) + tuple(dims)
+    sp = {"convs": [{"weight": rand(d, ins[i]) / ins[i] ** 0.5, "bias": 0.1 * rand(d)}
+                    for i, d in enumerate(dims)],
+          "norms": [{"weight": 1.0 + 0.1 * rand(d), "bias": 0.1 * rand(d)} for d in dims]}
+    return t, u, gidx, sp
 
 
 def check_sa_fused(torch):
     """Phase 2, sa_fused: the kernel at the ten SA scale shapes of the
-    reconstruct, held to its plain version run in float64 on the card, each
-    output within 1e-4 of its largest magnitude; two launches must give the
-    same bits.  Where a ball's variance is far below GroupNorm's eps (balls
-    of one or two distinct points at the small radii), GroupNorm scales a
-    float32 rounding by up to 316: the float32 plain version lands up to
-    6.5e-4 from the float64 value at level 1, so the kernel forms t[idx] - u
-    and the first GroupNorm in double (csrc/sa_fused.cu).  No PyTorch call computes the stack: library none."""
-    from caspr_tpu_torch.ops import kernels
-    from caspr_tpu_torch.ops.sa_fused import factors, sa_stack_plain
+    reconstruct (the calls of an sa_impl="fused" encode of the phase-3
+    input with the demo weights), at a ragged last tile and at a shape only
+    the generic instantiation takes, each held to its plain version run in
+    float64 on the card, each output within 1e-4 of its largest magnitude,
+    and two launches must give the same bits
+    (checks/encoder_kernels.py::check_sa_call).  Where a ball's variance is
+    far below GroupNorm's eps (balls of one or two distinct points at the
+    small radii), GroupNorm scales a float32 rounding by up to 316: the
+    float32 plain version lands up to 6.5e-4 from the float64 value at
+    level 1, so the kernel forms t[idx] - u, the first GroupNorm and every
+    GroupNorm's statistics in double (csrc/sa_fused.cu).  Timed queued
+    behind a spin kernel, per scale and summed, with the tensor-core bound
+    (the convs as three TF32 passes) and the float32 bound beside.  No
+    PyTorch call computes the stack: library none."""
+    from caspr_tpu_torch.checks import encoder_kernels
+    from caspr_tpu_torch.weights import load_demo
 
-    f4 = 4.0
-    per_shape, errs, work = [], [], [0.0, 0.0]
-    for sp, xyz, features, new_xyz, gidx in sa_scale_inputs(torch):
-        with torch.no_grad():
-            t, u = factors(sp, xyz, features, new_xyz)
-            got = kernels.sa_fused(t, u, gidx, sp)
-            if not torch.equal(got, kernels.sa_fused(t, u, gidx, sp)):
-                raise AssertionError(f"sa_fused {tuple(gidx.shape)}: two launches differ")
-            sp64 = {part: [{k: v.double() for k, v in layer.items()} for layer in sp[part]]
-                    for part in ("convs", "norms")}
-            exact = sa_stack_plain(t.double(), u.double(), gidx, sp64)
-            plain = sa_stack_plain(t, u, gidx, sp)
-        largest = float(exact.abs().max())
-        err = float((got.double() - exact).abs().max())
-        plain_err = float((plain.double() - exact).abs().max())
-        b, m, k = gidx.shape
-        d1, d2, d3 = (c["weight"].shape[0] for c in sp["convs"])
-        rows_r = b * m * k
-        weights = sum(v.numel() for part in ("convs", "norms") for layer in sp[part][1:]
-                      for v in layer.values()) + 2 * d1
-        # conv2 and conv3 at 2 operations a multiply-add, and about 8 an
-        # activation for the subtraction, the GroupNorms and the ReLUs
-        shape_work = ((t.numel() + u.numel() + gidx.numel() + weights + got.numel()) * f4,
-                      2.0 * rows_r * (d1 * d2 + d2 * d3) + 8.0 * rows_r * (d1 + d2 + d3))
-        work[0] += shape_work[0]
-        work[1] += shape_work[1]
-        bound_ms, bound_by = bound(*shape_work)
-        row = dict(shape=f"B {b}, N {t.shape[1]}, M {m}, K {k}, widths {(d1, d2, d3)}",
-                   rel_err_vs_float64=err / largest, plain_rel_err_vs_float64=plain_err / largest,
-                   max_abs_err=err,
-                   ms=time_ms(torch, lambda: kernels.sa_fused(t, u, gidx, sp)),
-                   plain_ms=time_ms(torch, lambda: sa_stack_plain(t, u, gidx, sp)),
-                   bound_ms=bound_ms, bound_by=bound_by)
-        print(json.dumps({"kernel": "sa_fused", "scale": len(per_shape), **row}), flush=True)
-        per_shape.append(row)
-        errs.append(err / largest)
-    if not max(errs) <= 1e-4:
-        raise AssertionError(f"sa_fused: relative errors against float64 {errs} > 1e-4")
-    largest_shape = max(per_shape, key=lambda r: r["ms"])
+    params, _ = load_demo(device=torch.device("cuda"))
+    calls = encoder_kernels.capture_sa_calls(params, reconstruct_input(torch)[0])
+    if len(calls) != 10:
+        raise AssertionError(f"captured {len(calls)} sa_fused calls, expected 10")
+    scales = encoder_kernels.measure_sa(calls, bound)
+    for i, row in enumerate(scales["calls"]):
+        print(json.dumps({"kernel": "sa_fused", "scale": i, **row}), flush=True)
+    extra = {}
+    for key, (b, n, m, k, dims) in {"ragged_tile": (3, 300, 37, 16, (16, 16, 32)),
+                                    "generic": (3, 300, 37, 5, (64, 96, 128))}.items():
+        one = encoder_kernels.measure_sa([sa_extra_inputs(torch, b, n, m, k, dims, seed=k)],
+                                         bound)["calls"][0]
+        extra[key] = {name: one[name] for name in ("shape", "rel_err_vs_float64", "ms",
+                                                   "bound_ms")}
+    work = [encoder_kernels.sa_work(args) for args in calls]
+    largest = max(scales["calls"], key=lambda r: r["ms"])
     return dict(
-        max_abs_err=max(r["max_abs_err"] for r in per_shape),
+        max_abs_err=scales["max_abs_err"],
         tolerance="each output 1e-4 of its max magnitude against the float64 plain version; "
                   "deterministic",
-        rel_err_vs_float64=max(errs),
-        plain_rel_err_vs_float64=max(r["plain_rel_err_vs_float64"] for r in per_shape),
-        ms=sum(r["ms"] for r in per_shape), plain_ms=sum(r["plain_ms"] for r in per_shape),
-        library_ms=None, work=tuple(work),
-        largest_shape_ms=largest_shape["ms"], largest_shape=largest_shape["shape"],
+        rel_err_vs_float64=scales["rel_err_vs_float64"],
+        plain_rel_err_vs_float64=scales["plain_rel_err_vs_float64"],
+        ms=scales["ms_sum"], plain_ms=scales["plain_ms_sum"], library_ms=None,
+        parent_ms=PARENT_MS["sa_fused"], scale0_ms=scales["calls"][0]["ms"],
+        work=(sum(w[0] for w in work), sum(w[2] for w in work), 0.0,
+              3.0 * sum(w[1] for w in work)),
+        f32_bound_ms=scales["f32_bound_ms_sum"],
+        largest_shape_ms=largest["ms"], largest_shape=largest["shape"], **extra,
         shape="sum over the 10 SA scale shapes of one batch-4 reconstruct, one launch each",
     )
 
@@ -1596,6 +1606,7 @@ def main() -> int:
             "launches": counts[name], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": row["library_ms"],
+            **({"f32_bound_ms": row["f32_bound_ms"]} if "f32_bound_ms" in row else {}),
             **per_reconstruct(row, counts[name] if name == "cnf_primal" else None, bound_ms),
         })
     print(json.dumps({"seconds_since_start": time.perf_counter() - begun}), flush=True)

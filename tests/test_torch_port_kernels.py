@@ -490,3 +490,86 @@ def test_three_interpolate_widths_on_the_card(cuda, c):
     for feats in (flat[: 3 * 40 * c].view(3, 40, c), flat[1:].view(3, 40, c)):
         got = kernels.three_interpolate(feats, idx, w)
         assert torch.equal(got, pointops.three_interpolate(feats, idx, w)), feats.data_ptr() % 16
+
+
+# the five FP levels of the batch-4 reconstruct: (queries, sources) per cloud
+THREE_NN_LEVELS = [(2048, 1024), (1024, 512), (512, 256), (256, 64), (64, 16)]
+
+
+@pytest.mark.parametrize("nq, ns", THREE_NN_LEVELS)
+def test_three_nn_reconstruct_shapes_on_the_card(cuda, nq, ns):
+    """Each level's shape with the reconstruct's 40 clouds (and so its
+    split of the sources over lanes): indices identical, distances exact."""
+    g = torch.Generator().manual_seed(nq + ns)
+    q = torch.rand((40, nq, 3), generator=g).to(cuda)
+    s = torch.rand((40, ns, 3), generator=g).to(cuda)
+    gd, gi = kernels.three_nn(q, s)
+    wd, wi = pointops.three_nn(q, s)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("kind", ["duplicated", "grid"])
+@pytest.mark.parametrize("b, nq, ns", [(3, 50, 3), (3, 50, 5), (40, 2048, 1024), (3, 70, 2049),
+                                       (2, 33, 4097), (4, 1024, 16384)])
+def test_three_nn_ties_on_the_card(cuda, kind, b, nq, ns):
+    """Equal distances (every point several times; coordinates on a 1/4
+    grid), Ns = 3, Ns at and past a staged chunk of 2048 and at (4, 16384)
+    sources: the lower index first, as the plain version's stable sort."""
+    g = torch.Generator().manual_seed(ns)
+    if kind == "duplicated":
+        base = torch.rand((b, max(1, ns // 3), 3), generator=g)
+        s = base[:, torch.randint(0, base.shape[1], (ns,), generator=g)]
+    else:
+        s = torch.randint(0, 5, (b, ns, 3), generator=g).float() / 4
+    q = torch.cat([s[:, : min(ns, nq // 2)],
+                   torch.randint(0, 5, (b, nq - min(ns, nq // 2), 3), generator=g).float() / 4], 1)
+    q, s = q.contiguous().to(cuda), s.contiguous().to(cuda)
+    gd, gi = kernels.three_nn(q, s)
+    wd, wi = pointops.three_nn(q, s)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+def test_three_nn_split_follows_the_model(cuda):
+    from caspr_tpu_torch.checks import three_nn_sa_arithmetic as model
+
+    for b, nq in [(40, 2048), (40, 1024), (40, 512), (40, 256), (40, 64), (1, 1), (600, 2048)]:
+        assert kernels.three_nn_split(b, nq) == model.three_nn_split(b, nq)
+
+
+@pytest.mark.parametrize("shape", [
+    (16, 16, 16, 32), (32, 32, 32, 64), (16, 32, 32, 64), (16, 64, 64, 128), (32, 64, 96, 128),
+    (16, 128, 256, 256), (32, 128, 256, 256), (16, 256, 256, 512), (32, 256, 256, 512),
+    (5, 64, 96, 128), (32, 512, 512, 512), (1, 16, 16, 16), (17, 48, 80, 496),
+])
+def test_sa_fused_instantiations_against_float64_on_the_card(cuda, shape):
+    """Every instantiation (the encoder's nine (K; d1, d2, d3) and the
+    generic one) on 3 x 37 centres, a ragged last tile for each: within
+    1e-4 of each output's largest magnitude of the float64 plain version,
+    two launches equal, and the instantiation the host picks is the one
+    the CPU model names."""
+    from caspr_tpu_torch.checks import three_nn_sa_arithmetic as model
+
+    k, *dims = shape
+    assert kernels.sa_fused_instance(*shape) == model.sa_config(*shape).instance
+    t, u, gidx, sp = _sa_inputs(cuda, b=3, n=300, m=37, k=k, dims=tuple(dims))
+    got = kernels.sa_fused(t, u, gidx, sp)
+    assert torch.equal(got, kernels.sa_fused(t, u, gidx, sp))
+    want = sa_fused.sa_stack_plain(t.double(), u.double(), gidx, _float64(sp))
+    assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16, 32), (32, 32, 32, 64), (5, 64, 96, 128)])
+def test_sa_fused_balls_of_one_or_two_points_on_the_card(cuda, shape):
+    """Balls of copies of one point, or of two, at the scale of radius
+    0.02 (GroupNorm divides a spread far below its eps): within 1e-4 of
+    each output's largest magnitude of the float64 plain version."""
+    k, *dims = shape
+    t, u, gidx, sp = _sa_inputs(cuda, b=3, n=300, m=37, k=k, dims=tuple(dims))
+    g = torch.Generator().manual_seed(k)
+    pick = torch.randint(0, 300, (3, 37, 2), generator=g, dtype=torch.int32)
+    two = torch.where(torch.arange(k) < k // 3, pick[..., :1], pick[..., 1:]).to(cuda)
+    t = (0.02 * t + t[:, :1]).contiguous()  # every row close to one value
+    for idx in (pick[..., :1].expand(3, 37, k).contiguous().to(cuda), two.contiguous()):
+        got = kernels.sa_fused(t, u, idx, sp)
+        want = sa_fused.sa_stack_plain(t.double(), u.double(), idx, _float64(sp))
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-4
