@@ -1,8 +1,9 @@
 """CaSPR: TPointNet++ encoder -> latent ODE -> CNF decoder (counterpart of
 caspr_tpu/models/caspr.py): the reconstruct path, and the likelihood path
 (``forward``) as evaluation runs it (running statistics) and as training
-runs it (``training=True``: both solves through the adjoint, the
-MovingBatchNorm statistics updated).
+runs it (``training=True``: both solves differentiable, through the
+continuous adjoint or, with ``ode_backward="discrete"``, autograd through
+the solver; the MovingBatchNorm statistics updated).
 
 ``CaSPRModel(cfg, device)`` binds a config and a device; parameters and
 the MovingBatchNorm state are dicts of tensors on that device, from a
@@ -20,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..ops import sample_gaussian, sphere_surface_points, standard_normal_logprob
-from ..ops.odeint import NFESink
+from ..ops.odeint import DISCRETE_STEPS, NFESink
 from .cnf import CNFConfig, flow_forward, flow_param_shapes, flow_reverse
 from .latent_ode import LatentODEConfig, dynamics_param_shapes, latent_ode_solve
 from .tpointnet2 import TPointNet2Config, tpointnet2_apply, tpointnet2_param_shapes
@@ -158,14 +159,16 @@ class CaSPRModel:
         return tpointnet2_apply(params["encoder"], self.cfg.encoder_config(), x)
 
     def aggregate_and_solve_latent(self, params, z0, times, shared_times: bool = False, *,
-                                   adjoint: bool = False, nfe_sink: Optional[NFESink] = None):
+                                   adjoint: bool = False, nfe_sink: Optional[NFESink] = None,
+                                   ode_backward: str = "adjoint",
+                                   ode_steps: int = DISCRETE_STEPS):
         """z0: (B, H), times: (B, T) -> (feats (B, T, H), nfe).
 
         Solves at the sorted flattened times and gathers each (b, t) slot
         back through the inverse permutation; ``shared_times=True`` says
         every row of ``times`` is the same and solves at the T times of the
-        first row instead.  ``adjoint=True`` (training) solves through the
-        continuous adjoint (see ``latent_ode.latent_ode_solve``)."""
+        first row instead.  ``adjoint=True`` (training) solves for the
+        gradient, by ``ode_backward`` (see ``latent_ode.latent_ode_solve``)."""
         b, t = times.shape
         motion = self.cfg.motion_feat_size
         z_dyn, z_stat = z0[:, :motion], z0[:, motion:]
@@ -180,13 +183,15 @@ class CaSPRModel:
             ranks = torch.argsort(order, stable=True).reshape(b, t)
         pred_z, nfe = latent_ode_solve(params["latent_ode"], self.cfg.latent_ode_config(),
                                        z_dyn, sorted_t, adjoint=adjoint,
-                                       nfe_sink=nfe_sink)  # (B, T or B*T, motion)
+                                       nfe_sink=nfe_sink, ode_backward=ode_backward,
+                                       ode_steps=ode_steps)  # (B, T or B*T, motion)
         feats = torch.take_along_dim(pred_z, ranks[..., None], dim=1)
         z_rep = z_stat[:, None, :].expand(b, t, z_stat.shape[-1])
         return torch.cat([feats, z_rep], dim=-1), nfe
 
     def forward(self, params, state, x, sample_points, generator=None, *,
-                training: bool = False, e=None, nfe_sink=None):
+                training: bool = False, e=None, nfe_sink=None, ode_backward: str = "adjoint",
+                ode_steps: int = DISCRETE_STEPS):
         """Forward with unreduced losses, for evaluation or training.
 
         x, sample_points: (B, T, N, 4).  Returns (out, state): out has
@@ -195,11 +200,13 @@ class CaSPRModel:
         cnf_nfe), forward evaluations.  The CNF's Hutchinson noise comes
         from ``generator`` or, when given, from ``e`` (see
         ``models.cnf.flow_forward``).  Evaluation returns ``state``
-        unchanged.  ``training=True`` solves both ODEs through the adjoint,
+        unchanged.  ``training=True`` solves both ODEs for their gradient,
         so the outputs are differentiable in every parameter, and returns
-        the updated MovingBatchNorm state; ``nfe_sink``, a dict with
-        optional "latent" and "cnf" ``NFESink``s, collects each solver's
-        backward NFE when the gradient is taken."""
+        the updated MovingBatchNorm state: through the continuous adjoint,
+        where ``nfe_sink``, a dict with optional "latent" and "cnf"
+        ``NFESink``s, collects each solver's backward NFE when the gradient
+        is taken, or with ``ode_backward="discrete"`` by autograd through at
+        most ``ode_steps`` steps of each solve (the sinks get nothing)."""
         cfg = self.cfg
         b, t, n, _ = sample_points.shape
         z0, tnocs_pred = self.encode(params, x)
@@ -213,12 +220,14 @@ class CaSPRModel:
             return out, state
         sink = nfe_sink or {}
         feats, ode_nfe = self.aggregate_and_solve_latent(
-            params, z0, sample_points[:, :, 0, 3], adjoint=training, nfe_sink=sink.get("latent"))
+            params, z0, sample_points[:, :, 0, 3], adjoint=training, nfe_sink=sink.get("latent"),
+            ode_backward=ode_backward, ode_steps=ode_steps)
         pts = sample_points[..., :3].reshape(b * t, n, 3)
         y, dlogp, cnf_state, cnf_nfe = flow_forward(
             params["point_cnf"], state["point_cnf"], cfg.cnf_config(), pts,
             feats.reshape(b * t, cfg.latent_feat_size), pts.new_zeros((b * t, n, 1)),
-            generator=generator, e=e, training=training, nfe_sink=sink.get("cnf"))
+            generator=generator, e=e, training=training, nfe_sink=sink.get("cnf"),
+            ode_backward=ode_backward, ode_steps=ode_steps)
         log_py = standard_normal_logprob(y).sum(dim=-1)  # (B*T, N)
         out["nll"] = -(log_py - dlogp.reshape(b * t, n)).reshape(b, t, n)
         out["nfe"] = (ode_nfe, cnf_nfe)

@@ -29,7 +29,11 @@ through ``odeint_adjoint`` with the ODEnet's parameters, the context and
 t_end as its args (each evaluation of the adjoint's augmented dynamics
 runs ``cnf_dynamics`` and its VJP kernel ``cnf_dynamics_vjp``, or the
 composition and autograd); t_end = sqrt_end_time^2 enters as the last
-request time, so its gradient is the adjoint's dL/dts.  The
+request time, so its gradient is the adjoint's dL/dts.  With
+``ode_backward="discrete"`` the block is solved by ``odeint_discrete``
+under autograd instead: each evaluation's ``cnf_dynamics`` saves its
+inputs, and the backward runs ``cnf_dynamics_vjp`` once per evaluation
+that reaches the loss; t_end's gradient comes through the dense output.  The
 MovingBatchNorms update their running statistics
 from the batch (PointFlow's transpose-reshape statistics) and normalise
 with the statistics from before the update.
@@ -46,7 +50,7 @@ import torch
 from ..ops import cnf_dynamics, cnf_primal, odeint
 from ..ops.cnf_fused import (context_gb, kernel_takes, pack_weights, reference_dynamics,
                               reference_primal)
-from ..ops.odeint import nfe_add, odeint_adjoint
+from ..ops.odeint import DISCRETE_STEPS, nfe_add, odeint_train
 
 
 @dataclass(frozen=True)
@@ -164,13 +168,16 @@ def cnf_block_apply(params, cfg: CNFConfig, x, context):
 
 
 def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training: bool = False,
-                      nfe_sink=None):
+                      nfe_sink=None, ode_backward: str = "adjoint",
+                      ode_steps: int = DISCRETE_STEPS):
     """One CNF block, forward (likelihood) direction, on (points,
     log-density).  x, e: (BT, N, D); context (BT, zdim); logpx (BT, N, 1)
     -> (y (BT, N, D), logpy (BT, N, 1), nfe).  e is the Hutchinson noise,
     fixed for the whole solve and a constant of the adjoint (as in the TPU
-    kernel's VJP and the reference).  ``training=True`` solves through the
-    adjoint, reporting its backward NFE to ``nfe_sink``."""
+    kernel's VJP and the reference).  ``training=True`` solves through
+    ``odeint_train``: the adjoint, reporting its backward NFE to
+    ``nfe_sink``, or with ``ode_backward="discrete"`` autograd through at
+    most ``ode_steps`` solver steps."""
     _check_supported(cfg)
     bt, n, d = x.shape
 
@@ -189,8 +196,9 @@ def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training:
         t_end = (params["sqrt_end_time"] * params["sqrt_end_time"] if cfg.train_T
                  else torch.tensor(cfg.time_length, dtype=x.dtype, device=x.device))
         ts = torch.stack([torch.zeros_like(t_end), t_end])
-        (xs, lps), nfe = odeint_adjoint(dynamics, state0, ts, (params["odenet"], context, t_end),
-                                        rtol=cfg.rtol, atol=cfg.atol, nfe_sink=nfe_sink)
+        (xs, lps), nfe = odeint_train(dynamics, state0, ts, (params["odenet"], context, t_end),
+                                      rtol=cfg.rtol, atol=cfg.atol, backward=ode_backward,
+                                      num_steps=ode_steps, nfe_sink=nfe_sink)
     else:
         ts = np.array([0.0, _end_time(params, cfg)], np.float32)
         args = (params["odenet"], context)
@@ -249,7 +257,8 @@ def flow_reverse(params, state, cfg: CNFConfig, y, context):
 
 
 def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=None, e=None, *,
-                 training: bool = False, nfe_sink=None):
+                 training: bool = False, nfe_sink=None, ode_backward: str = "adjoint",
+                 ode_steps: int = DISCRETE_STEPS):
     """Points x (BT, N, D) with log-density channel logpx (BT, N, 1) ->
     (y, logpy, new_state, nfe), visiting the chain front to back.
 
@@ -257,7 +266,7 @@ def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=Non
     ``e``, a tensor for a chain of one block or a sequence with one tensor
     per block, replaces the draw (and ``generator`` is not used).
     ``training`` updates the MovingBatchNorm statistics (new_state) and
-    solves the blocks through the adjoint (backward NFE to ``nfe_sink``)."""
+    solves the blocks for their gradient (``cnf_block_forward``)."""
     noise = None if e is None else ([e] if isinstance(e, torch.Tensor) else list(e))
     new_state = list(state)
     nfe, block = 0.0, 0
@@ -270,7 +279,8 @@ def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=Non
         else:
             cur = noise[block]
         x, logpx, block_nfe = cnf_block_forward(p, cfg, x, context, logpx, cur,
-                                                training=training, nfe_sink=nfe_sink)
+                                                training=training, nfe_sink=nfe_sink,
+                                                ode_backward=ode_backward, ode_steps=ode_steps)
         nfe = nfe_add(nfe, block_nfe)
         block += 1
     return x, logpx, new_state, nfe

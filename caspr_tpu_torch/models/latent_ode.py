@@ -12,7 +12,7 @@ import torch
 
 from ..nn import linear
 from ..ops import odeint
-from ..ops.odeint import odeint_adjoint
+from ..ops.odeint import DISCRETE_STEPS, odeint_train
 
 
 @dataclass(frozen=True)
@@ -45,19 +45,22 @@ def dynamics_apply(params, z):
 
 
 def latent_ode_solve(params, cfg: LatentODEConfig, z0, t, *, adjoint: bool = False,
-                     nfe_sink=None):
+                     nfe_sink=None, ode_backward: str = "adjoint",
+                     ode_steps: int = DISCRETE_STEPS):
     """Advect z0 (B, H) to every time of t (T,), non-decreasing, relative to
     t[0].  Returns (pred_z (B, T, H'), nfe).  ``adjoint=True`` (training)
-    solves through ``odeint_adjoint`` with the parameters as its args, so
-    gradients reach z0 and every parameter; its backward NFE goes to
-    ``nfe_sink``.  Repeated request times are zero-length intervals of the
+    solves through ``odeint_train`` with the parameters as its args, so
+    gradients reach z0 and every parameter: by the continuous adjoint, whose
+    backward NFE goes to ``nfe_sink``, or with ``ode_backward="discrete"``
+    by autograd through at most ``ode_steps`` solver steps.  Repeated request times are zero-length intervals of the
     adjoint, two evaluations each, as in the JAX package."""
     rel_t = t - t[0]
     if cfg.augment_size > 0:
         z0 = torch.cat([z0, z0.new_zeros((z0.shape[0], cfg.augment_size))], dim=1)
     if adjoint:
-        zs, nfe = odeint_adjoint(lambda _t, z, p: dynamics_apply(p, z), z0, rel_t, params,
-                                 rtol=cfg.rtol, atol=cfg.atol, nfe_sink=nfe_sink)
+        zs, nfe = odeint_train(lambda _t, z, p: dynamics_apply(p, z), z0, rel_t, params,
+                               rtol=cfg.rtol, atol=cfg.atol, backward=ode_backward,
+                               num_steps=ode_steps, nfe_sink=nfe_sink)
     else:
         zs, nfe = odeint(lambda _t, z: dynamics_apply(params, z), z0, rel_t,
                          rtol=cfg.rtol, atol=cfg.atol)  # (T, B, H')

@@ -46,3 +46,12 @@ def group_norm(params, x, num_groups: int, eps: float = 1e-5):
     var = group_mean(torch.square(x3 - mean))
     out = ((x3 - mean) * torch.rsqrt(var + eps)).reshape(shape)
     return out * params["weight"] + params["bias"]
+
+
+def count_params(params) -> int:
+    """The number of scalars in the tensor leaves of a nested dict / list
+    parameter tree."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    items = params.values() if isinstance(params, dict) else params
+    return sum(count_params(v) for v in items)

@@ -30,8 +30,11 @@ dynamics by the caller (models/cnf.py).
 caspr_tpu/ops/odeint.py::odeint_adjoint: the same forward solve, with
 gradients for y0, the request times and the tensor leaves of ``args`` from
 backward augmented solves, and its backward NFE reported through an
-``NFESink``.  ``nfe_add`` and ``nfe_sum`` combine NFE counts as the JAX
-package does (caspr_tpu/ops/odeint.py:440-456).
+``NFESink``.  ``odeint_discrete`` is the counterpart of its namesake: the
+same solve under autograd, bounded in steps, with the +0.5 exhaustion
+marker on its NFE.  ``odeint_train`` is the training solve, one or the
+other by its ``backward`` argument.  ``nfe_add`` and ``nfe_sum`` combine
+NFE counts as the JAX package does (caspr_tpu/ops/odeint.py:440-456).
 """
 
 from __future__ import annotations
@@ -70,6 +73,11 @@ _C_MID = np.array([
     -1776094331 / 19743644256 / 2,
     11237099 / 235043384 / 2,
 ], np.float64).astype(F32)
+
+# the attempted-step bound of odeint_discrete: about 2x the trained flow's
+# step count at the reference's tolerances
+DISCRETE_STEPS = 128
+ODE_BACKWARDS = ("adjoint", "discrete")
 
 _SAFETY = F32(0.9)
 _IFACTOR = F32(10.0)
@@ -141,29 +149,33 @@ def _dense_output(y0, y1, y_mid, f0, f1, h, theta):
     c4 = -8.0 * a + 16.0 * b + 2.0 * c
     c3 = 14.0 * a - 32.0 * b - 3.0 * c
     c2 = -5.0 * a + 16.0 * b + c
-    th = float(theta)
+    th = theta if isinstance(theta, torch.Tensor) else float(theta)
     return y0 + th * (hf0 + th * (c2 + th * (c3 + th * c4)))
 
 
-def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000):
-    """Integrate dy/dt = func(t, y) from ts[0] and report y at every ts.
-
-    y0: a tensor, or a tuple of tensors integrated together.  ts:
-    non-decreasing float32 request times (1-D, any array type), ts[0] the
-    initial time.  Returns (ys, nfe): ys (len(ts), *y0.shape), or a tuple
-    of such tensors, one per leaf."""
+def _solve(func, y0, ts, rtol, atol, max_steps: int):
+    """The dopri5 loop of ``odeint`` and ``odeint_discrete``: (ys, nfe,
+    whether every request time was reached).  The step controller (the
+    initial step, the error ratio) runs without autograd; the stages and
+    the dense output run under whatever grad mode the caller set.  Where
+    grad is on and ts requires it, the dense output's theta = (ts_i - t) /
+    h is a tensor, so the request times get their gradient through it."""
     single = isinstance(y0, torch.Tensor)
     if single:
         y0, leaf_func = (y0,), func
         func = lambda t, y: (leaf_func(t, y[0]),)
     else:
         y0 = tuple(y0)
+    ts_grad = None
     if isinstance(ts, torch.Tensor):
+        if ts.requires_grad and torch.is_grad_enabled():
+            ts_grad = ts
         ts = ts.detach().cpu().numpy()
     ts = np.asarray(ts, dtype=F32)
     t, t_final = ts[0], ts[-1]
     f = func(t, y0)
-    h = _initial_step(func, t, y0, f, rtol, atol)
+    with torch.no_grad():
+        h = _initial_step(func, t, y0, f, rtol, atol)
     y = y0
     filled = ts <= t
     outs = [y0 if done else None for done in filled]
@@ -173,8 +185,9 @@ def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000):
         for i in range(6):
             ks.append(func(t + _C[i + 1] * h, _axpy(y, h, _weighted_sum(_A[i], ks))))
         y1 = _axpy(y, h, _weighted_sum(_B, ks))
-        err = [float(h) * d for d in _weighted_sum(_B_ERR, ks)]
-        ratio = _error_ratio(err, y, y1, rtol, atol)
+        with torch.no_grad():
+            err = [float(h) * d for d in _weighted_sum(_B_ERR, ks)]
+            ratio = _error_ratio(err, y, y1, rtol, atol)
         accept = bool(ratio <= F32(1.0))
         t1 = t + h
         if accept:
@@ -182,21 +195,58 @@ def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000):
             newly = ~filled & (ts <= t1 + slack)
             if newly.any():
                 y_mid = _axpy(y, h, _weighted_sum(_C_MID, ks))
-                thetas = np.clip((ts - t) / max(h, F32(1e-30)), F32(0.0), F32(1.0))
+                h_div = max(h, F32(1e-30))
+                thetas = np.clip((ts - t) / h_div, F32(0.0), F32(1.0))
                 for i in np.flatnonzero(newly):
+                    theta = (thetas[i] if ts_grad is None else
+                             torch.clamp((ts_grad[i] - float(t)) / float(h_div), 0.0, 1.0))
                     outs[i] = tuple(
-                        _dense_output(*leaves, h, thetas[i])
+                        _dense_output(*leaves, h, theta)
                         for leaves in zip(y, y1, y_mid, f, ks[6]))
                 filled = filled | newly
             t, y, f = t1, y1, ks[6]
         h = _optimal_step(h, ratio, accept)
         nfe += 6.0
         steps += 1
-    # request times never reached (max_steps, endpoint rounding) take the
-    # final state
+    # request times never reached (the step bound, endpoint rounding) take
+    # the final state
     outs = [y if o is None else o for o in outs]
     stacked = tuple(torch.stack([o[leaf] for o in outs]) for leaf in range(len(y0)))
-    return (stacked[0] if single else stacked), nfe
+    return (stacked[0] if single else stacked), nfe, bool(filled.all())
+
+
+def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000):
+    """Integrate dy/dt = func(t, y) from ts[0] and report y at every ts.
+
+    y0: a tensor, or a tuple of tensors integrated together.  ts:
+    non-decreasing float32 request times (1-D, any array type), ts[0] the
+    initial time.  Returns (ys, nfe): ys (len(ts), *y0.shape), or a tuple
+    of such tensors, one per leaf."""
+    ys, nfe, _ = _solve(func, y0, ts, rtol, atol, max_steps)
+    return ys, nfe
+
+
+def odeint_discrete(func, y0, ts, *, rtol: float, atol: float, num_steps: int = DISCRETE_STEPS):
+    """``odeint`` differentiable by autograd through the solver
+    (discretise-then-optimise), the counterpart of caspr_tpu/ops/odeint.py::
+    odeint_discrete: gradients exact for the discrete solution reach y0,
+    whatever ``func`` closes over, and ts through the dense output.  The
+    step controller is a constant of the gradient, as the JAX package's
+    stop_gradient makes it, and func's time argument is a host float.
+
+    At most ``num_steps`` steps are attempted.  If the bound is hit before
+    every request time is reached, those outputs take the final state and
+    the returned NFE carries a +0.5 marker (``nfe_exhausted``).  The graph
+    holds what each evaluation saves for its backward; the controller's
+    evaluations (the step-size probe, the error norms) are not in it."""
+    ys, nfe, reached = _solve(func, y0, ts, rtol, atol, max(int(num_steps), 1))
+    return ys, nfe + (0.0 if reached else 0.5)
+
+
+def nfe_exhausted(nfe) -> bool:
+    """Whether an ``odeint_discrete`` NFE count carries the step-bound
+    exhaustion marker."""
+    return bool(np.asarray(nfe) % 1.0 != 0.0)
 
 
 def nfe_add(a, b) -> float:
@@ -357,3 +407,17 @@ def odeint_adjoint(func, y0, ts, args=(), *, rtol: float, atol: float, max_steps
             "atol": atol, "max_steps": max_steps, "sink": nfe_sink}
     ys = _Adjoint.apply(spec, ts, *y_leaves, *arg_leaves)
     return (ys[0] if single else tuple(ys)), spec["nfe"]
+
+
+def odeint_train(func, y0, ts, args=(), *, rtol: float, atol: float, backward: str = "adjoint",
+                 num_steps: int = DISCRETE_STEPS, nfe_sink: NFESink | None = None):
+    """The training solve of func(t, y, args): ``odeint_adjoint`` with
+    ``backward="adjoint"`` (backward NFE to ``nfe_sink``), or
+    ``odeint_discrete`` (at most ``num_steps`` steps; ``nfe_sink`` gets
+    nothing: its gradient is autograd's, and the NFE is forward-only)."""
+    if backward == "adjoint":
+        return odeint_adjoint(func, y0, ts, args, rtol=rtol, atol=atol, nfe_sink=nfe_sink)
+    if backward == "discrete":
+        return odeint_discrete(lambda t, y: func(t, y, args), y0, ts, rtol=rtol, atol=atol,
+                               num_steps=num_steps)
+    raise ValueError(f"ODE backward {backward!r}, expected one of {ODE_BACKWARDS}")

@@ -18,7 +18,9 @@ tree.)
 
 ``load_weights`` and ``load_encoder_weights_from_full`` are the tolerant
 partial loads of the evaluation and train scripts: they merge what fits
-into an existing tree of tensors and warn about the rest.
+into an existing tree of tensors and warn about the rest.  ``load_state``
+(the MovingBatchNorm state) and ``restore_adam_state`` (the optimizer's
+moments) are strict: a tree that does not fit raises.
 """
 
 from __future__ import annotations
@@ -96,7 +98,14 @@ def save_checkpoint(path: str, params, state, opt_state=None, epoch: int = 0,
 def load_checkpoint(path: str):
     """The checkpoint dict, arrays as numpy; an optax optimizer state comes
     back as {"count", "mu", "nu"}.  Admits only numpy arrays and the optax
-    state classes: any other class in the file raises."""
+    state classes: any other class in the file raises.  A reference
+    PyTorch checkpoint (.pth / .pt) is converted on the fly
+    (``compat.torch_convert``) into {"params", "state", "epoch": 0}."""
+    if path.endswith(".pth") or path.endswith(".pt"):
+        from ..compat.torch_convert import convert_torch_checkpoint
+
+        params, state = convert_torch_checkpoint(path)
+        return {"params": params, "state": state, "epoch": 0}
     with open(path, "rb") as f:
         ck = _CheckpointUnpickler(f).load()
     opt = ck.get("opt_state")
@@ -161,3 +170,39 @@ def load_encoder_weights_from_full(target_params, loaded_params):
     new_params = dict(target_params)
     new_params["encoder"] = load_weights(target_params["encoder"], loaded_params["encoder"])
     return new_params
+
+
+def _strict_leaves(target, loaded, what):
+    """(target's tensor leaves, the loaded arrays at the same dotted paths);
+    raises ValueError unless the two trees have the same paths and shapes."""
+    tgt_flat, src_flat = _flatten(target), _flatten(loaded)
+    if tgt_flat.keys() != src_flat.keys():
+        raise ValueError(f"{what}: missing {sorted(tgt_flat.keys() - src_flat.keys())}, "
+                         f"unexpected {sorted(src_flat.keys() - tgt_flat.keys())}")
+    arrays = [np.asarray(src_flat[k]) for k in tgt_flat]
+    for k, t, a in zip(tgt_flat, tgt_flat.values(), arrays):
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{what}: {k} has shape {tuple(a.shape)}, expected {tuple(t.shape)}")
+    return list(tgt_flat.values()), arrays
+
+
+def load_state(target_state, loaded_state):
+    """A checkpoint's MovingBatchNorm state (numpy) as tensors in the layout,
+    dtypes and devices of ``target_state``; raises ValueError on any leaf
+    missing, unexpected or misshapen."""
+    _strict_leaves(target_state, loaded_state, "state")
+    return _merge(target_state, _flatten(loaded_state))
+
+
+def restore_adam_state(params, optimizer: torch.optim.Adam, opt_state):
+    """Set the moments and step count of an optimizer made by
+    ``Adam.init(params)`` from a checkpoint's {"count", "mu", "nu"}, the
+    inverse of ``adam_state``; raises ValueError when mu or nu do not fit
+    params (the optimizer is then unchanged)."""
+    leaves, mu = _strict_leaves(params, opt_state["mu"], "optimizer state mu")
+    _, nu = _strict_leaves(params, opt_state["nu"], "optimizer state nu")
+    count = float(np.asarray(opt_state["count"]))
+    as_leaf = lambda a, p: torch.from_numpy(np.array(a, dtype=np.float32)).to(p.device, p.dtype)
+    for p, m, v in zip(leaves, mu, nu):
+        optimizer.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
+                              "exp_avg": as_leaf(m, p), "exp_avg_sq": as_leaf(v, p)}

@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops.odeint import NFESink, flatten_tree, nfe_add, nfe_sum
+from ..ops.odeint import DISCRETE_STEPS, ODE_BACKWARDS, NFESink, flatten_tree, nfe_add, nfe_sum
 from .trackers import log, print_stats
 
 
@@ -101,33 +101,42 @@ def _split_noise(e, parts: int, i: int):
     return [t.chunk(parts)[i] for t in e]
 
 
-def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: int = 1):
+def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: int = 1,
+                    ode_backward: str = "adjoint", ode_steps: int = DISCRETE_STEPS):
     """Returns step(params, opt_state, mbn_state, x, target, generator=None,
     e=None) -> (params, opt_state, new_mbn_state, metrics), the counterpart
     of the JAX package's train step: CaSPRModel.forward(training=True), the
-    weighted losses, their gradient (through the two adjoint solves), and
+    weighted losses, their gradient (through the two ODE solves), and
     one update of ``params`` in place by ``opt_state``, a torch optimizer
     over the leaves of ``params`` (``tx.init(params)`` for Adam).  ``tx``
     itself is not read -- the optimizer carries its hyper-parameters -- and
     stays for the JAX package's signature.
 
+    ``ode_backward`` says how the gradient goes through the solves:
+    "adjoint", the continuous adjoint, or "discrete", autograd through at
+    most ``ode_steps`` steps of each solve (``odeint_discrete``).
+
     metrics (host floats): loss, cnf_loss, tnocs_loss, mean_nll, nfe (per
     solver, forward + adjoint evaluations, as the reference logs them
-    after loss.backward()), nfe_forward, and with T-NOCS regression
-    tnocs_pos_err, tnocs_time_err.  ``accum_steps > 1`` splits the batch into
-    that many equal microbatches, averages their gradients, threads the
-    MovingBatchNorm state through them (each microbatch normalises with the
-    statistics its predecessor left) and makes one update; losses are the
+    after loss.backward(); forward-only with "discrete"), nfe_forward, and
+    with T-NOCS regression tnocs_pos_err, tnocs_time_err.
+    ``accum_steps > 1`` splits the batch into that many equal microbatches,
+    averages their gradients, threads the MovingBatchNorm state through
+    them (each microbatch normalises with the statistics its predecessor
+    left) and makes one update; losses are the
     microbatch means, NFE their sums.  The CNF's Hutchinson noise comes from
     ``generator``, or from ``e`` (the whole batch's, split with it).  x and
     target may be numpy arrays: they go to the model's device."""
     del tx
+    if ode_backward not in ODE_BACKWARDS:
+        raise ValueError(f"ode_backward {ode_backward!r}, expected one of {ODE_BACKWARDS}")
 
     def grads_of(params, leaves, mbn_state, x, target, generator, e):
         sinks = {"latent": NFESink(), "cnf": NFESink()}
         with torch.enable_grad():
             out, new_state = model.forward(params, mbn_state, x, target, generator,
-                                           training=True, e=e, nfe_sink=sinks)
+                                           training=True, e=e, nfe_sink=sinks,
+                                           ode_backward=ode_backward, ode_steps=ode_steps)
             loss, cnf_loss, tnocs_loss = compute_losses(out, cnf_loss_weight, tnocs_loss_weight)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]

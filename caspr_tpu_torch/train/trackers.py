@@ -1,8 +1,9 @@
 """Logging and the loss and stat trackers (the port's own copy of
-caspr_tpu/train/trackers.py: numpy only; the loss-curve plot of the train
-script waits for that script)."""
+caspr_tpu/train/trackers.py)."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -36,6 +37,7 @@ class TrainLossTracker:
         self.tnocs_losses = []
         self.val_losses = []
         self.val_steps = []
+        self._no_plot_said = False
 
     def record_train_step(self, train_loss, cnf_loss, tnocs_loss, step_idx):
         self.train_losses.append(train_loss)
@@ -46,6 +48,41 @@ class TrainLossTracker:
     def record_val_step(self, val_loss, step_idx):
         self.val_losses.append(val_loss)
         self.val_steps.append(step_idx)
+
+    def plot_cur_loss_curves(self, out_dir, log_out=None):
+        """Write the curves' numbers to ``train_curve.npz`` and, where
+        matplotlib imports, their plot to ``train_curve.png``; without
+        matplotlib one line says so, the first time, in ``log_out`` (and on
+        stdout)."""
+        curves = {name: np.asarray(getattr(self, name), np.float64)
+                  for name in ("train_steps", "train_losses", "cnf_losses", "tnocs_losses",
+                               "val_steps", "val_losses")}
+        np.savez(os.path.join(out_dir, "train_curve.npz"), **curves)
+        try:
+            import matplotlib
+        except ImportError:
+            if not self._no_plot_said:
+                msg = ("matplotlib is not installed: train_curve.png not written "
+                       "(the curves are in train_curve.npz)")
+                if log_out:
+                    log(log_out, msg)
+                else:
+                    print(msg)
+                self._no_plot_said = True
+            return
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure(figsize=(12, 8))
+        plt.plot(curves["train_steps"], curves["train_losses"], "-", label="train loss")
+        plt.plot(curves["train_steps"], curves["cnf_losses"], "--", label="NLL loss")
+        plt.plot(curves["train_steps"], curves["tnocs_losses"], "--", label="TNOCS loss")
+        plt.plot(curves["val_steps"], curves["val_losses"], "-", label="val loss")
+        plt.xlabel("optim steps")
+        plt.legend()
+        plt.title("Training Curves")
+        plt.savefig(os.path.join(out_dir, "train_curve.png"))
+        plt.close(fig)
 
 
 class TestStatTracker:

@@ -1,2 +1,3 @@
-"""Host-side utilities of the port: the evaluation protocols and the
-RANSAC registration they use (counterparts of caspr_tpu/utils)."""
+"""Host-side utilities of the port: the evaluation protocols, the RANSAC
+registration they use, and the command lines' options (counterparts of
+caspr_tpu/utils)."""

@@ -82,7 +82,30 @@ Phases, each of which raises on failure:
      CPU: loss within 1e-4 relative, equal forward and backward NFE, every
      gradient of the flow and the latent ODE within 1e-3 of its leaf's
      largest magnitude, the encoder's gradient within 4x the relative L2
-     distance float32 keeps from float64 there (see cross_device_train).
+     distance float32 keeps from float64 there (see cross_device_train);
+  8. the command lines over a synthetic dataset tree in the demo format
+     (caspr_tpu_torch/data/synthetic.py, seed 0: train 10, val 5 and test 6
+     sequences of 10 frames x 4096 points, one test sequence of 3000-point
+     frames among them, beside a 9-frame sequence and a BAD_MODELS model
+     that the loader skips), each run with every launch count set to 0
+     before it: (a) the
+     test CLI in process with the demo weights at 10 x 2048, batch 4, all
+     five protocols: fps, ball_query, gather, three_nn, three_interpolate,
+     cnf_primal, cnf_dynamics and emd launched, sa_fused and
+     cnf_dynamics_vjp not; each protocol's .npz finite and of its length,
+     its .csv exactly the six test sequences (the padded last batch masked);
+     seconds per protocol and the loader's wait per batch; (b) the same CLI
+     as a subprocess with --eval-tnocs-regression, its .npz within 1e-5 of
+     (a)'s; the train CLI at 5 x 5 x 1024 from caspr_init: (c) two epochs
+     with validation and checkpoints every epoch (the encoder kernels,
+     cnf_dynamics and cnf_dynamics_vjp launched, cnf_primal not; losses
+     finite; BEST_time_model.pkl, time_model_{0,1}.pkl and the curve
+     written), (d) one epoch resumed from time_model_1.pkl (the optimizer
+     state restored), (e) one epoch with --ode-backward discrete
+     (cnf_dynamics_vjp launched through autograd; cnf_dynamics launched
+     exactly the logged forward NFE: the logged NFE is forward-only; the
+     +0.5 exhaustion marker reported); seconds per train step, the
+     loader's wait and the peak memory of each run.
 
 Then it prints its own seconds (from its first line of output on), one
 JSON line listing every kernel and, last, the verdict line
@@ -94,7 +117,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -184,7 +209,6 @@ def build_facts(lib_path, build_dir):
     warnings, and the count of its product instructions (HGMMA or HMMA) in
     its SASS (cuobjdump, where the toolkit has it; an instantiation without
     any fails)."""
-    import re
     import shutil
 
     facts = []
@@ -1547,6 +1571,217 @@ def cross_device_train(torch, floor):
         raise AssertionError("train step, card vs CPU: see the line above")
 
 
+TEST_CLI_KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate", "cnf_primal",
+                    "cnf_dynamics", "emd")
+CLI_TEST_SEQS = 6  # the synthetic tree's test split (caspr_tpu_torch/data/synthetic.py)
+
+
+def forbid_launched(counts, names, path):
+    launched = {k: counts[k] for k in names if counts[k]}
+    if launched:
+        raise AssertionError(f"{path} launched {launched}")
+
+
+def log_numbers(log_path, pattern):
+    """Every match of ``pattern`` (a regex with float groups) in the log."""
+    with open(log_path) as f:
+        return [tuple(float(g) for g in m.groups()) for m in re.finditer(pattern, f.read())]
+
+
+FLOAT = r"(-?[0-9.]+(?:e[-+]?[0-9]+)?|nan|inf|-inf)"
+
+
+def check_protocol_artifacts(stem, npz_lengths, csv_rows, test_models):
+    """stem.npz holds each key at its length, finite; stem.csv a header and
+    ``csv_rows`` rows, every one a real test sequence, each of them there."""
+    import csv
+
+    means = require_finite_artifacts([stem + ".npz", stem + ".csv"], npz_lengths)
+    with open(stem + ".csv", newline="") as f:
+        rows = list(csv.reader(f, delimiter=",", quotechar="|"))[1:]
+    col = 1 if rows and rows[0][0] in ("OBSERVED", "UNOBSERVED") else 0
+    models = sorted({r[col] for r in rows})
+    if len(rows) != csv_rows or models != test_models:
+        raise AssertionError(f"{stem}.csv: {len(rows)} rows of {models}, expected {csv_rows} "
+                             f"of {test_models}")
+    return means
+
+
+def run_cli_path(torch, kernels, out_dir, card):
+    """Phase 8: the test and train command lines over a synthetic dataset
+    tree, in process through their main() and once as a subprocess."""
+    import shutil
+
+    from caspr_tpu_torch.cli import test as cli_test
+    from caspr_tpu_torch.cli import train as cli_train
+    from caspr_tpu_torch.data import write_synthetic_tree
+    from caspr_tpu_torch.weights import DEMO_CHECKPOINT
+
+    start = time.perf_counter()
+    cfg = write_synthetic_tree(os.path.join(out_dir, "tree"), seed=SEED)
+    test_models = [f"test_{i:04d}" for i in range(CLI_TEST_SEQS)]
+    print(json.dumps({"cli": "synthetic tree", "seconds": time.perf_counter() - start,
+                      "cfg": cfg}), flush=True)
+
+    # (a) the test CLI in process, every protocol; each protocol's artifacts
+    # are copied aside as it ends (the protocols share test_log.npz / .csv)
+    test_out = os.path.join(out_dir, "cli_test")
+    stem = os.path.join(test_out, "test_log")
+    copies = {}
+
+    def keep(name, fn, suffix=""):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            label = name
+            if name == "recon":
+                label += "_unobserved" if len(args[6]) else "_observed"
+            for ext in (".npz", ".csv"):
+                shutil.copy(stem + suffix + ext, os.path.join(test_out, label + ext))
+            copies[label] = os.path.join(test_out, label)
+            return out
+        return run
+
+    test_args = ["--data-cfg", cfg, "--weights", DEMO_CHECKPOINT, "--seq-len", str(FRAMES),
+                 "--num-pts", str(POINTS), "--batch-size", str(BATCH), "--seed", str(SEED)]
+    wrapped = {"test_shape_recon": keep("recon", cli_test.test_shape_recon),
+               "test_tnocs_regression": keep("tnocs", cli_test.test_tnocs_regression),
+               "test_observed_camera_pose_ransac": keep(
+                   "pose", cli_test.test_observed_camera_pose_ransac, "_RANSAC")}
+    originals = {k: getattr(cli_test, k) for k in wrapped}
+    kernels.reset_launches()
+    start = time.perf_counter()
+    try:
+        for k, v in wrapped.items():
+            setattr(cli_test, k, v)
+        cli_test.main(test_args + ["--out", test_out, "--eval-test",
+                                   "--eval-shape-recon-observed", "--eval-shape-recon-unobserved",
+                                   "--eval-tnocs-regression", "--eval-pose-observed-ransac"])
+    finally:
+        for k, v in originals.items():
+            setattr(cli_test, k, v)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = dict(kernels.launches)
+    require_launched(counts, TEST_CLI_KERNELS, "test CLI")
+    forbid_launched(counts, ("sa_fused", "cnf_dynamics_vjp"), "test CLI")
+    log_path = stem + ".txt"
+    test_loss = log_numbers(log_path, r"Batch 0/0\] TEST Mean loss: " + FLOAT)
+    if len(test_loss) != 1 or not np.isfinite(test_loss[0][0]):
+        raise AssertionError(f"test CLI: TEST line {test_loss}")
+    n = CLI_TEST_SEQS * FRAMES
+    n_obs, n_unobs = CLI_TEST_SEQS * 3, CLI_TEST_SEQS * 7
+    means = {
+        "eval-test": {"loss": test_loss[0][0]},
+        "eval-shape-recon-observed": check_protocol_artifacts(
+            copies["recon_observed"], {"observed_chamfer": n, "observed_emd": n,
+                                       "unobserved_chamfer": 0}, CLI_TEST_SEQS, test_models),
+        "eval-shape-recon-unobserved": check_protocol_artifacts(
+            copies["recon_unobserved"], {"observed_chamfer": n_obs, "observed_emd": n_obs,
+                                         "unobserved_chamfer": n_unobs,
+                                         "unobserved_emd": n_unobs},
+            2 * CLI_TEST_SEQS, test_models),
+        "eval-tnocs-regression": check_protocol_artifacts(
+            copies["tnocs"], {"space": n, "time": n}, CLI_TEST_SEQS, test_models),
+        "eval-pose-observed-ransac": check_protocol_artifacts(
+            copies["pose"], dict.fromkeys(("trans", "rot", "point", "point_mean"), n),
+            CLI_TEST_SEQS, test_models),
+    }
+    with open(log_path) as f:
+        text = f.read()
+    native = "Data loader: native" in text
+    timing = {name: {"seconds": float(secs), "loader_wait_s_per_batch": float(wait),
+                     "batches": int(nb)}
+              for name, secs, wait, nb in re.findall(
+                  r"TIMING (\S+): " + FLOAT + r" s, loader wait " + FLOAT
+                  + r" s per batch over (\d+) batches", text)}
+    if sorted(timing) != sorted(means):
+        raise AssertionError(f"test CLI timed {sorted(timing)}, ran {sorted(means)}")
+    print(json.dumps({"cli": "test, in process, demo weights", "card": card,
+                      "test_sequences": CLI_TEST_SEQS, "batch": BATCH, "seconds": seconds,
+                      "protocols": timing, "means": means, "native_loader": native,
+                      "launches": counts}), flush=True)
+
+    # (b) the test CLI as a subprocess: its T-NOCS regression is (a)'s
+    sub_out = os.path.join(out_dir, "cli_test_sub")
+    start = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "caspr_tpu_torch.cli.test", *test_args,
+                          "--out", sub_out, "--eval-tnocs-regression"],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - start
+    if res.returncode != 0:
+        raise AssertionError(f"test CLI subprocess exited {res.returncode}: {res.stderr[-3000:]}")
+    sub, ref = np.load(os.path.join(sub_out, "test_log.npz")), np.load(copies["tnocs"] + ".npz")
+    diff = max(float(np.abs(sub[k] - ref[k]).max()) for k in ("space", "time"))
+    print(json.dumps({"cli": "test, subprocess, --eval-tnocs-regression", "card": card,
+                      "seconds": seconds, "max_abs_diff_vs_in_process": diff}), flush=True)
+    if not diff <= 1e-5:
+        raise AssertionError(f"test CLI subprocess T-NOCS differs from in-process by {diff}")
+
+    # (c)-(e) the train CLI: two epochs from caspr_init, one resumed from the
+    # second's checkpoint, one with the discrete backward
+    train_args = ["--data-cfg", cfg, "--seq-len", str(TRAIN_T), "--num-pts", str(TRAIN_N),
+                  "--batch-size", str(TRAIN_B), "--val-every", "1", "--save-every", "1",
+                  "--print-every", "1", "--seed", str(SEED)]
+    runs = {}
+    for run, extra in (("adjoint", ["--epochs", "2"]),
+                       ("resume", ["--epochs", "1", "--weights",
+                                   os.path.join(out_dir, "cli_train_adjoint", "time_model_1.pkl")]),
+                       ("discrete", ["--epochs", "1", "--ode-backward", "discrete"])):
+        run_out = os.path.join(out_dir, f"cli_train_{run}")
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        cli_train.main(train_args + extra + ["--out", run_out])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = dict(kernels.launches)
+        log_path = os.path.join(run_out, "train_log.txt")
+        losses = [v[0] for v in log_numbers(log_path, r"TRAIN Mean loss: " + FLOAT)]
+        val = [v[0] for v in log_numbers(log_path, r"Batch 0/0\] VAL Mean loss: " + FLOAT)]
+        train_nfe = log_numbers(log_path, r"TRAIN Mean NFE \(latent-ode, decoder\): \("
+                                + FLOAT + ", " + FLOAT)
+        val_nfe = log_numbers(log_path, r"Batch 0/0\] VAL Mean loss: [^\n]*\n[^\n]*\n[^\n]*\n"
+                              r"[^\n]*VAL Mean NFE \(latent-ode, decoder\): \(" + FLOAT + ", "
+                              + FLOAT)
+        timing = log_numbers(log_path, r"TIMING epoch \d+: " + FLOAT + r" s per train step over "
+                             r"(\d+) steps, loader wait " + FLOAT)
+        with open(log_path) as f:
+            text = f.read()
+        require_launched(counts, TRAIN_KERNELS, f"train CLI ({run})")
+        forbid_launched(counts, ("cnf_primal", "sa_fused"), f"train CLI ({run})")
+        if not losses or not val or not all(np.isfinite(losses + val)):
+            raise AssertionError(f"train CLI ({run}): train losses {losses}, VAL {val}")
+        names = ["train_log.txt", "train_curve.npz"] + [f"time_model_{e}.pkl" for e in
+                                                        range(len(timing))]
+        if val:
+            names.append("BEST_time_model.pkl")
+        missing = [m for m in names if not os.path.exists(os.path.join(run_out, m))]
+        if missing:
+            raise AssertionError(f"train CLI ({run}) wrote no {missing}")
+        info = {"cli": f"train, in process ({run})", "card": card, "batch": TRAIN_B,
+                "frames": TRAIN_T, "points": TRAIN_N, "seconds": seconds,
+                "s_per_train_step_by_epoch": [t[0] for t in timing],
+                "loader_wait_s_per_batch_by_epoch": [t[2] for t in timing],
+                "losses": losses, "val_losses": val, "train_nfe": train_nfe,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "curve_png": os.path.exists(os.path.join(run_out, "train_curve.png")),
+                "native_loader": "Data loader: native" in text, "launches": counts}
+        if run == "resume" and "Restored optimizer state from checkpoint" not in text:
+            raise AssertionError("train CLI (resume) did not restore the optimizer state")
+        if run == "discrete":
+            # the backward is cnf_dynamics_vjp under autograd: no evaluation
+            # beyond the forward's, which is what the logged NFE counts
+            forward = sum(math.floor(v[1]) for v in train_nfe + val_nfe)
+            info["nfe_exhaustion_marker"] = any(v % 1.0 for pair in train_nfe for v in pair)
+            info["cnf_forward_evaluations_logged"] = forward
+            if counts["cnf_dynamics"] != forward or len(val_nfe) != 1:
+                raise AssertionError(f"discrete: cnf_dynamics {counts['cnf_dynamics']} launches, "
+                                     f"logged forward NFE {forward} ({val_nfe})")
+        runs[run] = info
+        print(json.dumps(info), flush=True)
+    return runs
+
+
 def phase_done(name: str, begun: float):
     print(json.dumps({"phase_done": name, "seconds_since_start": time.perf_counter() - begun}),
           flush=True)
@@ -1596,6 +1831,9 @@ def main() -> int:
         phase_done("6b", begun)
     cross_device_train(torch, floor)
     phase_done("7", begun)
+    with tempfile.TemporaryDirectory() as out_dir:
+        run_cli_path(torch, kernels, out_dir, card)
+    phase_done("8", begun)
 
     listing = []
     for name, row in rows.items():

@@ -270,6 +270,8 @@ def test_port_imports_no_jax():
         "import caspr_tpu_torch.models, caspr_tpu_torch.weights, chip_smoke\n"
         "import caspr_tpu_torch.train, caspr_tpu_torch.utils.evaluations\n"
         "import caspr_tpu_torch.train.checkpoint, caspr_tpu_torch.ops.odeint\n"
+        "import caspr_tpu_torch.data, caspr_tpu_torch.data.native_loader, caspr_tpu_torch.compat\n"
+        "import caspr_tpu_torch.cli.train, caspr_tpu_torch.cli.test, caspr_tpu_torch.utils.config\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'caspr_tpu'))\n"
         "assert 'caspr_tpu_torch' in sys.modules\n"
         "print('BAD', bad)\n"
