@@ -5,7 +5,7 @@ Mirrors the JAX package's layout: ``nn`` (functional layers), ``ops``
 in ``ops.kernels``), ``models`` (the encoder, the latent ODE, the CNF
 decoder and ``CaSPRModel``), ``train`` (the train step, the epoch runner,
 checkpoints), ``data`` (the dataset loader), ``compat`` (reference .pth
-weights), ``utils`` (the evaluation protocols, the CLI options), ``cli``
-(the train and test command lines) and ``weights`` (JAX checkpoints ->
-tensors).
+weights), ``utils`` (the evaluation protocols, the CLI options,
+profiling), ``viz`` (headless scene export), ``cli`` (the train, test and
+viz command lines) and ``weights`` (JAX checkpoints -> tensors).
 """

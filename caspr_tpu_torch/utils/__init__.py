@@ -1,3 +1,3 @@
 """Host-side utilities of the port: the evaluation protocols, the RANSAC
-registration they use, and the command lines' options (counterparts of
-caspr_tpu/utils)."""
+registration they use, the command lines' options and the profiling
+helpers (counterparts of caspr_tpu/utils)."""

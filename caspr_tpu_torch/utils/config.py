@@ -1,9 +1,9 @@
-"""The command-line option groups of the train and test scripts (the port's
-own copy of caspr_tpu/utils/config.py): the same option strings, dests,
-defaults, types, nargs and choices, so every documented recipe parses
-unchanged.  Help texts say what a flag means on the port; the flags whose
-slices are not ported yet parse and are refused by ``refuse_unported``.
-The viz options wait for the viz script.
+"""The command-line option groups of the train, test and viz scripts (the
+port's own copy of caspr_tpu/utils/config.py): the same option strings,
+dests, defaults, types, nargs and choices, so every documented recipe
+parses unchanged.  Help texts say what a flag means on the port; the
+multi-device flags, whose slice is not ported yet, parse and are refused by
+``refuse_unported``.
 """
 
 from __future__ import annotations
@@ -124,8 +124,56 @@ def get_test_options(parser: argparse.ArgumentParser):
     parser.set_defaults(eval_pose_observed_ransac=False)
     parser.add_argument("--show-pose-viz", dest="show_pose_viz",
                         action="store_true",
-                        help="Export pose scenes (not ported yet: raises).")
+                        help="With --eval-pose-observed-ransac, export each "
+                             "sequence's pose scene beside the log.")
     parser.set_defaults(show_pose_viz=False)
+    parser.add_argument("--seed", type=int, default=0)
+    return parser
+
+
+def get_viz_options(parser: argparse.ArgumentParser):
+    parser.add_argument("--shuffle-test", dest="shuffle_test", action="store_true")
+    parser.set_defaults(shuffle_test=False)
+    parser.add_argument("--viz-tnocs", dest="viz_tnocs", action="store_true",
+                        help="Export the T-NOCS regression scene.")
+    parser.set_defaults(viz_tnocs=False)
+    parser.add_argument("--viz-observed", dest="viz_observed", action="store_true",
+                        help="Export the reconstruction at the observed times.")
+    parser.set_defaults(viz_observed=False)
+    parser.add_argument("--viz-interpolated", dest="viz_interpolated",
+                        action="store_true",
+                        help="Export the reconstruction at --num-sampled-steps "
+                             "times from 0 to 1.")
+    parser.set_defaults(viz_interpolated=False)
+    parser.add_argument("--no-input-seq", dest="show_input_seq",
+                        action="store_false")
+    parser.set_defaults(show_input_seq=True)
+    parser.add_argument("--no-nocs-cubes", dest="show_nocs_cubes",
+                        action="store_false")
+    parser.set_defaults(show_nocs_cubes=True)
+    parser.add_argument("--tnocs-err-map", dest="tnocs_error_map",
+                        action="store_true")
+    parser.set_defaults(tnocs_error_map=False)
+    parser.add_argument("--num-sampled-pts", type=int, default=2048)
+    parser.add_argument("--num-sampled-steps", type=int, default=30)
+    parser.add_argument("--no-constant", dest="constant_in_time",
+                        action="store_false",
+                        help="Draw fresh base samples at every time.")
+    parser.set_defaults(constant_in_time=True)
+    parser.add_argument("--no-base-samples", dest="show_base_sampling",
+                        action="store_false")
+    parser.set_defaults(show_base_sampling=True)
+    parser.add_argument("--sample-contours", dest="sample_contours",
+                        action="store_true",
+                        help="Base samples on spheres of the Gaussian's "
+                             "contour radii, coloured by contour.")
+    parser.set_defaults(sample_contours=False)
+    parser.add_argument("--base-color-map", dest="base_color_map",
+                        action="store_true")
+    parser.set_defaults(base_color_map=False)
+    parser.add_argument("--prob-color-map", dest="prob_color_map",
+                        action="store_true")
+    parser.set_defaults(prob_color_map=False)
     parser.add_argument("--seed", type=int, default=0)
     return parser
 
@@ -152,10 +200,6 @@ def refuse_unported(flags):
         raise NotImplementedError(
             f"{', '.join(wanted)}: multi-device runs are not ported yet "
             "(ROADMAP Queue 1 item 10.6)")
-    if getattr(flags, "show_pose_viz", False):
-        raise NotImplementedError(
-            "--show-pose-viz: the pose-scene export is not ported yet "
-            "(ROADMAP Queue 1 item 10.5)")
 
 
 def ode_steps_from_env() -> int:

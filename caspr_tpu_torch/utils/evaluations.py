@@ -8,16 +8,17 @@ headers and row order.  A loader is any iterable with ``len`` that yields
 dicts of numpy arrays: "input" and "target" (B, 10, 2048, 4), "model_id"
 and "seq_id" lists, optionally "valid" (the real rows of a padded batch)
 and, for the pose protocol, "pose" (B, 10, 4, 4).  Batches go to the
-model's device; statistics are taken on the host.
+model's device; statistics are taken on the host.  ``show=True`` exports
+each sequence's pose scene (``viz.export_pcl_seq``) beside the log.
 
 Not ported: evaluation sharded over several devices (the ``mesh``
-argument) and the export of pose scenes (``show=True``), which needs the
-visualisation package.
+argument).
 """
 
 from __future__ import annotations
 
 import csv
+import os
 import time
 from typing import Sequence
 
@@ -27,6 +28,7 @@ import torch
 from ..models.caspr import resolve_device
 from ..ops import approx_match_emd, chamfer_distance
 from ..train.trackers import log
+from ..viz.export import export_pcl_seq, log_once
 from .ransac import ransac_rigid_registration
 
 # the protocol of the paper's evaluations
@@ -247,16 +249,59 @@ def test_tnocs_regression(model, params, state, loader, log_out):
     return np.mean(stat_dict["space"]), np.mean(stat_dict["time"])
 
 
+def _camera_frustum_points(transform, scale=0.1, color=(0.0, 1.0, 0.0)):
+    """Point-sampled camera frustum + trajectory marker for a 4x4 camera
+    pose (headless analogue of pcl_viewer.py:193-206)."""
+    apex = np.zeros(3)
+    corners = (
+        np.array(
+            [[-1, -0.75, 1.5], [1, -0.75, 1.5], [1, 0.75, 1.5], [-1, 0.75, 1.5]]
+        )
+        * scale
+    )
+    t = np.linspace(0, 1, 8)[:, None]
+    segs = [apex * (1 - t) + c * t for c in corners]
+    for a, b in zip(corners, np.roll(corners, 1, axis=0)):
+        segs.append(a * (1 - t) + b * t)
+    pts = np.concatenate(segs, axis=0)
+    r, tr = transform[:3, :3], transform[:3, 3]
+    world = pts @ r.T + tr
+    return world, np.tile(np.asarray(color)[None], (world.shape[0], 1))
+
+
+def _export_pose_scene(out_dir, name, pred_nocs, pred_nocs_rgb, pred_depth,
+                       gt_depth, gt_nocs, gt_cams, pred_cams, note=print):
+    """Headless stand-in for the reference's interactive pose visualization
+    (evaluations.py:435-458): predicted NOCS in T-NOCS RGB, GT NOCS
+    transformed by the predicted pose (blue), GT input/NOCS (green), plus
+    green GT and red predicted camera frusta."""
+    t = len(pred_nocs)
+    blue = [np.tile([[0.0, 0.0, 1.0]], (p.shape[0], 1)) for p in pred_depth]
+    green = [np.tile([[0.0, 1.0, 0.0]], (p.shape[0], 1)) for p in gt_depth]
+    cam_tracks = []
+    cam_rgbs = []
+    for cams, color in ((gt_cams, (0.0, 1.0, 0.0)), (pred_cams, (1.0, 0.0, 0.0))):
+        frames = [_camera_frustum_points(c, color=color) for c in cams]
+        cam_tracks.append([f[0] for f in frames])
+        cam_rgbs.append([f[1] for f in frames])
+    return export_pcl_seq(
+        out_dir,
+        name,
+        [pred_nocs, pred_depth, gt_depth, gt_nocs] + cam_tracks,
+        [pred_nocs_rgb, blue, green, green] + cam_rgbs,
+        fps=t,
+        note=note,
+    )
+
+
 @torch.no_grad()
 def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show: bool = False):
     """Camera pose from the predicted T-NOCS by correspondence RANSAC on the
     host (threshold 0.015, 4-point samples, 50000 iterations / 5000
-    validations), against the batch's ground-truth poses."""
-    if show:
-        raise NotImplementedError(
-            "show=True exports pose scenes through the visualisation package, "
-            "which is not ported yet")
+    validations), against the batch's ground-truth poses.  ``show`` exports
+    each sequence's pose scene, ``pose_<model>_<seq>``, next to the log."""
     loader.dataset.set_return_pose_data(True)
+    note = log_once(lambda line: log(log_out, line))
 
     model_ids, seq_ids = [], []
     stat_dict = {"trans_RANSAC": [], "rot_RANSAC": [], "point_RANSAC": [],
@@ -279,6 +324,7 @@ def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show
             norm_pred = pred_tnocs[bi, :, :, :3] - 0.5
             norm_gt = nocs_out[bi, :, :, :3] - 0.5
             inputs = pcl_in[bi, :, :, :3]
+            scene = {"pred_depth": [], "gt_depth": [], "gt_cams": [], "pred_cams": []}
             for si in range(num_steps):
                 trans = ransac_rigid_registration(
                     norm_pred[si], inputs[si], max_corr_dist=0.015, ransac_n=4,
@@ -288,13 +334,34 @@ def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show
                 r_gt, t_gt = pose_data[bi, si, :3, :3], pose_data[bi, si, :3, 3]
                 # point errors from the ground-truth NOCS, so that the
                 # regression's error does not compound
-                dists = np.linalg.norm(norm_gt[si] @ r_pred.T + t_pred - inputs[si], axis=1)
+                pred_depth = norm_gt[si] @ r_pred.T + t_pred
+                dists = np.linalg.norm(pred_depth - inputs[si], axis=1)
                 stat_dict["point_RANSAC"].append(float(np.median(dists)))
                 stat_dict["point_mean_RANSAC"].append(float(np.mean(dists)))
                 rot_diff = (np.trace(r_pred.T @ r_gt) - 1.0) / 2.0
                 rot_err = np.degrees(np.arccos(np.clip(rot_diff, -1.0, 1.0)))
                 stat_dict["trans_RANSAC"].append(float(np.linalg.norm(t_pred - t_gt)))
                 stat_dict["rot_RANSAC"].append(float(rot_err))
+
+                if show:
+                    scene["pred_depth"].append(pred_depth)
+                    scene["gt_depth"].append(norm_gt[si] @ r_gt.T + t_gt)
+                    for key, r_, t_ in (("gt_cams", r_gt, t_gt), ("pred_cams", r_pred, t_pred)):
+                        cam = np.eye(4)
+                        cam[:3, :3] = r_.T
+                        cam[:3, 3] = r_.T @ -t_
+                        scene[key].append(cam)
+
+            if show:
+                out = _export_pose_scene(
+                    os.path.dirname(log_out),
+                    f"pose_{batch['model_id'][bi]}_{batch['seq_id'][bi]}",
+                    [norm_pred[si] for si in range(num_steps)],
+                    [pred_tnocs[bi, si, :, :3] for si in range(num_steps)],
+                    scene["pred_depth"], scene["gt_depth"],
+                    [norm_gt[si] for si in range(num_steps)],
+                    scene["gt_cams"], scene["pred_cams"], note=note)
+                print("Exported pose viz to %s" % out)
 
         print("==== CURRENT ERROR ====")
         print("mean Pos error RANSAC (l2 distance) %f" % np.mean(stat_dict["trans_RANSAC"]))

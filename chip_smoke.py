@@ -105,7 +105,31 @@ Phases, each of which raises on failure:
      (cnf_dynamics_vjp launched through autograd; cnf_dynamics launched
      exactly the logged forward NFE: the logged NFE is forward-only; the
      +0.5 exhaustion marker reported); seconds per train step, the
-     loader's wait and the peak memory of each run.
+     loader's wait and the peak memory of each run;
+  9. the viz command line and the pose scenes over a synthetic tree of two
+     test sequences (seed 0) with the demo weights at 10 x 2048, each run
+     with every launch count set to 0 before it: (a) the viz CLI in process
+     with --viz-tnocs --tnocs-err-map --viz-observed --viz-interpolated
+     (2048 decoded points, 30 times) and (b) --viz-observed
+     --sample-contours over a one-sequence tree: fps, ball_query, gather,
+     three_nn, three_interpolate, cnf_primal and emd launched, cnf_dynamics,
+     its VJP and sa_fused not; every scene's directory holds its frames,
+     viewer.html and an animation exactly where matplotlib imports (else
+     the log says once that none was written), each frame the scene's
+     vertex count (8768 for the reconstructions: 4 x 2048 + the two
+     288-point cubes), all finite; the T-NOCS error, Chamfer and EMD
+     finite; the contour scene in the palette's colours; each scene's model
+     and export seconds; (c) the test CLI with --eval-pose-observed-ransac
+     --show-pose-viz: one pose scene per sequence of 10 frames of 8320
+     vertices; (d) the interpolated reconstruct at the viz settings (30
+     times from cli.viz.interpolation_times, one base for every time,
+     Gaussian and on the contour radii, 512 points) on the card and on the
+     CPU: equal NFE, points and log-probabilities within 1e-3 of max(1,
+     their largest magnitude); (e) cnf_primal at (30, 2048, 3) with this
+     sequence's latent and emd at 10 pairs of 2048, held to their plain
+     versions as in phase 2; (f) one interpolated scene timed, then under
+     caspr_tpu_torch.utils.profiling.device_trace: wall, model and export
+     seconds, device busy time, idle share and NFE.
 
 Then it prints its own seconds (from its first line of output on), one
 JSON line listing every kernel and, last, the verdict line
@@ -281,6 +305,103 @@ def bound(bytes_moved: float, ops: float, special: float = 0.0, tensor_ops: floa
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def cnf_case(torch, name, c, rows, hidden_layers, h):
+    """One CNF kernel against its plain versions (``c``: run, plain,
+    emulation, exact, streams, bytes, shape) over ``rows`` points of width
+    ``h``: (a) each output within 1e-4 of its largest magnitude of the
+    float32 plain version, (b) within 4x the distance the float32 plain
+    version keeps from the float64 one, (c) two launches bit-equal.
+    Returns its row: errors, times and work (the hidden layers as 3 TF32
+    tensor-core passes; the float32 CUDA-core bound beside)."""
+    got, plain = c["run"](), c["plain"]()
+    if not all(torch.equal(a, b) for a, b in zip(got, c["run"]())):
+        raise AssertionError(f"{name}: two launches on the same input differ")
+    errs = [float((g - p).abs().max()) for g, p in zip(got, plain)]
+    rels = [err / float(p.abs().max()) for err, p in zip(errs, plain)]
+    dist = lambda a, x: float((a.double() - x).abs().max() / x.abs().max())
+    vs64 = [dist(g, x) for g, x in zip(got, c["exact"])]
+    plain_vs64 = [dist(p, x) for p, x in zip(plain, c["exact"])]
+    emulation_vs64 = [dist(m, x) for m, x in zip(c["emulation"](), c["exact"])]
+    if not max(rels) <= 1e-4:
+        raise AssertionError(f"{name}: relative err against the float32 plain version {rels} > 1e-4")
+    if not all(k <= 4.0 * p for k, p in zip(vs64, plain_vs64)):
+        raise AssertionError(f"{name}: relative err against float64 {vs64} > 4 x the float32 "
+                             f"plain version's {plain_vs64}")
+    rows_r = c["streams"] * rows
+    tc_ops = 3 * 2.0 * rows_r * hidden_layers * h * h
+    edge_ops = 2.0 * rows_r * (3 * h + h * 3)
+    return dict(
+        max_abs_err=max(errs),
+        tolerance="each output 1e-4 relative to its max magnitude of the float32 plain "
+                  "version; within 4x the float32 plain version's distance from float64; "
+                  "deterministic",
+        rel_err_vs_plain=rels, rel_err_vs_float64=vs64, plain_rel_err_vs_float64=plain_vs64,
+        tf32x3_emulation_rel_err_vs_float64=emulation_vs64,
+        ms=time_ms(torch, c["run"]), plain_ms=time_ms(torch, c["plain"]), library_ms=None,
+        work=(c["bytes"], edge_ops, 0.0, tc_ops),
+        f32_bound_ms=bound(c["bytes"], edge_ops + tc_ops / 3)[0],
+        shape=c["shape"],
+    )
+
+
+def emd_case(torch, a, b, reps=5):
+    """EMD on the card against the float64 value of its plain version, in
+    two steps.  The kernel's body compiled in float64 must agree with it to
+    1e-9: the body is the algorithm.  The float32 kernel then differs from
+    it by rounding, which the annealing amplifies: any float32 version, the
+    plain one included, lands about 4e-5 in the mean and a few 1e-4 at worst
+    from the float64 value, pair by pair.  So every pair is held to 1e-3 of
+    its value, which an error of the algorithm would exceed, and the mean
+    over the pairs to 2e-4, or twice the float32 plain version's own mean
+    error where that is larger.  Two launches must give the same bits.
+    Returns its row: errors, the kernel's time and its work."""
+    from caspr_tpu_torch.ops import kernels
+    from caspr_tpu_torch.ops.emd_plain import emd_plain
+
+    pairs, n, m = a.shape[0], a.shape[1], b.shape[1]
+    got = kernels.approx_match_emd(a, b)
+    if not torch.equal(got, kernels.approx_match_emd(a, b)):
+        raise AssertionError(f"emd {pairs} x {n} x {m}: two launches differ")
+    want = emd_plain(a, b)
+    exact = emd_plain(a.double(), b.double())
+    body = kernels.approx_match_emd_float64(a.double(), b.double())
+    body_err = float(((body - exact).abs() / exact).max())
+    if not body_err <= 1e-9:
+        raise AssertionError(f"emd {pairs} x {n} x {m}: the kernel's body in float64 is "
+                             f"{body_err} from the plain version")
+    kernel_rel = (got.double() - exact).abs() / exact
+    plain_rel = (want.double() - exact).abs() / exact
+    if not (float(kernel_rel.max()) <= 1e-3
+            and float(kernel_rel.mean()) <= max(2.0 * float(plain_rel.mean()), 2e-4)):
+        raise AssertionError(
+            f"emd {pairs} x {n} x {m}: max / mean relative error against float64 "
+            f"{float(kernel_rel.max())} / {float(kernel_rel.mean())} (plain float32: "
+            f"{float(plain_rel.max())} / {float(plain_rel.mean())})")
+    cluster = kernels.emd_cluster_size(pairs, n, device=a.device)
+    # per (i, j, level) three sweeps, each with d2 (8 operations), the
+    # exponent and the affinity's product and sum (3), the third also the
+    # flow's factor and the cost's product, sum and max (5); special
+    # functions: the three sweeps' exponentials (the affinity is not
+    # stored, so each of the level's three dependent reductions needs it
+    # anew) and the cost's square root.  The last level's affinity is
+    # exp(0) = 1: no exponential, and d2 only for the cost (8 + 10).
+    nm = float(pairs) * n * m
+    return dict(
+        shape=f"({pairs}, {n}, 3) x ({pairs}, {m}, 3) -> ({pairs},)",
+        cluster=cluster, ctas=pairs * cluster,
+        max_abs_err=float((got - want).abs().max()),
+        float64_body_rel_err=body_err,
+        rel_err_vs_float64=float(kernel_rel.max()),
+        plain_rel_err_vs_float64=float(plain_rel.max()),
+        mean_rel_err_vs_float64=float(kernel_rel.mean()),
+        plain_mean_rel_err_vs_float64=float(plain_rel.mean()),
+        rel_err_vs_plain=float(((got - want).abs() / want).max()),
+        ms=time_ms(torch, lambda: kernels.approx_match_emd(a, b), reps=reps),
+        work=((a.numel() + b.numel() + pairs) * 4.0, nm * (9 * (3 * 11 + 5) + 18),
+              nm * (9 * 3 + 10)),
+    )
 
 
 def check_kernels(torch, gen):
@@ -488,12 +609,9 @@ def check_kernels(torch, gen):
 
     # CNF primal and dynamics (the tensor-core kernels, 3xTF32): the trained
     # decoder at one dynamics evaluation, the likelihood direction's with
-    # noise e.  Each output is held (a) within 1e-4 of its largest magnitude
-    # of the float32 plain version, (b) within 4x the distance the float32
-    # plain version keeps from the float64 plain version, and (c) two
-    # launches must give the same bits.  (d) The bound counts the hidden
-    # layers as 3 TF32 tensor-core passes at 495 TFLOP/s; the float32
-    # CUDA-core bound of the earlier kernels is printed beside it.
+    # noise e, held to their plain versions by cnf_case.  The bound counts
+    # the hidden layers as 3 TF32 tensor-core passes at 495 TFLOP/s; the
+    # float32 CUDA-core bound of the earlier kernels is printed beside it.
     params, _ = load_demo(device=dev)
     odenet = params["point_cnf"][1]["odenet"]
     tc = torch.cat([torch.full((BT, 1), 0.25, device=dev),
@@ -521,35 +639,7 @@ def check_kernels(torch, gen):
             shape=f"y, e ({BT}, {POINTS}, 3), H {h}"),
     }
     for name, c in cnf_rows.items():
-        got, plain = c["run"](), c["plain"]()
-        if not all(torch.equal(a, b) for a, b in zip(got, c["run"]())):
-            raise AssertionError(f"{name}: two launches on the same input differ")
-        errs = [float((g - p).abs().max()) for g, p in zip(got, plain)]
-        rels = [err / float(p.abs().max()) for err, p in zip(errs, plain)]
-        dist = lambda a, x: float((a.double() - x).abs().max() / x.abs().max())
-        vs64 = [dist(g, x) for g, x in zip(got, c["exact"])]
-        plain_vs64 = [dist(p, x) for p, x in zip(plain, c["exact"])]
-        emulation_vs64 = [dist(m, x) for m, x in zip(c["emulation"](), c["exact"])]
-        if not max(rels) <= 1e-4:
-            raise AssertionError(f"{name}: relative err against the float32 plain version {rels} > 1e-4")
-        if not all(k <= 4.0 * p for k, p in zip(vs64, plain_vs64)):
-            raise AssertionError(f"{name}: relative err against float64 {vs64} > 4 x the float32 "
-                                 f"plain version's {plain_vs64}")
-        rows_r = c["streams"] * BT * POINTS
-        tc_ops = 3 * 2.0 * rows_r * wh.shape[0] * h * h
-        edge_ops = 2.0 * rows_r * (3 * h + h * 3)
-        rows[name] = dict(
-            max_abs_err=max(errs),
-            tolerance="each output 1e-4 relative to its max magnitude of the float32 plain "
-                      "version; within 4x the float32 plain version's distance from float64; "
-                      "deterministic",
-            rel_err_vs_plain=rels, rel_err_vs_float64=vs64, plain_rel_err_vs_float64=plain_vs64,
-            tf32x3_emulation_rel_err_vs_float64=emulation_vs64,
-            ms=time_ms(torch, c["run"]), plain_ms=time_ms(torch, c["plain"]), library_ms=None,
-            work=(c["bytes"], edge_ops, 0.0, tc_ops),
-            f32_bound_ms=bound(c["bytes"], edge_ops + tc_ops / 3)[0],
-            shape=c["shape"],
-        )
+        rows[name] = cnf_case(torch, name, c, BT * POINTS, wh.shape[0], h)
 
     # CNF dynamics VJP: the training path's evaluation of the adjoint's
     # augmented dynamics (25 clouds of 1024 points), random cotangents.
@@ -599,78 +689,16 @@ def check_kernels(torch, gen):
     )
 
     # EMD: one evaluation batch's clouds (4 sequences x 10 frames), predicted
-    # against target, both in the unit cube.  Held to the float64 value of
-    # the plain version, as the TPU kernel is (tools/hw_exactness.py), in two
-    # steps.  The kernel's body compiled in float64 must agree with it to
-    # 1e-9: the body is the algorithm.  The float32 kernel then differs from
-    # it by rounding, which the annealing amplifies: any float32 version, the
-    # plain one included, lands about 4e-5 in the mean and a few 1e-4 at worst
-    # from the float64 value, pair by pair.  So every pair is held to 1e-3 of
-    # its value, which an error of the algorithm would exceed, and the mean
-    # over the pairs to 2e-4, or twice the float32 plain version's own mean
-    # error where that is larger.
-    def emd_case(pairs, n, m, reps=5):
-        a, b = rand(pairs, n, 3), rand(pairs, m, 3)
-        got = kernels.approx_match_emd(a, b)
-        if not torch.equal(got, kernels.approx_match_emd(a, b)):
-            raise AssertionError(f"emd {pairs} x {n} x {m}: two launches differ")
-        want = emd_plain(a, b)
-        exact = emd_plain(a.double(), b.double())
-        body = kernels.approx_match_emd_float64(a.double(), b.double())
-        body_err = float(((body - exact).abs() / exact).max())
-        if not body_err <= 1e-9:
-            raise AssertionError(f"emd {pairs} x {n} x {m}: the kernel's body in float64 is "
-                                 f"{body_err} from the plain version")
-        kernel_rel = (got.double() - exact).abs() / exact
-        plain_rel = (want.double() - exact).abs() / exact
-        if not (float(kernel_rel.max()) <= 1e-3
-                and float(kernel_rel.mean()) <= max(2.0 * float(plain_rel.mean()), 2e-4)):
-            raise AssertionError(
-                f"emd {pairs} x {n} x {m}: max / mean relative error against float64 "
-                f"{float(kernel_rel.max())} / {float(kernel_rel.mean())} (plain float32: "
-                f"{float(plain_rel.max())} / {float(plain_rel.mean())})")
-        cluster = kernels.emd_cluster_size(pairs, n, device=dev)
-        # per (i, j, level) three sweeps, each with d2 (8 operations), the
-        # exponent and the affinity's product and sum (3), the third also the
-        # flow's factor and the cost's product, sum and max (5); special
-        # functions: the three sweeps' exponentials (the affinity is not
-        # stored, so each of the level's three dependent reductions needs it
-        # anew) and the cost's square root.  The last level's affinity is
-        # exp(0) = 1: no exponential, and d2 only for the cost (8 + 10).
-        nm = float(pairs) * n * m
-        return dict(
-            shape=f"({pairs}, {n}, 3) x ({pairs}, {m}, 3) -> ({pairs},)",
-            cluster=cluster, ctas=pairs * cluster,
-            max_abs_err=float((got - want).abs().max()),
-            float64_body_rel_err=body_err,
-            rel_err_vs_float64=float(kernel_rel.max()),
-            plain_rel_err_vs_float64=float(plain_rel.max()),
-            mean_rel_err_vs_float64=float(kernel_rel.mean()),
-            plain_mean_rel_err_vs_float64=float(plain_rel.mean()),
-            rel_err_vs_plain=float(((got - want).abs() / want).max()),
-            ms=time_ms(torch, lambda: kernels.approx_match_emd(a, b), reps=reps),
-            work=((a.numel() + b.numel() + pairs) * f4, nm * (9 * (3 * 11 + 5) + 18),
-                  nm * (9 * 3 + 10)),
-        ), (a, b)
-
-    # EMD: one evaluation batch's clouds (4 sequences x 10 frames), predicted
     # against target, both in the unit cube, then 12 pairs and one pair of
-    # N + M = 16384.  Held to the float64 value of the plain version, as the
-    # TPU kernel is (tools/hw_exactness.py), in two steps.  The kernel's body
-    # compiled in float64 must agree with it to 1e-9: the body is the
-    # algorithm.  The float32 kernel then differs from it by rounding, which
-    # the annealing amplifies: any float32 version, the plain one included,
-    # lands about 4e-5 in the mean and a few 1e-4 at worst from the float64
-    # value, pair by pair.  So every pair is held to 1e-3 of its value, which
-    # an error of the algorithm would exceed, and the mean over the pairs to
-    # 2e-4, or twice the float32 plain version's own mean error where that is
-    # larger.  Two launches must give the same bits.
-    emd_row, (pred, target) = emd_case(BT, POINTS, POINTS)
+    # N + M = 16384, each held to the float64 value of the plain version, as
+    # the TPU kernel is (tools/hw_exactness.py): emd_case's bars
+    pred, target = rand(BT, POINTS, 3), rand(BT, POINTS, 3)
+    emd_row = emd_case(torch, pred, target)
     emd_row["plain_ms"] = time_ms(torch, lambda: emd_plain(pred, target), reps=3)
     extra = {}
     for key, (pairs, n, m) in {"pairs_12": (12, POINTS, POINTS),
                                "n_plus_m_16384": (1, 12000, 4384)}.items():
-        extra[key], _ = emd_case(pairs, n, m, reps=3)
+        extra[key] = emd_case(torch, rand(pairs, n, 3), rand(pairs, m, 3), reps=3)
         extra[key]["bound_ms"], extra[key]["bound_by"] = bound(*extra[key].pop("work"))
     rows["emd"] = dict(
         emd_row, library_ms=None,
@@ -943,6 +971,20 @@ def require_launched(counts, names, path):
         raise AssertionError(f"{path} ran without kernels {missing}: {counts}")
 
 
+def device_time(torch, prof):
+    """{kernel or copy: (device ms, calls)} of a torch.profiler run (not the
+    ranges of record_function, which the trace also shows on the card)."""
+    device_ms = {}
+    for evt in prof.key_averages():
+        if (evt.device_type != torch.autograd.DeviceType.CUDA  # kernels and copies only
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        ms = getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0)) / 1e3
+        if ms > 0:
+            device_ms[evt.key[:80]] = (ms, evt.count)
+    return device_ms
+
+
 def profile_path(torch, fn, wall_ms, label, nfe=None, focus=()):
     """One more fn() under torch.profiler: device time by kernel, and the
     share of the unprofiled wall time ``wall_ms`` in which the card ran no
@@ -955,13 +997,7 @@ def profile_path(torch, fn, wall_ms, label, nfe=None, focus=()):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device_ms = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:  # kernels and copies only
-            continue
-        ms = getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0)) / 1e3
-        if ms > 0:
-            device_ms[evt.key[:80]] = (ms, evt.count)
+    device_ms = device_time(torch, prof)
     busy = sum(ms for ms, _ in device_ms.values())
     top = sorted(device_ms.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps({
@@ -1782,6 +1818,277 @@ def run_cli_path(torch, kernels, out_dir, card):
     return runs
 
 
+VIZ_KERNELS = RECONSTRUCT_KERNELS + ("emd",)
+VIZ_STEPS = 30  # the viz CLI's --num-sampled-steps default
+# decoded points of phase 9's card-against-CPU reconstruct (30 times each):
+# the CPU's share of the phase
+VIZ_CROSS_POINTS = 512
+CUBE_ROWS = 2 * 12 * 24  # the ground-truth and prediction NOCS cubes
+FRUSTUM_ROWS = 2 * 64  # the ground-truth and predicted camera frusta
+
+
+def read_ply(path):
+    """The vertex rows of an ASCII PLY as an (n, 6) array (x y z r g b);
+    raises unless the rows are the header's count."""
+    with open(path) as f:
+        head, body = f.read().split("end_header\n")
+    n = int(re.search(r"element vertex (\d+)", head).group(1))
+    values = np.array(body.split(), dtype=np.float64)
+    if values.size != 6 * n:
+        raise AssertionError(f"{path}: {values.size} values for {n} vertices")
+    return values.reshape(n, 6)
+
+
+def check_scenes(out_dir, scenes, animation):
+    """Each scene of {name: (frames, vertices a frame)} holds exactly its
+    frame_####.ply files, viewer.html and (where ``animation``) an
+    animation; every frame has that many vertices, all finite.  Returns
+    the frames' rows by scene."""
+    rows = {}
+    for name, (frames, vertices) in scenes.items():
+        scene = os.path.join(out_dir, name)
+        want = {f"frame_{i:04d}.ply" for i in range(frames)} | {"viewer.html"}
+        files = set(os.listdir(scene)) if os.path.isdir(scene) else set()
+        anim = files & {"animation.gif", "contact_sheet.png"}
+        if files - anim != want or bool(anim) != animation:
+            raise AssertionError(f"{name}: files {sorted(files)}, expected {frames} frames, "
+                                 f"viewer.html{' and an animation' if animation else ''}")
+        rows[name] = [read_ply(os.path.join(scene, f"frame_{i:04d}.ply")) for i in range(frames)]
+        bad = [i for i, r in enumerate(rows[name])
+               if r.shape[0] != vertices or not np.all(np.isfinite(r[:, :3]))]
+        if bad:
+            raise AssertionError(f"{name}: frames {bad} not {vertices} finite vertices")
+    return rows
+
+
+def wallclock_lines(lines):
+    """{"model <scene>" or "export <scene>": seconds} of the viz CLI's
+    wallclock lines among ``lines``."""
+    return {k: float(v) for line in lines
+            for k, v in re.findall(r"^\[((?:model|export) \S+)\] ([0-9.]+)s$", line)}
+
+
+def logged_wallclock(log_path):
+    with open(log_path) as f:
+        return wallclock_lines(f.read().splitlines())
+
+
+def run_viz_path(torch, kernels, out_dir, card):
+    """Phase 9: the viz command line and the test CLI's pose scenes over a
+    synthetic tree at full width, the interpolated reconstruct card against
+    CPU, cnf_primal and emd at the viz shapes, one profiled scene."""
+    import importlib.util
+
+    from caspr_tpu_torch.cli import test as cli_test
+    from caspr_tpu_torch.cli import viz as cli_viz
+    from caspr_tpu_torch.data import DynamicPCLDataset, SequenceLoader, write_synthetic_tree
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.checks import tf32x3_arithmetic as tf32x3
+    from caspr_tpu_torch.ops import cnf_fused
+    from caspr_tpu_torch.ops.emd_plain import emd_plain
+    from caspr_tpu_torch.utils.profiling import annotate, device_trace
+    from caspr_tpu_torch.viz.export import NO_ANIMATION, SAMPLE_CONTOURS_RADII
+    from caspr_tpu_torch.weights import DEMO_CHECKPOINT, load_demo
+
+    animation = importlib.util.find_spec("matplotlib") is not None
+    tree = write_synthetic_tree(os.path.join(out_dir, "viz_tree"), seed=SEED,
+                                split_sizes={"test": 2})
+    tree1 = write_synthetic_tree(os.path.join(out_dir, "viz_tree1"), seed=SEED,
+                                 split_sizes={"test": 1})
+    seqs = [f"test_{i:04d}_seq_00000000" for i in range(2)]
+    common = ["--weights", DEMO_CHECKPOINT, "--seq-len", str(FRAMES), "--num-pts", str(POINTS),
+              "--seed", str(SEED)]
+    recon_rows = 4 * POINTS + CUBE_ROWS  # ground truth, input, prediction, base samples
+    report = {}
+
+    def run_cli(label, main, argv, scenes, log_name):
+        kernels.reset_launches()
+        start = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = dict(kernels.launches)
+        out = argv[argv.index("--out") + 1]
+        rows = check_scenes(out, scenes, animation)
+        with open(os.path.join(out, log_name)) as f:
+            said = f.read().count(NO_ANIMATION)
+        if said != (0 if animation else 1):
+            raise AssertionError(f"{label}: the no-animation line logged {said} times")
+        report[label] = {"seconds": seconds, "launches": counts}
+        return counts, rows, os.path.join(out, log_name)
+
+    # (a) the viz CLI: T-NOCS with its error map, observed and interpolated
+    # scenes of both sequences
+    out = os.path.join(out_dir, "viz")
+    scenes = {}
+    for seq in seqs:
+        scenes[f"{seq}_tnocs"] = (FRAMES, 3 * POINTS + CUBE_ROWS)
+        scenes[f"{seq}_observed"] = (FRAMES, recon_rows)
+        scenes[f"{seq}_interpolated"] = (VIZ_STEPS, recon_rows)
+    counts, _, log_path = run_cli(
+        "viz CLI", cli_viz.main,
+        ["--data-cfg", tree, *common, "--out", out, "--viz-tnocs", "--tnocs-err-map",
+         "--viz-observed", "--viz-interpolated", "--num-sampled-pts", str(POINTS),
+         "--num-sampled-steps", str(VIZ_STEPS)], scenes, "viz_log.txt")
+    require_launched(counts, VIZ_KERNELS, "viz CLI")
+    forbid_launched(counts, ("cnf_dynamics", "cnf_dynamics_vjp", "sa_fused"), "viz CLI")
+    metrics = log_numbers(log_path, r"Cur (?:L2 nocs spatial error|Mean Chamfer|Mean EMD): "
+                          + FLOAT)
+    if len(metrics) != 3 * len(seqs) or not np.all(np.isfinite(metrics)):
+        raise AssertionError(f"viz CLI: T-NOCS error, Chamfer and EMD {metrics}")
+    report["viz CLI"].update(seconds_by_scene=logged_wallclock(log_path),
+                             tnocs_chamfer_emd_x1000=[m[0] for m in metrics])
+
+    # (b) contour base samples, one sequence: the prediction and the base
+    # samples take the contours' palette colours
+    out = os.path.join(out_dir, "viz_contours")
+    scene = f"{seqs[0]}_observed"
+    counts, rows, log_path = run_cli(
+        "viz CLI --sample-contours", cli_viz.main,
+        ["--data-cfg", tree1, *common, "--out", out, "--viz-observed", "--sample-contours"],
+        {scene: (FRAMES, recon_rows)}, "viz_log.txt")
+    require_launched(counts, VIZ_KERNELS, "viz CLI --sample-contours")
+    forbid_launched(counts, ("cnf_dynamics", "cnf_dynamics_vjp", "sa_fused"),
+                    "viz CLI --sample-contours")
+    colours = {tuple(c) for c in rows[scene][0][2 * POINTS:4 * POINTS, 3:].astype(int)}
+    if not 1 < len(colours) <= 6:
+        raise AssertionError(f"contour colours {sorted(colours)}")
+    report["viz CLI --sample-contours"].update(seconds_by_scene=logged_wallclock(log_path),
+                                               contour_colours=len(colours))
+
+    # (c) the test CLI's pose scenes
+    out = os.path.join(out_dir, "pose")
+    counts, _, _ = run_cli(
+        "test CLI --show-pose-viz", cli_test.main,
+        ["--data-cfg", tree, *common, "--out", out, "--batch-size", str(BATCH),
+         "--eval-pose-observed-ransac", "--show-pose-viz"],
+        {f"pose_{seq}": (FRAMES, 4 * POINTS + FRUSTUM_ROWS) for seq in seqs}, "test_log.txt")
+    require_launched(counts, RECONSTRUCT_KERNELS[:-1], "test CLI --show-pose-viz")
+    forbid_launched(counts, ("cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp", "emd"),
+                    "test CLI --show-pose-viz")
+    for label in report:
+        print(json.dumps({"viz": label, "card": card, **report[label]}), flush=True)
+
+    # (d) the interpolated reconstruct at the viz settings, card against
+    # CPU: the first sequence, 30 shared times, the same base samples at
+    # every time, Gaussian and on the contour radii
+    batch = next(iter(SequenceLoader(DynamicPCLDataset(
+        tree, split="test", num_pts=POINTS, seq_len=FRAMES, shift_time_to_zero=True,
+        random_point_sample=False), batch_size=1)))
+    x = torch.from_numpy(batch["input"])
+    times = cli_viz.interpolation_times(VIZ_STEPS)
+    rng = np.random.default_rng(SEED)
+    cpu_model = CaSPRModel(CaSPRConfig(), device="cpu")
+    bases = {
+        "gaussian": torch.from_numpy(
+            rng.standard_normal((1, VIZ_CROSS_POINTS, 3)).astype(np.float32)),
+        "contours": cpu_model.sample_base(torch.Generator().manual_seed(SEED), 1,
+                                          VIZ_CROSS_POINTS, sample_contours=SAMPLE_CONTOURS_RADII),
+    }
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = CaSPRModel(CaSPRConfig(), device=dev)
+        params, state = load_demo(device=dev)
+        for name, base in bases.items():
+            y = base[:, None].expand(1, VIZ_STEPS, VIZ_CROSS_POINTS, 3).contiguous().to(dev)
+            with torch.no_grad():
+                _, logp, rec, _, nfe = model.reconstruct(
+                    params, state, x.to(dev), None, num_points=VIZ_CROSS_POINTS,
+                    timestamps=times.to(dev), base_samples=y)
+            out[dev, name] = (rec.cpu(), logp.cpu(), nfe)
+    for name in bases:
+        (rec, logp, nfe), (crec, clogp, cnfe) = out["cuda", name], out["cpu", name]
+        errs = {"points": float((rec - crec).abs().max()), "logp": float((logp - clogp).abs().max())}
+        scale = {"points": max(1.0, float(crec.abs().max())),
+                 "logp": max(1.0, float(clogp.abs().max()))}
+        print(json.dumps({"cross_device": f"viz interpolated reconstruct, {name} base: B=1 T=10 "
+                                          f"N=2048 -> {VIZ_STEPS} times x {VIZ_CROSS_POINTS}",
+                          "nfe": [nfe, cnfe], "max_abs_err": errs, "scale": scale,
+                          "tolerance": "equal NFE; 1e-3 x max(1, the CPU's largest magnitude)"}),
+              flush=True)
+        if nfe != cnfe or any(errs[k] > 1e-3 * scale[k] for k in errs):
+            raise AssertionError(f"viz reconstruct ({name} base), card vs CPU: see the line above")
+
+    # (e) cnf_primal at the interpolated decode's shape (30 times x 2048
+    # rows, the context of this sequence's latent at the 30 times) and emd
+    # at an observed scene's 10 frame pairs of 2048 points (uniform clouds),
+    # held to their plain versions
+    dev = torch.device("cuda")
+    model = CaSPRModel(CaSPRConfig(), device="cuda")
+    params, state = load_demo(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        z0, _ = model.encode(params, x.to(dev))
+        z, _ = model.aggregate_and_solve_latent(params, z0, times.to(dev)[None],
+                                                shared_times=True)
+        odenet = params["point_cnf"][1]["odenet"]
+        tc = torch.cat([torch.full((VIZ_STEPS, 1), 0.25, device=dev), z.reshape(VIZ_STEPS, -1)],
+                       dim=1)
+        y = torch.randn((VIZ_STEPS, POINTS, 3), generator=gen, device=dev)
+        gb = cnf_fused.context_gb(odenet, tc)
+        wf, wh, wl = cnf_fused.pack_weights(odenet)
+        w64 = [t.double() for t in (gb, wf, wh, wl)]
+        weights_bytes = sum(t.numel() for t in (gb, wf, wh, wl)) * 4.0
+        viz_rows = {"cnf_primal": cnf_case(torch, "cnf_primal", dict(
+            run=lambda: (kernels.cnf_primal(y, gb, wf, wh, wl),),
+            plain=lambda: (cnf_fused.primal_packed(y, gb, wf, wh, wl),),
+            emulation=lambda: (tf32x3.primal_tf32x3(y, gb, wf, wh, wl),),
+            exact=(cnf_fused.primal_packed(y.double(), *w64),), streams=1,
+            bytes=y.numel() * 2 * 4.0 + weights_bytes,
+            shape=f"y ({VIZ_STEPS}, {POINTS}, 3), H {wf.shape[0]}, one sequence's latent"),
+            VIZ_STEPS * POINTS, wh.shape[0], wf.shape[0])}
+        rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+        pred, target = rand(FRAMES, POINTS, 3), rand(FRAMES, POINTS, 3)
+        viz_rows["emd"] = emd_case(torch, pred, target)
+        viz_rows["emd"].update(
+            plain_ms=time_ms(torch, lambda: emd_plain(pred, target), reps=3), library_ms=None,
+            tolerance="against float64 plain: body in float64 1e-9; float32 each pair 1e-3 "
+                      "relative, mean 2e-4 (or 2x plain's mean); deterministic")
+    for name, row in viz_rows.items():
+        bound_ms, bound_by = bound(*row.pop("work"))
+        print(json.dumps({"kernel": name, "path": "viz", **row, "bound_ms": bound_ms,
+                          "bound_by": bound_by}), flush=True)
+
+    # (f) one interpolated scene (the reconstruct and its export), once for
+    # its wall time and once under the port's device_trace
+    flags = cli_viz.parse_args(["--data-cfg", tree, "--out", os.path.join(out_dir, "profiled"),
+                                "--viz-interpolated", "--num-sampled-steps", str(VIZ_STEPS),
+                                "--num-sampled-pts", str(POINTS)])
+    pcl_in, nocs_out = batch["input"], batch["target"]
+    seconds = {}
+
+    def scene(name):
+        say = lambda line: seconds.update(wallclock_lines([line]))
+        return cli_viz.interpolated_scene(flags, model, params, state, pcl_in, nocs_out, gen,
+                                          name, say=say, note=lambda line: None)
+
+    start = time.perf_counter()
+    _, nfe = scene("scene")
+    wall_ms = (time.perf_counter() - start) * 1e3
+    label = "viz interpolated scene"
+    with device_trace(os.path.join(out_dir, "trace")) as prof, annotate(label):
+        scene("scene_profiled")
+    device_ms = device_time(torch, prof)
+    device_ms.pop(label, None)  # the range, where the profiler does not mark it as one
+    busy = sum(ms for ms, _ in device_ms.values())
+    (trace,) = os.listdir(os.path.join(out_dir, "trace"))
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1][0])[:8]
+    print(json.dumps({
+        "profile": "viz interpolated scene (30 x 2048 decoded, PLY and viewer export) under "
+                   "caspr_tpu_torch.utils.profiling.device_trace", "card": card,
+        "unprofiled_wall_ms": wall_ms, "model_s": seconds["model scene"],
+        "export_s": seconds["export scene"], "nfe": list(nfe),
+        "device_busy_ms": busy if busy else "not measured",
+        "device_idle_share": 1.0 - busy / wall_ms if busy else "not measured",
+        "device_idle_share_of_model": 1.0 - busy / (seconds["model scene"] * 1e3) if busy
+        else "not measured",
+        "annotated": any(e.key == label for e in prof.key_averages()),
+        "trace_bytes": os.path.getsize(os.path.join(out_dir, "trace", trace)),
+        "top": [{"name": k, "ms": ms, "calls": n} for k, (ms, n) in top]}), flush=True)
+    if not busy:
+        raise AssertionError("the profiled viz scene shows no device time")
+
+
 def phase_done(name: str, begun: float):
     print(json.dumps({"phase_done": name, "seconds_since_start": time.perf_counter() - begun}),
           flush=True)
@@ -1834,6 +2141,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         run_cli_path(torch, kernels, out_dir, card)
     phase_done("8", begun)
+    with tempfile.TemporaryDirectory() as out_dir:
+        run_viz_path(torch, kernels, out_dir, card)
+    phase_done("9", begun)
 
     listing = []
     for name, row in rows.items():

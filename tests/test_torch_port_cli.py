@@ -140,7 +140,7 @@ def test_runtime_flags_write_no_environment(monkeypatch):
 @pytest.mark.parametrize("cli, argv, item", [
     ("train", ["--parallel"], "10.6"), ("train", ["--multihost"], "10.6"),
     ("train", ["--sp-size", "2"], "10.6"), ("test", ["--parallel"], "10.6"),
-    ("test", ["--sp-size", "4"], "10.6"), ("test", ["--show-pose-viz"], "10.5"),
+    ("test", ["--sp-size", "4"], "10.6"),
 ])
 def test_unported_flags_raise(cli, argv, item, tmp_path):
     main = {"train": cli_train.main, "test": cli_test.main}[cli]

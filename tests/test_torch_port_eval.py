@@ -16,6 +16,8 @@ Tolerances:
   - T-NOCS regression ``.npz`` arrays: 1e-5 abs;
   - pose: the same RANSAC source with the same seeds on encodings that
     agree to 1e-4; RANSAC amplifies, so only the means are held, to 1e-2;
+    its pose scenes (show=True) hold the same files and vertex counts, and
+    the ground truth's rows (clouds, NOCS, cameras) byte for byte;
   - CSV headers, row counts and row order equal; the logs hold the same
     lines, numbers aside.
 """
@@ -24,6 +26,7 @@ import csv
 import functools
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -36,9 +39,11 @@ from caspr_tpu.models.caspr import CaSPRConfig as JaxConfig
 from caspr_tpu.models.caspr import CaSPRModel as JaxModel
 from caspr_tpu.models.caspr import caspr_init
 from caspr_tpu.utils import evaluations as jev
+from caspr_tpu.viz import export as jexport
 from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
 from caspr_tpu_torch.utils import evaluations as ev
 from caspr_tpu_torch.utils import ransac
+from caspr_tpu_torch.viz.export import NO_ANIMATION
 from caspr_tpu_torch.weights import (
     load_encoder_weights_from_full,
     load_weights,
@@ -53,7 +58,7 @@ class _FakeLoader:
     """One protocol-shaped batch of two rows of which one is real (the
     second repeats the first, as the loader's padding does)."""
 
-    def __init__(self, with_pose=False, steps=T):
+    def __init__(self, with_pose=False, steps=T, pose=None):
         rng = np.random.RandomState(0)
         t = np.linspace(0, 1, T, dtype=np.float32)
         nocs = rng.rand(1, T, N, 4).astype(np.float32)
@@ -64,7 +69,8 @@ class _FakeLoader:
         self.batch = {"input": pad(world), "target": pad(nocs), "model_id": ["m0", "m0"],
                       "seq_id": ["s0", "s0"], "valid": 1}
         if with_pose:
-            self.batch["pose"] = np.tile(np.eye(4, dtype=np.float32), (2, T, 1, 1))
+            self.batch["pose"] = np.tile(np.eye(4, dtype=np.float32) if pose is None else pose,
+                                         (2, T, 1, 1))
 
         class _DS:
             def set_return_pose_data(self, flag):
@@ -159,10 +165,27 @@ def test_tnocs_regression_matches(both, tmp_path):
     assert _log_shape(plog) == _log_shape(jlog)
 
 
-def test_pose_ransac_matches(both, tmp_path):
-    jlog, plog = os.path.join(tmp_path, "jax_log.txt"), os.path.join(tmp_path, "port_log.txt")
-    jev.test_observed_camera_pose_ransac(*both["jax"], _FakeLoader(with_pose=True), jlog)
-    ev.test_observed_camera_pose_ransac(*both["port"], _FakeLoader(with_pose=True), plog)
+def _ply_rows(path):
+    with open(path) as f:
+        return f.read().split("end_header\n")[1].splitlines()
+
+
+def test_pose_ransac_matches(both, tmp_path, monkeypatch):
+    """With show=True (the JAX package's animation off, and the port
+    without matplotlib, as on the card's machine)."""
+    for side in ("jax", "port"):
+        os.makedirs(tmp_path / side)
+    jlog, plog = str(tmp_path / "jax" / "jax_log.txt"), str(tmp_path / "port" / "port_log.txt")
+    angle = 0.4  # a true pose other than the identity: the scene's cameras move
+    pose = np.eye(4, dtype=np.float32)
+    pose[:2, :2] = [[np.cos(angle), -np.sin(angle)], [np.sin(angle), np.cos(angle)]]
+    pose[:3, 3] = [0.1, -0.2, 0.3]
+    monkeypatch.setattr(jexport, "_export_animation", lambda *args: None)
+    jev.test_observed_camera_pose_ransac(*both["jax"], _FakeLoader(with_pose=True, pose=pose),
+                                         jlog, show=True)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    ev.test_observed_camera_pose_ransac(*both["port"], _FakeLoader(with_pose=True, pose=pose),
+                                        plog, show=True)
     want = np.load(jlog[: -len(".txt")] + "_RANSAC.npz")
     got = np.load(plog[: -len(".txt")] + "_RANSAC.npz")
     assert sorted(got.files) == sorted(want.files)
@@ -174,10 +197,22 @@ def test_pose_ransac_matches(both, tmp_path):
     prows = _rows(plog[: -len(".txt")] + "_RANSAC.csv")
     assert prows[0] == jrows[0] == ["model_id", "seq_id", "pos", "rot", "point"]
     assert len(prows) == len(jrows) == 2
-    assert _log_shape(plog) == _log_shape(jlog)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ev.test_observed_camera_pose_ransac(*both["port"], _FakeLoader(with_pose=True), plog,
-                                            show=True)
+    port_log = _log_shape(plog)
+    assert port_log.count(NO_ANIMATION) == 1
+    assert port_log.replace(NO_ANIMATION + "\n", "") == _log_shape(jlog)
+
+    # one scene, the padded row's left out: predicted NOCS, the ground
+    # truth under the predicted and the true pose, its NOCS, two frusta
+    scene = "pose_m0_s0"
+    for side in ("jax", "port"):
+        assert [d for d in os.listdir(tmp_path / side) if d.startswith("pose_")] == [scene]
+    files = sorted(os.listdir(tmp_path / "port" / scene))
+    assert files == sorted(os.listdir(tmp_path / "jax" / scene))
+    assert files == [f"frame_{i:04d}.ply" for i in range(T)] + ["viewer.html"]
+    for name in files[:-1]:
+        got, want = (_ply_rows(tmp_path / side / scene / name) for side in ("port", "jax"))
+        assert len(got) == len(want) == 4 * N + 2 * 64
+        assert got[2 * N:4 * N + 64] == want[2 * N:4 * N + 64], name
 
 
 def test_ransac_native_and_numpy_recover_a_known_pose():
