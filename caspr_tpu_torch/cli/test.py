@@ -14,6 +14,14 @@ test split: ``--eval-test`` (the likelihood path and its TEST line),
 batch is padded to the batch size and masked out of every statistic.  The
 model runs on the card; ``main(argv, device="cpu")`` runs it on the CPU.
 Each protocol's seconds and the loader's wait per batch go to the log.
+
+``--parallel`` evaluates data-parallel, one process per card
+(``torchrun --nproc_per_node <cards> -m caspr_tpu_torch.cli.test
+--parallel ...``): each rank loads and evaluates its share of every batch
+(``--batch-size`` is the global batch), and rank 0 writes the log and the
+artifacts, which are the one-process run's (``utils.evaluations``); rank i
+> 0 logs to rank<i>_<--log>.  The JAX package's test.py --parallel is one
+process over the local devices instead.
 """
 
 from __future__ import annotations
@@ -28,12 +36,14 @@ import torch
 
 from ..data import DynamicPCLDataset, SequenceLoader
 from ..models import CaSPRModel, caspr_init
+from ..parallel import replicate
+from ..parallel.mesh import describe
 from ..train import (TestStatTracker, load_checkpoint, log, make_eval_step, print_stats,
                      run_one_epoch)
 from ..train.checkpoint import load_encoder_weights_from_full, load_state, load_weights
 from ..utils import evaluations as eval_utils
 from ..utils.config import (apply_runtime_flags, caspr_config_from_flags, get_general_options,
-                            get_test_options, refuse_unported)
+                            get_test_options, parallel_setup, refuse_unported)
 from ..utils.evaluations import (test_observed_camera_pose_ransac, test_shape_recon,
                                  test_tnocs_regression)
 
@@ -66,8 +76,9 @@ def load_model_weights(flags, params, state, log_out):
 
 def test(flags, device=None):
     refuse_unported(flags)
+    mesh, device, rank, ranks, log_name = parallel_setup(flags, device, flags.log)
     os.makedirs(flags.out, exist_ok=True)
-    log_out = os.path.join(flags.out, flags.log)
+    log_out = os.path.join(flags.out, log_name)
     log(log_out, flags)
 
     apply_runtime_flags(flags)
@@ -76,6 +87,12 @@ def test(flags, device=None):
     generator = torch.Generator(device=model.device).manual_seed(flags.seed)
     params, state = caspr_init(generator, cfg, device=model.device)
     params, state, _ = load_model_weights(flags, params, state, log_out)
+    if mesh is not None:
+        log(log_out, f"Eval mesh over {describe(mesh)}, rank {rank}")
+        replicate(mesh, (params, state))
+        if flags.batch_size % ranks != 0:
+            log(log_out, f"WARNING: batch size {flags.batch_size} not divisible by dp size "
+                         f"{ranks}; sharded eval will fail -- adjust --batch-size")
 
     test_dataset = DynamicPCLDataset(
         flags.data_cfg, split="test", train_frac=0.8, val_frac=0.1, num_pts=flags.num_pts,
@@ -86,7 +103,8 @@ def test(flags, device=None):
         len(test_dataset)))
     test_loader = SequenceLoader(test_dataset, batch_size=flags.batch_size,
                                  shuffle=flags.shuffle_test, seed=flags.seed,
-                                 num_workers=flags.num_workers, pad_last=True)
+                                 num_workers=flags.num_workers, pad_last=True, num_shards=ranks,
+                                 shard_index=rank)
 
     def timed(what, fn, *args, **kwargs):
         start = time.perf_counter()
@@ -100,26 +118,26 @@ def test(flags, device=None):
 
     if flags.eval_full_test:
         tracker = TestStatTracker()
-        eval_step = make_eval_step(model, flags.cnf_loss, flags.tnocs_loss)
+        eval_step = make_eval_step(model, flags.cnf_loss, flags.tnocs_loss, mesh=mesh)
         timed("eval-test", run_one_epoch, eval_step, params, None, state, test_loader,
-              generator, 0, tracker, log_out, mode="test", print_stats_every=1)
+              generator, 0, tracker, log_out, mode="test", print_stats_every=1, mesh=mesh)
         means = tracker.get_mean_stats()
         print_stats(log_out, 0, 0, 0, means[0], means[1], means[2], means[3], "TEST", means[4])
 
     if flags.eval_shape_recon_observed:
         timed("eval-shape-recon-observed", test_shape_recon, model, params, state, test_loader,
               log_out, eval_utils.ALL_OBSERVED_STEPS, eval_utils.ALL_UNOBSERVED_STEPS,
-              generator=generator)
+              generator=generator, mesh=mesh)
     if flags.eval_shape_recon_unobserved:
         timed("eval-shape-recon-unobserved", test_shape_recon, model, params, state,
               test_loader, log_out, eval_utils.SPLIT_OBSERVED_STEPS,
-              eval_utils.SPLIT_UNOBSERVED_STEPS, generator=generator)
+              eval_utils.SPLIT_UNOBSERVED_STEPS, generator=generator, mesh=mesh)
     if flags.eval_tnocs_regression:
         timed("eval-tnocs-regression", test_tnocs_regression, model, params, state,
-              test_loader, log_out)
+              test_loader, log_out, mesh=mesh)
     if flags.eval_pose_observed_ransac:
         timed("eval-pose-observed-ransac", test_observed_camera_pose_ransac, model, params,
-              state, test_loader, log_out, show=flags.show_pose_viz)
+              state, test_loader, log_out, show=flags.show_pose_viz, mesh=mesh)
 
 
 def main(argv=None, device=None):

@@ -16,6 +16,17 @@ most ``CASPR_TPU_ODE_STEPS`` (default 128) steps a solve.  The model runs
 on the card; ``main(argv, device="cpu")`` runs it on the CPU.  Each
 epoch's seconds per train step and the loader's wait per batch go to the
 log.
+
+``--parallel`` trains data-parallel, one process per card:
+
+    torchrun --nproc_per_node <cards> -m caspr_tpu_torch.cli.train --parallel ...
+
+and over several nodes with ``--multihost`` (``torchrun --nnodes <n>
+...``).  Each rank loads its share of every batch (``--batch-size`` is the
+global batch) and the gradients are summed over the ranks
+(``train.loop``); rank 0 writes the checkpoints, the curves and
+train_log.txt, and rank i > 0 logs to rank<i>_train_log.txt and writes
+nothing else.
 """
 
 from __future__ import annotations
@@ -32,11 +43,14 @@ import torch
 from ..data import DynamicPCLDataset, SequenceLoader
 from ..models import CaSPRModel, caspr_init
 from ..nn import count_params
+from ..parallel import replicate
+from ..parallel.mesh import describe
 from ..train import (TestStatTracker, TrainLossTracker, log, make_eval_step, make_optimizer,
                      make_train_step, print_stats, run_one_epoch, save_checkpoint)
 from ..train.checkpoint import restore_adam_state
 from ..utils.config import (apply_runtime_flags, caspr_config_from_flags, get_general_options,
-                            get_train_options, ode_steps_from_env, refuse_unported)
+                            get_train_options, ode_steps_from_env, parallel_setup,
+                            refuse_unported)
 from .test import load_model_weights
 
 
@@ -50,9 +64,15 @@ def parse_args(argv):
 
 def train(flags, device=None):
     refuse_unported(flags)
+    mesh, device, rank, ranks, log_name = parallel_setup(flags, device, "train_log.txt")
+    lead = rank == 0
     os.makedirs(flags.out, exist_ok=True)
-    log_out = os.path.join(flags.out, "train_log.txt")
+    log_out = os.path.join(flags.out, log_name)
     log(log_out, flags)
+    if mesh is not None:
+        log(log_out, f"Parallel mesh over {describe(mesh)}, rank {rank}")
+        if flags.batch_size % ranks != 0:
+            log(log_out, "WARNING: batch size not divisible by dp size")
 
     def dataset(split, random_point_sample):
         return DynamicPCLDataset(
@@ -64,10 +84,13 @@ def train(flags, device=None):
     log(log_out, "Data loader: %s, %d train and %d val sequences" % (
         "native (native/npz_loader.cpp)" if train_dataset.use_native_loader else "numpy",
         len(train_dataset), len(val_dataset)))
+    shards = {"num_shards": ranks, "shard_index": rank}
     train_loader = SequenceLoader(train_dataset, batch_size=flags.batch_size, shuffle=True,
-                                  drop_last=True, seed=flags.seed, num_workers=flags.num_workers)
+                                  drop_last=True, seed=flags.seed, num_workers=flags.num_workers,
+                                  microbatches=flags.grad_accum, **shards)
     val_loader = SequenceLoader(val_dataset, batch_size=flags.batch_size, shuffle=False,
-                                drop_last=True, seed=flags.seed, num_workers=flags.num_workers)
+                                drop_last=True, seed=flags.seed, num_workers=flags.num_workers,
+                                **shards)
 
     apply_runtime_flags(flags)
     cfg = caspr_config_from_flags(flags)
@@ -75,6 +98,8 @@ def train(flags, device=None):
     generator = torch.Generator(device=model.device).manual_seed(flags.seed)
     params, state = caspr_init(generator, cfg, device=model.device)
     params, state, ckpt = load_model_weights(flags, params, state, log_out)
+    if mesh is not None:  # every rank starts from rank 0's weights
+        replicate(mesh, (params, state))
 
     tx = make_optimizer(flags.lr, (flags.beta1, flags.beta2), flags.eps, flags.decay)
     opt_state = tx.init(params)
@@ -103,8 +128,8 @@ def train(flags, device=None):
 
     train_step = timed(make_train_step(
         model, tx, flags.cnf_loss, flags.tnocs_loss, accum_steps=flags.grad_accum,
-        ode_backward=flags.ode_backward, ode_steps=ode_steps_from_env()))
-    eval_step = make_eval_step(model, flags.cnf_loss, flags.tnocs_loss)
+        ode_backward=flags.ode_backward, ode_steps=ode_steps_from_env(), mesh=mesh))
+    eval_step = make_eval_step(model, flags.cnf_loss, flags.tnocs_loss, mesh=mesh)
     loss_tracker = TrainLossTracker()
 
     for epoch in range(flags.epochs):
@@ -112,7 +137,7 @@ def train(flags, device=None):
         step_seconds.clear()
         params, opt_state, state = run_one_epoch(
             train_step, params, opt_state, state, train_loader, generator, epoch, loss_tracker,
-            log_out, mode="train", print_stats_every=flags.print_every)
+            log_out, mode="train", print_stats_every=flags.print_every, mesh=mesh)
         waits = train_loader.waits
         log(log_out, "TIMING epoch %d: %f s per train step over %d steps, loader wait %f s "
             "per batch" % (epoch, float(np.mean(step_seconds)) if step_seconds else 0.0,
@@ -121,7 +146,8 @@ def train(flags, device=None):
         if epoch % flags.val_every == 0:
             val_tracker = TestStatTracker()
             run_one_epoch(eval_step, params, None, state, val_loader, generator, epoch,
-                          val_tracker, log_out, mode="val", print_stats_every=flags.print_every)
+                          val_tracker, log_out, mode="val", print_stats_every=flags.print_every,
+                          mesh=mesh)
             total_loss, cnf_err, pos_err, time_err, nfe = val_tracker.get_mean_stats()
             if not math.isnan(total_loss):
                 best = (len(loss_tracker.val_losses) == 0
@@ -129,13 +155,14 @@ def train(flags, device=None):
                 loss_tracker.record_val_step(total_loss, epoch * len(train_loader))
                 print_stats(log_out, epoch, 0, 0, total_loss, cnf_err, pos_err, time_err, "VAL",
                             nfe)
-                if best:
+                if best and lead:
                     log(log_out, "BEST Val loss so far! Saving checkpoint...")
                     save_checkpoint(os.path.join(flags.out, "BEST_time_model.pkl"), params,
                                     state, opt_state, epoch)
-            loss_tracker.plot_cur_loss_curves(flags.out, log_out)
+            if lead:
+                loss_tracker.plot_cur_loss_curves(flags.out, log_out)
 
-        if epoch % flags.save_every == 0:
+        if epoch % flags.save_every == 0 and lead:
             save_checkpoint(os.path.join(flags.out, "time_model_%d.pkl" % epoch), params, state,
                             opt_state, epoch)
 

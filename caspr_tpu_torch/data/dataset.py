@@ -291,15 +291,26 @@ class SequenceLoader:
     number of real rows, which the consumers mask the padding with.
     ``num_shards`` / ``shard_index``: every process computes the same
     global order and takes its ``batch_size / num_shards`` rows of each
-    global batch."""
+    global batch.  ``microbatches``: the global batch is that many
+    contiguous microbatches (a train step's ``accum_steps``), and a shard
+    takes its part of each in turn, so that the shard's batch split into
+    ``microbatches`` equal chunks gives its rows of each global microbatch;
+    at 1 a shard's rows are contiguous."""
 
     def __init__(self, dataset: DynamicPCLDataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, num_workers: int = 2,
-                 pad_last: bool = False, num_shards: int = 1, shard_index: int = 0):
+                 pad_last: bool = False, num_shards: int = 1, shard_index: int = 0,
+                 microbatches: int = 1):
         if drop_last and pad_last:
             raise ValueError("drop_last and pad_last are mutually exclusive")
         if num_shards > 1 and batch_size % num_shards:
             raise ValueError(f"batch_size {batch_size} not divisible by {num_shards} shards")
+        if num_shards > 1 and microbatches > 1:
+            if batch_size % (microbatches * num_shards):
+                raise ValueError(f"batch_size {batch_size} not divisible by {microbatches} "
+                                 f"microbatches x {num_shards} shards")
+            if pad_last:
+                raise ValueError("pad_last takes one microbatch")
         if num_shards > 1 and not (drop_last or pad_last):
             raise ValueError("multi-shard loading needs full-size batches: set "
                              "drop_last or pad_last")
@@ -314,6 +325,7 @@ class SequenceLoader:
         self.num_workers = max(1, num_workers)
         self.num_shards = max(num_shards, 1)
         self.shard_index = shard_index
+        self.microbatches = max(microbatches, 1)
         self.epoch = 0
         self.waits: List[float] = []
 
@@ -352,7 +364,11 @@ class SequenceLoader:
             # real rows are the clipped remainder of the global count
             lbs = self.batch_size // self.num_shards
             local_valids = [min(max(v - self.shard_index * lbs, 0), lbs) for v in valid_counts]
-            batches = [b[self.shard_index * lbs:(self.shard_index + 1) * lbs] for b in batches]
+            mb = self.batch_size // self.microbatches
+            part = mb // self.num_shards
+            start = self.shard_index * part
+            batches = [[pos for i in range(0, len(b), mb) for pos in b[i + start:i + start + part]]
+                       for b in batches]
         self.waits = []
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             futures = [[pool.submit(fetch, p) for p in b] for b in batches[:2]]

@@ -22,6 +22,7 @@ import torch
 
 from ..ops import sample_gaussian, sphere_surface_points, standard_normal_logprob
 from ..ops.odeint import DISCRETE_STEPS, NFESink
+from ..parallel.mesh import all_gather_rows, group_rank_size
 from .cnf import CNFConfig, flow_forward, flow_param_shapes, flow_reverse
 from .latent_ode import LatentODEConfig, dynamics_param_shapes, latent_ode_solve
 from .tpointnet2 import TPointNet2Config, tpointnet2_apply, tpointnet2_param_shapes
@@ -161,14 +162,20 @@ class CaSPRModel:
     def aggregate_and_solve_latent(self, params, z0, times, shared_times: bool = False, *,
                                    adjoint: bool = False, nfe_sink: Optional[NFESink] = None,
                                    ode_backward: str = "adjoint",
-                                   ode_steps: int = DISCRETE_STEPS):
+                                   ode_steps: int = DISCRETE_STEPS, group=None):
         """z0: (B, H), times: (B, T) -> (feats (B, T, H), nfe).
 
         Solves at the sorted flattened times and gathers each (b, t) slot
         back through the inverse permutation; ``shared_times=True`` says
         every row of ``times`` is the same and solves at the T times of the
         first row instead.  ``adjoint=True`` (training) solves for the
-        gradient, by ``ode_backward`` (see ``latent_ode.latent_ode_solve``)."""
+        gradient, by ``ode_backward`` (see ``latent_ode.latent_ode_solve``).
+
+        ``group``: a process group over which the rows are sharded.  The
+        solve's request times are then those of every rank's rows,
+        gathered in rank order, as the one-process solve of the global
+        batch takes them; with ``shared_times`` every rank must pass the
+        global batch's first row."""
         b, t = times.shape
         motion = self.cfg.motion_feat_size
         z_dyn, z_stat = z0[:, :motion], z0[:, motion:]
@@ -177,21 +184,25 @@ class CaSPRModel:
             ranks = torch.argsort(torch.argsort(times[0], stable=True), stable=True)
             ranks = ranks[None, :].expand(b, t)
         else:
+            rank = 0
+            if group is not None:
+                rank = group_rank_size(group)[0]
+                times = all_gather_rows(times, group, "times")
             flat = times.reshape(-1)
             order = torch.argsort(flat, stable=True)
             sorted_t = flat[order]
-            ranks = torch.argsort(order, stable=True).reshape(b, t)
+            ranks = torch.argsort(order, stable=True).reshape(-1, t)[rank * b:(rank + 1) * b]
         pred_z, nfe = latent_ode_solve(params["latent_ode"], self.cfg.latent_ode_config(),
                                        z_dyn, sorted_t, adjoint=adjoint,
                                        nfe_sink=nfe_sink, ode_backward=ode_backward,
-                                       ode_steps=ode_steps)  # (B, T or B*T, motion)
+                                       ode_steps=ode_steps, group=group)  # (B, T or B*T, motion)
         feats = torch.take_along_dim(pred_z, ranks[..., None], dim=1)
         z_rep = z_stat[:, None, :].expand(b, t, z_stat.shape[-1])
         return torch.cat([feats, z_rep], dim=-1), nfe
 
     def forward(self, params, state, x, sample_points, generator=None, *,
                 training: bool = False, e=None, nfe_sink=None, ode_backward: str = "adjoint",
-                ode_steps: int = DISCRETE_STEPS):
+                ode_steps: int = DISCRETE_STEPS, group=None):
         """Forward with unreduced losses, for evaluation or training.
 
         x, sample_points: (B, T, N, 4).  Returns (out, state): out has
@@ -206,7 +217,11 @@ class CaSPRModel:
         where ``nfe_sink``, a dict with optional "latent" and "cnf"
         ``NFESink``s, collects each solver's backward NFE when the gradient
         is taken, or with ``ode_backward="discrete"`` by autograd through at
-        most ``ode_steps`` steps of each solve (the sinks get nothing)."""
+        most ``ode_steps`` steps of each solve (the sinks get nothing).
+        ``group``: a process group over which the batch is sharded, x and
+        sample_points being this rank's rows; every reduction over the batch
+        is then global (``parallel.mesh``) and the outputs are this rank's
+        rows of the one-process run's."""
         cfg = self.cfg
         b, t, n, _ = sample_points.shape
         z0, tnocs_pred = self.encode(params, x)
@@ -221,69 +236,80 @@ class CaSPRModel:
         sink = nfe_sink or {}
         feats, ode_nfe = self.aggregate_and_solve_latent(
             params, z0, sample_points[:, :, 0, 3], adjoint=training, nfe_sink=sink.get("latent"),
-            ode_backward=ode_backward, ode_steps=ode_steps)
+            ode_backward=ode_backward, ode_steps=ode_steps, group=group)
         pts = sample_points[..., :3].reshape(b * t, n, 3)
         y, dlogp, cnf_state, cnf_nfe = flow_forward(
             params["point_cnf"], state["point_cnf"], cfg.cnf_config(), pts,
             feats.reshape(b * t, cfg.latent_feat_size), pts.new_zeros((b * t, n, 1)),
             generator=generator, e=e, training=training, nfe_sink=sink.get("cnf"),
-            ode_backward=ode_backward, ode_steps=ode_steps)
+            ode_backward=ode_backward, ode_steps=ode_steps, group=group)
         log_py = standard_normal_logprob(y).sum(dim=-1)  # (B*T, N)
         out["nll"] = -(log_py - dlogp.reshape(b * t, n)).reshape(b, t, n)
         out["nfe"] = (ode_nfe, cnf_nfe)
         return out, ({**state, "point_cnf": cnf_state} if training else state)
 
     def sample_base(self, generator, batch: int, num_points: int, truncate_std=None,
-                    sample_contours: Optional[Sequence[float]] = None):
+                    sample_contours: Optional[Sequence[float]] = None, group=None):
         """Base samples (batch, num_points, 3): Gaussian (optionally
-        truncated), or points on spheres of the given radii."""
+        truncated), or points on spheres of the given radii.  With a process
+        ``group`` of R ranks the draw is the global batch's, (R * batch,
+        num_points, 3), and this rank keeps its rows."""
+        rank, size = (0, 1) if group is None else group_rank_size(group)
+        rows = slice(rank * batch, (rank + 1) * batch)
         if sample_contours is None:
-            return sample_gaussian(generator, (batch, num_points, 3), truncate_std,
-                                   device=self.device)
+            y = sample_gaussian(generator, (size * batch, num_points, 3), truncate_std,
+                                device=self.device)
+            return y if group is None else y[rows]
         radii = list(sample_contours)
         contours, taken = [], 0
         for i, radius in enumerate(radii):
             cur = num_points - taken if i == len(radii) - 1 else num_points // len(radii)
-            pts = sphere_surface_points(generator, batch * cur, radius, device=self.device)
-            contours.append(pts.reshape(batch, cur, 3))
+            pts = sphere_surface_points(generator, size * batch * cur, radius, device=self.device)
+            contours.append(pts.reshape(size * batch, cur, 3)[rows])
             taken += num_points // len(radii)
         return torch.cat(contours, dim=1)
 
-    def decode_from_samples(self, params, state, z, y):
+    def decode_from_samples(self, params, state, z, y, group=None):
         """Decode given base samples.  z: (B, T, H); y: (B, T, N, 3) ->
-        (logp_y (B, T, N), x (B, T, N, 3), cnf_nfe)."""
+        (logp_y (B, T, N), x (B, T, N, 3), cnf_nfe).  ``group``: a process
+        group over which the rows are sharded."""
         b, t, h = z.shape
         n = y.shape[2]
         y = y.reshape(b * t, n, 3)
         logp_y = standard_normal_logprob(y).sum(dim=-1)
         x, nfe = flow_reverse(params["point_cnf"], state["point_cnf"], self.cfg.cnf_config(),
-                              y, z.reshape(b * t, h))
+                              y, z.reshape(b * t, h), group)
         return logp_y.reshape(b, t, n), x.reshape(b, t, n, 3), nfe
 
     def decode(self, params, state, z, generator, num_points: int = 1024,
                constant_in_time: bool = False, truncate_std: Optional[float] = None,
-               sample_contours: Optional[Sequence[float]] = None):
+               sample_contours: Optional[Sequence[float]] = None, group=None):
         """Sample points at each step from latents z (B, T, H).  Returns
-        (y base samples (B, T, N, 3), logp_y (B, T, N), x (B, T, N, 3), nfe)."""
+        (y base samples (B, T, N, 3), logp_y (B, T, N), x (B, T, N, 3), nfe).
+        ``group``: a process group over which the rows are sharded (the
+        base samples drawn for the global batch, ``sample_base``)."""
         b, t, _ = z.shape
         batch = b if constant_in_time else b * t
-        y = self.sample_base(generator, batch, num_points, truncate_std, sample_contours)
+        y = self.sample_base(generator, batch, num_points, truncate_std, sample_contours, group)
         if constant_in_time:
             y = y[:, None].expand(b, t, num_points, 3)
         y = y.reshape(b, t, num_points, 3)
-        logp_y, x, nfe = self.decode_from_samples(params, state, z, y)
+        logp_y, x, nfe = self.decode_from_samples(params, state, z, y, group)
         return y, logp_y, x, nfe
 
     def reconstruct(self, params, state, x, generator, num_points: int = 1024,
                     constant_in_time: bool = False, timestamps=None,
                     max_timestamp: float = 5.0, truncate_std: Optional[float] = None,
-                    sample_contours: Optional[Sequence[float]] = None, base_samples=None):
+                    sample_contours: Optional[Sequence[float]] = None, base_samples=None,
+                    group=None):
         """Encode -> advect -> decode.
 
         x: (B, T, N, 4) conditioning sequence; timestamps: (T',) decode
         times (default: the input times / max_timestamp).  ``base_samples``
         (B, T', num_points, 3), when given, replaces the sampled base
-        points (and ``generator`` is not used).
+        points (and ``generator`` is not used).  ``group``: a process group
+        over which the batch is sharded, x (and base_samples) being this
+        rank's rows; every rank passes the same ``timestamps``.
         Returns (y, logp_y, x_recon, tnocs_pred, (ode_nfe, cnf_nfe))."""
         b = x.shape[0]
         z0, tnocs_pred = self.encode(params, x)
@@ -292,13 +318,14 @@ class CaSPRModel:
         else:
             all_times = timestamps.reshape(1, -1).expand(b, timestamps.shape[-1])
         z, ode_nfe = self.aggregate_and_solve_latent(params, z0, all_times,
-                                                     shared_times=timestamps is not None)
+                                                     shared_times=timestamps is not None,
+                                                     group=group)
         if base_samples is None:
             y, logp_y, x_rec, cnf_nfe = self.decode(
                 params, state, z, generator, num_points=num_points,
                 constant_in_time=constant_in_time, truncate_std=truncate_std,
-                sample_contours=sample_contours)
+                sample_contours=sample_contours, group=group)
         else:
             y = base_samples
-            logp_y, x_rec, cnf_nfe = self.decode_from_samples(params, state, z, y)
+            logp_y, x_rec, cnf_nfe = self.decode_from_samples(params, state, z, y, group)
         return y, logp_y, x_rec, tnocs_pred, (ode_nfe, cnf_nfe)

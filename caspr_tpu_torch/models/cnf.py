@@ -50,7 +50,8 @@ import torch
 from ..ops import cnf_dynamics, cnf_primal, odeint
 from ..ops.cnf_fused import (context_gb, kernel_takes, pack_weights, reference_dynamics,
                               reference_primal)
-from ..ops.odeint import DISCRETE_STEPS, nfe_add, odeint_train
+from ..ops.odeint import DISCRETE_STEPS, flatten_tree, nfe_add, odeint_train
+from ..parallel.mesh import all_gather_rows, group_rank_size
 
 
 @dataclass(frozen=True)
@@ -147,9 +148,10 @@ def _time_context(t, context):
     return torch.cat([col, context], dim=1)
 
 
-def cnf_block_apply(params, cfg: CNFConfig, x, context):
+def cnf_block_apply(params, cfg: CNFConfig, x, context, group=None):
     """One CNF block, reverse (sampling) direction, on the points alone.
-    x: (BT, N, D), context (BT, zdim) -> (y (BT, N, D), nfe)."""
+    x: (BT, N, D), context (BT, zdim) -> (y (BT, N, D), nfe).  ``group``:
+    the process group over which the rows are sharded (``ops.odeint``)."""
     _check_supported(cfg)
     t_end = _end_time(params, cfg)
     bt, n, d = x.shape
@@ -163,13 +165,14 @@ def cnf_block_apply(params, cfg: CNFConfig, x, context):
         return -odenet_primal(odenet, cfg, tc, x_flat.reshape(bt, n, d)).reshape(bt, -1)
 
     ts = np.array([0.0, t_end], np.float32)
-    xs, nfe = odeint(dynamics, x.reshape(bt, n * d), ts, rtol=cfg.rtol, atol=cfg.atol)
+    xs, nfe = odeint(dynamics, x.reshape(bt, n * d), ts, rtol=cfg.rtol, atol=cfg.atol,
+                     group=group)
     return xs[1].reshape(bt, n, d), nfe
 
 
 def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training: bool = False,
                       nfe_sink=None, ode_backward: str = "adjoint",
-                      ode_steps: int = DISCRETE_STEPS):
+                      ode_steps: int = DISCRETE_STEPS, group=None):
     """One CNF block, forward (likelihood) direction, on (points,
     log-density).  x, e: (BT, N, D); context (BT, zdim); logpx (BT, N, 1)
     -> (y (BT, N, D), logpy (BT, N, 1), nfe).  e is the Hutchinson noise,
@@ -177,7 +180,9 @@ def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training:
     kernel's VJP and the reference).  ``training=True`` solves through
     ``odeint_train``: the adjoint, reporting its backward NFE to
     ``nfe_sink``, or with ``ode_backward="discrete"`` autograd through at
-    most ``ode_steps`` solver steps."""
+    most ``ode_steps`` solver steps.  ``group``: the process group over
+    which the rows are sharded; the ODEnet's parameters and t_end are the
+    adjoint's replicated args, the context its sharded one."""
     _check_supported(cfg)
     bt, n, d = x.shape
 
@@ -196,36 +201,47 @@ def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training:
         t_end = (params["sqrt_end_time"] * params["sqrt_end_time"] if cfg.train_T
                  else torch.tensor(cfg.time_length, dtype=x.dtype, device=x.device))
         ts = torch.stack([torch.zeros_like(t_end), t_end])
+        replicated = [True] * len(flatten_tree(params["odenet"])[0]) + [False, True]
         (xs, lps), nfe = odeint_train(dynamics, state0, ts, (params["odenet"], context, t_end),
                                       rtol=cfg.rtol, atol=cfg.atol, backward=ode_backward,
-                                      num_steps=ode_steps, nfe_sink=nfe_sink)
+                                      num_steps=ode_steps, nfe_sink=nfe_sink, group=group,
+                                      replicated=replicated)
     else:
         ts = np.array([0.0, _end_time(params, cfg)], np.float32)
         args = (params["odenet"], context)
         (xs, lps), nfe = odeint(lambda t, state: dynamics(t, state, args), state0, ts,
-                                rtol=cfg.rtol, atol=cfg.atol)
+                                rtol=cfg.rtol, atol=cfg.atol, group=group)
     return xs[1].reshape(bt, n, d), lps[1].reshape(bt, n, 1), nfe
 
 
-def _mbn_batch_stats(x):
+def _mbn_batch_stats(x, group=None):
     """PointFlow's running-statistics update reads x transposed to
     (N, BT, C) and reshaped to (C, -1) -- not a per-channel reduction; kept
     as the JAX package keeps it (caspr_tpu/models/cnf.py::_mbn_batch_stats).
-    Returns (mean, unbiased variance) over each row."""
+    Returns (mean, unbiased variance) over each row.
+
+    With a process group x is this rank's rows of the global batch; the
+    quirk's rows are point ranges over every rank's rows (cut inside a
+    point where C does not divide N, at a place that depends on the number
+    of ranks), so the global batch is gathered and the one-process
+    statistics taken on it."""
+    if group is not None:
+        x = all_gather_rows(x, group, "mbn")
     xt = x.transpose(0, 1).reshape(x.shape[-1], -1)
     return xt.mean(dim=1), xt.var(dim=1, correction=1)
 
 
-def mbn_forward(params, state, cfg: CNFConfig, x, logpx, training: bool = False):
+def mbn_forward(params, state, cfg: CNFConfig, x, logpx, training: bool = False, group=None):
     """The MovingBatchNorm with its running statistics and its log-det:
     (y, logpx - sum_c(weight_c - log(var_c + eps) / 2), new_state).  It
     normalises with the statistics from before the update; with
     ``training`` the new state moves them bn_decay of the way to the
-    batch's (no gradient) and counts the step, else it is ``state``."""
+    batch's (no gradient; global over ``group``'s ranks) and counts the
+    step, else it is ``state``."""
     new_state = state
     if training:
         with torch.no_grad():
-            bmean, bvar = _mbn_batch_stats(x)
+            bmean, bvar = _mbn_batch_stats(x, group)
             mean, var = state["running_mean"], state["running_var"]
             new_state = {"running_mean": mean - cfg.bn_decay * (mean - bmean),
                          "running_var": var - cfg.bn_decay * (var - bvar),
@@ -242,23 +258,24 @@ def mbn_reverse(params, state, cfg: CNFConfig, x):
     return y * torch.sqrt(state["running_var"] + cfg.bn_eps) + state["running_mean"]
 
 
-def flow_reverse(params, state, cfg: CNFConfig, y, context):
+def flow_reverse(params, state, cfg: CNFConfig, y, context, group=None):
     """Base samples y (BT, N, D) -> points, visiting the chain back to
-    front.  Returns (x, nfe)."""
+    front.  Returns (x, nfe).  ``group``: the process group over which the
+    rows are sharded."""
     kinds = cfg.chain()
     nfe = 0.0
     for i in range(len(kinds) - 1, -1, -1):
         if kinds[i] == "mbn":
             y = mbn_reverse(params[i], state[i], cfg, y)
         else:
-            y, block_nfe = cnf_block_apply(params[i], cfg, y, context)
+            y, block_nfe = cnf_block_apply(params[i], cfg, y, context, group)
             nfe += block_nfe
     return y, nfe
 
 
 def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=None, e=None, *,
                  training: bool = False, nfe_sink=None, ode_backward: str = "adjoint",
-                 ode_steps: int = DISCRETE_STEPS):
+                 ode_steps: int = DISCRETE_STEPS, group=None):
     """Points x (BT, N, D) with log-density channel logpx (BT, N, 1) ->
     (y, logpy, new_state, nfe), visiting the chain front to back.
 
@@ -266,21 +283,33 @@ def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=Non
     ``e``, a tensor for a chain of one block or a sequence with one tensor
     per block, replaces the draw (and ``generator`` is not used).
     ``training`` updates the MovingBatchNorm statistics (new_state) and
-    solves the blocks for their gradient (``cnf_block_forward``)."""
+    solves the blocks for their gradient (``cnf_block_forward``).
+
+    ``group``: a process group over which the rows are sharded, this
+    rank's rows being the rank-th equal part of the global batch.  Each
+    block's noise is then drawn at the global shape (R * BT, N, D) and this
+    rank keeps its rows, so that ranks whose generators are alike hold the
+    one-process noise; ``e`` is this rank's rows."""
     noise = None if e is None else ([e] if isinstance(e, torch.Tensor) else list(e))
     new_state = list(state)
     nfe, block = 0.0, 0
     for i, (kind, p) in enumerate(zip(cfg.chain(), params)):
         if kind == "mbn":
-            x, logpx, new_state[i] = mbn_forward(p, state[i], cfg, x, logpx, training)
+            x, logpx, new_state[i] = mbn_forward(p, state[i], cfg, x, logpx, training, group)
             continue
-        if noise is None:
+        if noise is None and group is None:
             cur = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        elif noise is None:
+            rank, size = group_rank_size(group)
+            cur = torch.randn((size * x.shape[0], *x.shape[1:]), generator=generator,
+                              dtype=x.dtype, device=x.device)[rank * x.shape[0]:
+                                                              (rank + 1) * x.shape[0]]
         else:
             cur = noise[block]
         x, logpx, block_nfe = cnf_block_forward(p, cfg, x, context, logpx, cur,
                                                 training=training, nfe_sink=nfe_sink,
-                                                ode_backward=ode_backward, ode_steps=ode_steps)
+                                                ode_backward=ode_backward, ode_steps=ode_steps,
+                                                group=group)
         nfe = nfe_add(nfe, block_nfe)
         block += 1
     return x, logpx, new_state, nfe

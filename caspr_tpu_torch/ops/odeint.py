@@ -35,6 +35,17 @@ same solve under autograd, bounded in steps, with the +0.5 exhaustion
 marker on its NFE.  ``odeint_train`` is the training solve, one or the
 other by its ``backward`` argument.  ``nfe_add`` and ``nfe_sum`` combine
 NFE counts as the JAX package does (caspr_tpu/ops/odeint.py:440-456).
+
+Data parallelism: each solver takes ``group=``, a process group over which
+the state's batch rows are sharded (``parallel.mesh``).  ``None`` is the
+one-process solver, op for op.  With a group the error norms are global
+(``_norm``: one all-reduce per norm of the sharded leaves' sums of squares
+and counts, still one host read), so every accept, NaN reject and
+initial-step decision, and the end of the loop, is the same on every rank
+and the one-process run's; the ranks stay in lockstep through the
+collectives inside the loop.  The adjoint also sums the VJP of its
+replicated args over the ranks at each augmented evaluation
+(``odeint_adjoint``).
 """
 
 from __future__ import annotations
@@ -43,6 +54,9 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import all_reduce_sum, all_reduce_sum_leaves
 
 F32 = np.float32
 
@@ -98,28 +112,46 @@ def _axpy(y, h, d):
     return tuple(a + float(h) * b for a, b in zip(y, d))
 
 
-def _norm(leaves) -> np.float32:
-    """max over the leaves of sqrt(mean(leaf^2)), in one host read."""
-    rms = [torch.sqrt(torch.mean(torch.square(leaf))) for leaf in leaves]
-    return F32((rms[0] if len(rms) == 1 else torch.stack(rms).max()).item())
+def _norm(leaves, group=None, sharded=None) -> np.float32:
+    """max over the leaves of sqrt(mean(leaf^2)), in one host read.
+
+    With a process group, the leaves flagged in ``sharded`` (default: all)
+    hold this rank's rows of a batch-sharded leaf: their mean is over every
+    rank's rows, from one all-reduce of each such leaf's (sum of squares,
+    element count) in float64.  The others are equal on every rank and enter
+    as they are.  Every rank gets the same value, so every host decision
+    taken on it is the same on every rank."""
+    if group is None:
+        rms = [torch.sqrt(torch.mean(torch.square(leaf))) for leaf in leaves]
+        return F32((rms[0] if len(rms) == 1 else torch.stack(rms).max()).item())
+    sharded = (True,) * len(leaves) if sharded is None else tuple(sharded)
+    split = [leaf for leaf, s in zip(leaves, sharded) if s]
+    rms = [torch.sqrt(torch.mean(torch.square(leaf))) for leaf, s in zip(leaves, sharded) if not s]
+    if split:
+        sums = torch.stack([torch.stack([leaf.double().square().sum(),
+                                         leaf.new_tensor(leaf.numel(), dtype=torch.float64)])
+                            for leaf in split])
+        sums = all_reduce_sum(sums, group, "norm")
+        rms.extend(torch.sqrt(sums[:, 0] / sums[:, 1]).float())
+    return F32(torch.stack(rms).max().item())
 
 
-def _error_ratio(err, y0, y1, rtol, atol) -> np.float32:
+def _error_ratio(err, y0, y1, rtol, atol, group=None, sharded=None) -> np.float32:
     return _norm([e / (atol + rtol * torch.maximum(a.abs(), b.abs()))
-                  for e, a, b in zip(err, y0, y1)])
+                  for e, a, b in zip(err, y0, y1)], group, sharded)
 
 
-def _initial_step(func, t0, y0, f0, rtol, atol) -> np.float32:
+def _initial_step(func, t0, y0, f0, rtol, atol, group=None, sharded=None) -> np.float32:
     """Hairer's starting-step heuristic (one extra function evaluation)."""
     scale = [atol + rtol * y.abs() for y in y0]
-    d0 = _norm([y / s for y, s in zip(y0, scale)])
-    d1 = _norm([f / s for f, s in zip(f0, scale)])
+    d0 = _norm([y / s for y, s in zip(y0, scale)], group, sharded)
+    d1 = _norm([f / s for f, s in zip(f0, scale)], group, sharded)
     if d0 < F32(1e-5) or d1 < F32(1e-5):
         h0 = F32(1e-6)
     else:
         h0 = F32(0.01) * d0 / d1
     f1 = func(t0 + h0, _axpy(y0, h0, f0))
-    d2 = _norm([(a - b) / s for a, b, s in zip(f1, f0, scale)]) / h0
+    d2 = _norm([(a - b) / s for a, b, s in zip(f1, f0, scale)], group, sharded) / h0
     dmax = max(d1, d2)
     if dmax <= F32(1e-15):
         h1 = max(F32(1e-6), h0 * F32(1e-3))
@@ -153,13 +185,14 @@ def _dense_output(y0, y1, y_mid, f0, f1, h, theta):
     return y0 + th * (hf0 + th * (c2 + th * (c3 + th * c4)))
 
 
-def _solve(func, y0, ts, rtol, atol, max_steps: int):
+def _solve(func, y0, ts, rtol, atol, max_steps: int, group=None, sharded=None):
     """The dopri5 loop of ``odeint`` and ``odeint_discrete``: (ys, nfe,
     whether every request time was reached).  The step controller (the
     initial step, the error ratio) runs without autograd; the stages and
     the dense output run under whatever grad mode the caller set.  Where
     grad is on and ts requires it, the dense output's theta = (ts_i - t) /
-    h is a tensor, so the request times get their gradient through it."""
+    h is a tensor, so the request times get their gradient through it.
+    ``group`` and ``sharded`` go to the error norms (``_norm``)."""
     single = isinstance(y0, torch.Tensor)
     if single:
         y0, leaf_func = (y0,), func
@@ -175,7 +208,7 @@ def _solve(func, y0, ts, rtol, atol, max_steps: int):
     t, t_final = ts[0], ts[-1]
     f = func(t, y0)
     with torch.no_grad():
-        h = _initial_step(func, t, y0, f, rtol, atol)
+        h = _initial_step(func, t, y0, f, rtol, atol, group, sharded)
     y = y0
     filled = ts <= t
     outs = [y0 if done else None for done in filled]
@@ -187,7 +220,7 @@ def _solve(func, y0, ts, rtol, atol, max_steps: int):
         y1 = _axpy(y, h, _weighted_sum(_B, ks))
         with torch.no_grad():
             err = [float(h) * d for d in _weighted_sum(_B_ERR, ks)]
-            ratio = _error_ratio(err, y, y1, rtol, atol)
+            ratio = _error_ratio(err, y, y1, rtol, atol, group, sharded)
         accept = bool(ratio <= F32(1.0))
         t1 = t + h
         if accept:
@@ -215,18 +248,24 @@ def _solve(func, y0, ts, rtol, atol, max_steps: int):
     return (stacked[0] if single else stacked), nfe, bool(filled.all())
 
 
-def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000):
+def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000, group=None):
     """Integrate dy/dt = func(t, y) from ts[0] and report y at every ts.
 
     y0: a tensor, or a tuple of tensors integrated together.  ts:
     non-decreasing float32 request times (1-D, any array type), ts[0] the
     initial time.  Returns (ys, nfe): ys (len(ts), *y0.shape), or a tuple
-    of such tensors, one per leaf."""
-    ys, nfe, _ = _solve(func, y0, ts, rtol, atol, max_steps)
+    of such tensors, one per leaf.
+
+    ``group``, a process group over which the state's batch is sharded,
+    makes every error norm global (``_norm``): each rank then takes the
+    steps of the one-process solve of the whole batch.  Every leaf of y0
+    is this rank's rows.  The ranks must call with equal ts."""
+    ys, nfe, _ = _solve(func, y0, ts, rtol, atol, max_steps, group)
     return ys, nfe
 
 
-def odeint_discrete(func, y0, ts, *, rtol: float, atol: float, num_steps: int = DISCRETE_STEPS):
+def odeint_discrete(func, y0, ts, *, rtol: float, atol: float, num_steps: int = DISCRETE_STEPS,
+                    group=None):
     """``odeint`` differentiable by autograd through the solver
     (discretise-then-optimise), the counterpart of caspr_tpu/ops/odeint.py::
     odeint_discrete: gradients exact for the discrete solution reach y0,
@@ -238,8 +277,9 @@ def odeint_discrete(func, y0, ts, *, rtol: float, atol: float, num_steps: int = 
     every request time is reached, those outputs take the final state and
     the returned NFE carries a +0.5 marker (``nfe_exhausted``).  The graph
     holds what each evaluation saves for its backward; the controller's
-    evaluations (the step-size probe, the error norms) are not in it."""
-    ys, nfe, reached = _solve(func, y0, ts, rtol, atol, max(int(num_steps), 1))
+    evaluations (the step-size probe, the error norms) are not in it.
+    ``group`` is ``odeint``'s."""
+    ys, nfe, reached = _solve(func, y0, ts, rtol, atol, max(int(num_steps), 1), group)
     return ys, nfe + (0.0 if reached else 0.5)
 
 
@@ -312,7 +352,7 @@ class _Adjoint(torch.autograd.Function):
         args = spec["rebuild"](list(arg_leaves))
         ys, spec["nfe"] = odeint(lambda t, y: spec["func"](t, y, args), y0, ts,
                                  rtol=spec["rtol"], atol=spec["atol"],
-                                 max_steps=spec["max_steps"])
+                                 max_steps=spec["max_steps"], group=spec["group"])
         ctx.spec = spec
         ctx.save_for_backward(ts, *ys, *arg_leaves)
         return ys
@@ -323,7 +363,8 @@ class _Adjoint(torch.autograd.Function):
         num_y = spec["num_y"]
         saved = ctx.saved_tensors
         ts, ys, arg_leaves = saved[0], saved[1:1 + num_y], [a.detach() for a in saved[1 + num_y:]]
-        func, rebuild = spec["func"], spec["rebuild"]
+        func, rebuild, group, replicated = (spec["func"], spec["rebuild"], spec["group"],
+                                            spec["replicated"])
         g_ys = [torch.zeros_like(y) if g is None else g for g, y in zip(g_ys, ys)]
         times = ts.detach().cpu().numpy().astype(F32)
         num_t = len(times)
@@ -359,11 +400,16 @@ class _Adjoint(torch.autograd.Function):
                         grad_outputs=[ao for _, ao in pairs], allow_unused=True,
                     ) if pairs else (None,) * (num_y + len(args))
                 vjp = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, (*y, *args))]
+                if group is not None:
+                    vjp[num_y:] = _sum_replicated(vjp[num_y:], replicated, group)
                 return (*(-fo.detach() for fo in f), *vjp)
 
             span = times[i] - times[i - 1]
-            aug, aug_nfe = odeint(augmented, (*y_i, *a_y, *a_args), np.array([0.0, span], F32),
-                                  rtol=spec["rtol"], atol=spec["atol"], max_steps=spec["max_steps"])
+            # the replicated leaves' a_args is equal on every rank: it
+            # enters the global norm unreduced
+            aug, aug_nfe, _ = _solve(augmented, (*y_i, *a_y, *a_args), np.array([0.0, span], F32),
+                                     spec["rtol"], spec["atol"], spec["max_steps"], group,
+                                     (True,) * (2 * num_y) + tuple(not r for r in replicated))
             a_at_lo = tuple(leaf[1] for leaf in aug[num_y:2 * num_y])
             a_args = tuple(leaf[1] for leaf in aug[2 * num_y:])
             nfe_bwd += aug_nfe + 1.0  # every augmented evaluation calls func once; +1 for f_i
@@ -373,11 +419,24 @@ class _Adjoint(torch.autograd.Function):
         grad_ts = torch.stack([dldt0, *reversed(dldts)]).to(ts)
         if spec["sink"] is not None:
             spec["sink"].value += nfe_bwd + 1.0  # +1: f(t0, y0)
+        if group is not None and dist.get_rank(group) != 0:
+            # a replicated leaf's a_args is its gradient summed over ranks
+            # already: it leaves from rank 0 alone, so that the caller's sum
+            # of every gradient over the ranks adds it once, and exactly
+            a_args = tuple(torch.zeros_like(a) if r else a for a, r in zip(a_args, replicated))
         return (None, grad_ts, *a_y, *a_args)
 
 
+def _sum_replicated(vjp, replicated, group):
+    """The VJP leaves of the replicated args summed over the ranks of
+    ``group`` (one all-reduce of one flat buffer); the others as they are."""
+    summed = iter(all_reduce_sum_leaves([v for v, r in zip(vjp, replicated) if r], group,
+                                        "adjoint_vjp") if any(replicated) else ())
+    return [next(summed) if r else v for v, r in zip(vjp, replicated)]
+
+
 def odeint_adjoint(func, y0, ts, args=(), *, rtol: float, atol: float, max_steps: int = 50_000,
-                   nfe_sink: NFESink | None = None):
+                   nfe_sink: NFESink | None = None, group=None, replicated=None):
     """``odeint`` with gradients by the continuous adjoint.
 
     func(t, y, args) -> dy/dt, with y a tensor or a tuple of tensors (as
@@ -394,7 +453,20 @@ def odeint_adjoint(func, y0, ts, args=(), *, rtol: float, atol: float, max_steps
     the output cotangent at each request time, gives dL/dts[i] = g_i .
     f(ts[i]) and dL/dts[0] = -a(ts[0]) . f(ts[0]), and adds its NFE
     (sum over the intervals of the augmented solve's NFE + 1, + 1) to
-    ``nfe_sink.value``."""
+    ``nfe_sink.value``.
+
+    ``group``: a process group over which y0's batch is sharded.  Both
+    solves then take the one-process steps (``odeint``), and the caller
+    says which tensor leaves of args are ``replicated`` (equal on every
+    rank, such as parameters): a sequence of bools, one per leaf in
+    ``flatten_tree`` order, or one bool for all.  At each augmented
+    evaluation the VJP of the replicated leaves is summed over the ranks,
+    so that their a_args is the global value on every rank, as in the JAX
+    package, and enters the error norm so; the other arg leaves (this
+    rank's rows, such as the CNF's context) stay local and enter the norm
+    reduced.  The gradient of a replicated leaf is returned on the group's
+    rank 0, and zero on the others: a sum over the ranks of every gradient
+    then counts it once.  dL/dts is this rank's part of the sum over rows."""
     single = isinstance(y0, torch.Tensor)
     y_leaves = (y0,) if single else tuple(y0)
     arg_leaves, rebuild = flatten_tree(args)
@@ -403,21 +475,36 @@ def odeint_adjoint(func, y0, ts, args=(), *, rtol: float, atol: float, max_steps
         func = lambda t, y, a: (leaf_func(t, y[0], a),)
     if not isinstance(ts, torch.Tensor):
         ts = torch.as_tensor(np.asarray(ts, dtype=F32))
+    if group is None:
+        replicated = (False,) * len(arg_leaves)
+    elif replicated is None:
+        raise ValueError("a sharded adjoint needs `replicated`: which arg leaves every rank "
+                         "holds alike")
+    elif isinstance(replicated, bool):
+        replicated = (replicated,) * len(arg_leaves)
+    replicated = tuple(bool(r) for r in replicated)
+    if len(replicated) != len(arg_leaves):
+        raise ValueError(f"`replicated` has {len(replicated)} flags for {len(arg_leaves)} leaves")
     spec = {"func": func, "rebuild": rebuild, "num_y": len(y_leaves), "rtol": rtol,
-            "atol": atol, "max_steps": max_steps, "sink": nfe_sink}
+            "atol": atol, "max_steps": max_steps, "sink": nfe_sink, "group": group,
+            "replicated": replicated}
     ys = _Adjoint.apply(spec, ts, *y_leaves, *arg_leaves)
     return (ys[0] if single else tuple(ys)), spec["nfe"]
 
 
 def odeint_train(func, y0, ts, args=(), *, rtol: float, atol: float, backward: str = "adjoint",
-                 num_steps: int = DISCRETE_STEPS, nfe_sink: NFESink | None = None):
+                 num_steps: int = DISCRETE_STEPS, nfe_sink: NFESink | None = None, group=None,
+                 replicated=None):
     """The training solve of func(t, y, args): ``odeint_adjoint`` with
     ``backward="adjoint"`` (backward NFE to ``nfe_sink``), or
     ``odeint_discrete`` (at most ``num_steps`` steps; ``nfe_sink`` gets
-    nothing: its gradient is autograd's, and the NFE is forward-only)."""
+    nothing: its gradient is autograd's, and the NFE is forward-only).
+    ``group`` and ``replicated`` are ``odeint_adjoint``'s; with "discrete"
+    every gradient is this rank's part of the sum over rows."""
     if backward == "adjoint":
-        return odeint_adjoint(func, y0, ts, args, rtol=rtol, atol=atol, nfe_sink=nfe_sink)
+        return odeint_adjoint(func, y0, ts, args, rtol=rtol, atol=atol, nfe_sink=nfe_sink,
+                              group=group, replicated=replicated)
     if backward == "discrete":
         return odeint_discrete(lambda t, y: func(t, y, args), y0, ts, rtol=rtol, atol=atol,
-                               num_steps=num_steps)
+                               num_steps=num_steps, group=group)
     raise ValueError(f"ODE backward {backward!r}, expected one of {ODE_BACKWARDS}")

@@ -9,6 +9,18 @@ Adam is torch.optim.Adam over the leaves of the parameter tree, whose L2
 weight decay (added to the gradient before the moments) and bias
 correction are those of the JAX package's optax chain.  Parameters are
 updated in place.
+
+Data parallelism (``mesh=``, a ``parallel.make_mesh`` mesh): each rank
+(process) holds its equal share of every global batch.  Its loss is its
+share of the global-batch loss, (its rows' mean) / R, so that the sum over
+the ranks is the one-process loss; the model makes its reductions over the
+batch global (``CaSPRModel.forward(group=)``), and the gradient is summed
+over the ranks in one flat buffer before the optimizer's step, the
+counterpart of the psum XLA inserts.  No DistributedDataParallel wrapper:
+the parameters are a tensor tree, and the adjoint's replicated leaves
+arrive summed already (on rank 0 alone, ``ops.odeint.odeint_adjoint``).
+Every rank then takes the same step, and its parameters stay bit-equal to
+the others'.  The logged scalars are the global values.
 """
 
 from __future__ import annotations
@@ -20,6 +32,8 @@ import numpy as np
 import torch
 
 from ..ops.odeint import DISCRETE_STEPS, ODE_BACKWARDS, NFESink, flatten_tree, nfe_add, nfe_sum
+from ..parallel.mesh import (all_gather_rows, all_reduce_sum, all_reduce_sum_leaves, batch_group,
+                             group_rank_size)
 from .trackers import log, print_stats
 
 
@@ -57,21 +71,29 @@ def compute_losses(out, cnf_loss_weight, tnocs_loss_weight):
     return cnf_loss + tnocs_loss, cnf_loss, tnocs_loss
 
 
-def make_eval_step(model, cnf_loss_weight, tnocs_loss_weight):
+def make_eval_step(model, cnf_loss_weight, tnocs_loss_weight, mesh=None):
     """Returns eval(params, mbn_state, x, target, generator, e=None) -> metrics.
 
     Errors come back unreduced, and the loss also per batch item (the batch
     mean of ``loss_per_item`` is ``compute_losses``'s scalar), so that the
     caller can mask loader padding out of every statistic.  ``e`` injects
     the CNF's Hutchinson noise instead of drawing it from ``generator``.
-    x and target may be numpy arrays: they go to the model's device."""
+    x and target may be numpy arrays: they go to the model's device.  With
+    a ``mesh`` x, target and e are this rank's rows, and so are the
+    unreduced errors (``run_one_epoch`` gathers them); the scalar losses are
+    the global batch's."""
+    group = None if mesh is None else batch_group(mesh)
 
     @torch.no_grad()
     def step(params, mbn_state, x, target, generator=None, e=None):
         x = torch.as_tensor(x, device=model.device)
         target = torch.as_tensor(target, device=model.device)
-        out, _ = model.forward(params, mbn_state, x, target, generator, training=False, e=e)
+        out, _ = model.forward(params, mbn_state, x, target, generator, training=False, e=e,
+                               group=group)
         loss, cnf_loss, tnocs_loss = compute_losses(out, cnf_loss_weight, tnocs_loss_weight)
+        if group is not None:
+            shares = torch.stack([loss, cnf_loss, tnocs_loss]) / group_rank_size(group)[1]
+            loss, cnf_loss, tnocs_loss = all_reduce_sum(shares, group, "metrics")
         b, t, n, _ = target.shape
         nll = out["nll"] if "nll" in out else target.new_zeros((b, t, n))
         tn = out["tnocs_loss"] if "tnocs_loss" in out else target.new_zeros((b, t, n, 4))
@@ -102,7 +124,7 @@ def _split_noise(e, parts: int, i: int):
 
 
 def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: int = 1,
-                    ode_backward: str = "adjoint", ode_steps: int = DISCRETE_STEPS):
+                    ode_backward: str = "adjoint", ode_steps: int = DISCRETE_STEPS, mesh=None):
     """Returns step(params, opt_state, mbn_state, x, target, generator=None,
     e=None) -> (params, opt_state, new_mbn_state, metrics), the counterpart
     of the JAX package's train step: CaSPRModel.forward(training=True), the
@@ -126,29 +148,41 @@ def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: 
     left) and makes one update; losses are the
     microbatch means, NFE their sums.  The CNF's Hutchinson noise comes from
     ``generator``, or from ``e`` (the whole batch's, split with it).  x and
-    target may be numpy arrays: they go to the model's device."""
+    target may be numpy arrays: they go to the model's device.
+
+    With a ``mesh`` (module docstring) x, target and e are this rank's
+    rows.  With ``accum_steps > 1`` they must be this rank's rows of each
+    global microbatch in turn, as ``SequenceLoader(microbatches=)`` gives
+    them, so that microbatch i is the one-process step's microbatch i.  The
+    NFE must agree on every rank (a RuntimeError otherwise)."""
     del tx
     if ode_backward not in ODE_BACKWARDS:
         raise ValueError(f"ode_backward {ode_backward!r}, expected one of {ODE_BACKWARDS}")
+    group = None if mesh is None else batch_group(mesh)
+    ranks = 1 if group is None else group_rank_size(group)[1]
 
     def grads_of(params, leaves, mbn_state, x, target, generator, e):
         sinks = {"latent": NFESink(), "cnf": NFESink()}
         with torch.enable_grad():
             out, new_state = model.forward(params, mbn_state, x, target, generator,
                                            training=True, e=e, nfe_sink=sinks,
-                                           ode_backward=ode_backward, ode_steps=ode_steps)
+                                           ode_backward=ode_backward, ode_steps=ode_steps,
+                                           group=group)
             loss, cnf_loss, tnocs_loss = compute_losses(out, cnf_loss_weight, tnocs_loss_weight)
+            if group is not None:  # this rank's share of the global-batch loss
+                loss, cnf_loss, tnocs_loss = loss / ranks, cnf_loss / ranks, tnocs_loss / ranks
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
         scalars = {"loss": loss.item(), "cnf_loss": cnf_loss.item(),
                    "tnocs_loss": tnocs_loss.item(),
-                   "mean_nll": out["nll"].mean().item() if "nll" in out else 0.0,
+                   "mean_nll": out["nll"].mean().item() / ranks if "nll" in out else 0.0,
                    "nfe_forward": tuple(float(v) for v in out["nfe"]),
                    "nfe_backward": (sinks["latent"].value, sinks["cnf"].value)}
         if "tnocs_loss" in out:
             per_point = out["tnocs_loss"].detach()
-            scalars["tnocs_pos_err"] = float(torch.linalg.vector_norm(per_point[..., :3], dim=-1).mean())
-            scalars["tnocs_time_err"] = float(per_point[..., 3].mean())
+            pos_err = torch.linalg.vector_norm(per_point[..., :3], dim=-1).mean()
+            scalars["tnocs_pos_err"] = float(pos_err) / ranks
+            scalars["tnocs_time_err"] = float(per_point[..., 3].mean()) / ranks
         return grads, new_state, scalars
 
     def step(params, opt_state, mbn_state, x, target, generator=None, e=None):
@@ -170,6 +204,9 @@ def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: 
         m = {k: float(np.mean([p[k] for p in parts])) for k in parts[0] if not k.startswith("nfe")}
         nfe_fwd = tuple(nfe_sum([p["nfe_forward"][j] for p in parts]) for j in range(2))
         nfe_bwd = tuple(nfe_sum([p["nfe_backward"][j] for p in parts]) for j in range(2))
+        if group is not None:
+            grads = all_reduce_sum_leaves(grads, group, "grad")
+            m = _global_scalars(m, nfe_fwd + nfe_bwd, group, model.device)
         for leaf, g in zip(leaves, grads):
             leaf.grad = g
         opt_state.step()
@@ -185,8 +222,36 @@ def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: 
     return step
 
 
+def _global_scalars(m, nfe, group, device):
+    """The ranks' shares of the logged scalars summed in rank order (one
+    all-gather with the NFE counts), after checking that every rank counted
+    the same NFE."""
+    keys = sorted(m)
+    rows = all_gather_rows(torch.tensor([[m[k] for k in keys] + list(nfe)], dtype=torch.float64,
+                                        device=device), group, "metrics").cpu().numpy()
+    if not (rows[:, len(keys):] == rows[0, len(keys):]).all():
+        raise RuntimeError(f"the ranks counted different NFE (forward, backward): "
+                           f"{rows[:, len(keys):].tolist()}")
+    return {k: float(rows[:, i].sum()) for i, k in enumerate(keys)}
+
+
+def _gather_eval_rows(metrics, group):
+    """The per-row outputs of an eval step of every rank, in global row
+    order (one all-gather)."""
+    keys = ("loss_per_item", "nll", "tnocs_pos_err", "tnocs_time_err")
+    b = metrics["loss_per_item"].shape[0]
+    flat = all_gather_rows(torch.cat([metrics[k].reshape(b, -1) for k in keys], dim=1), group,
+                           "eval")
+    out, at = {}, 0
+    for k in keys:
+        width = metrics[k][0].numel()
+        out[k] = flat[:, at:at + width].reshape(-1, *metrics[k].shape[1:])
+        at += width
+    return out
+
+
 def run_one_epoch(step_fn, params, opt_state, mbn_state, loader, generator, epoch, loss_tracker,
-                  log_out, mode="train", print_stats_every=10):
+                  log_out, mode="train", print_stats_every=10, mesh=None):
     """One pass over ``loader``; batches are dicts of numpy arrays
     ("input", "target", optionally "valid": the number of real rows of a
     padded batch).  Returns (params, opt_state, mbn_state).
@@ -198,7 +263,14 @@ def run_one_epoch(step_fn, params, opt_state, mbn_state, loader, generator, epoc
     exhausted step bound.  Any other mode (which labels the log lines):
     ``step_fn`` is an eval step and ``loss_tracker`` a ``TestStatTracker``;
     padded rows are masked out of every statistic, and the mean of the
-    per-item losses over the real rows is the unpadded batch loss."""
+    per-item losses over the real rows is the unpadded batch loss.
+
+    ``mesh``: the steps were made with it, and the loader gives this rank's
+    rows (``SequenceLoader(num_shards=, shard_index=)``).  An eval step's
+    rows are gathered from every rank in global row order and the padding
+    masked by the batch's "valid_global", so that every rank's tracker
+    holds the one-process run's statistics."""
+    group = None if mesh is None else batch_group(mesh)
     num_batches = len(loader)
     if mode == "train":
         batch_losses = []
@@ -221,7 +293,11 @@ def run_one_epoch(step_fn, params, opt_state, mbn_state, loader, generator, epoc
         return params, opt_state, mbn_state
     for i, batch in enumerate(loader):
         metrics = step_fn(params, mbn_state, batch["input"], batch["target"], generator)
-        valid = batch.get("valid", len(batch["input"]))
+        if group is None:
+            valid = batch.get("valid", len(batch["input"]))
+        else:
+            metrics = {**metrics, **_gather_eval_rows(metrics, group)}
+            valid = batch.get("valid_global", len(metrics["loss_per_item"]))
         host = {k: metrics[k][:valid].cpu().numpy()
                 for k in ("loss_per_item", "nll", "tnocs_pos_err", "tnocs_time_err")}
         loss_tracker.record_stats(

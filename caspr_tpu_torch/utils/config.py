@@ -1,9 +1,9 @@
 """The command-line option groups of the train, test and viz scripts (the
 port's own copy of caspr_tpu/utils/config.py): the same option strings,
 dests, defaults, types, nargs and choices, so every documented recipe
-parses unchanged.  Help texts say what a flag means on the port; the
-multi-device flags, whose slice is not ported yet, parse and are refused by
-``refuse_unported``.
+parses unchanged.  Help texts say what a flag means on the port;
+``--sp-size`` other than 1, whose slice is not ported, parses and is
+refused by ``refuse_unported``.
 """
 
 from __future__ import annotations
@@ -58,13 +58,15 @@ def get_general_options(parser: argparse.ArgumentParser):
 
 def get_train_options(parser: argparse.ArgumentParser):
     parser.add_argument("--parallel", dest="use_parallel", action="store_true",
-                        help="Data parallelism over the local devices "
-                             "(not ported yet: raises).")
+                        help="Data parallelism, one process per card: start "
+                             "it with torchrun --nproc_per_node <cards>; each "
+                             "rank trains on its share of every batch and the "
+                             "gradients are summed over the ranks.")
     parser.set_defaults(use_parallel=False)
     parser.add_argument("--sp-size", type=int, default=1,
                         help="Point-parallel mesh axis: shard each cloud's "
-                             "points over this many devices (not ported "
-                             "yet: any value but 1 raises).")
+                             "points over this many devices (not ported: "
+                             "any value but 1 raises).")
     parser.add_argument("--epochs", type=int, default=200)
     parser.add_argument("--val-every", type=int, default=3)
     parser.add_argument("--save-every", type=int, default=10)
@@ -78,8 +80,8 @@ def get_train_options(parser: argparse.ArgumentParser):
                         help="Seed of the weights' initialisation, the data "
                              "order and subsampling, and the model's noise.")
     parser.add_argument("--multihost", dest="multihost", action="store_true",
-                        help="Multi-process training (not ported yet: "
-                             "raises).")
+                        help="With --parallel, train over several nodes "
+                             "(torchrun --nnodes): the (dcn, dp) mesh.")
     parser.set_defaults(multihost=False)
     parser.add_argument("--grad-accum", type=int, default=1,
                         help="Gradient-accumulation microbatches per "
@@ -100,12 +102,13 @@ def get_train_options(parser: argparse.ArgumentParser):
 def get_test_options(parser: argparse.ArgumentParser):
     parser.add_argument("--log", type=str, default="test_log.txt")
     parser.add_argument("--parallel", dest="use_parallel", action="store_true",
-                        help="Shard eval batches across the local devices "
-                             "(not ported yet: raises).")
+                        help="Shard eval batches over the ranks, one process "
+                             "per card started by torchrun; rank 0 writes "
+                             "the logs and artifacts.")
     parser.set_defaults(use_parallel=False)
     parser.add_argument("--sp-size", type=int, default=1,
-                        help="Point-parallel mesh axis for eval (not ported "
-                             "yet: any value but 1 raises).")
+                        help="Point-parallel mesh axis for eval (not ported: "
+                             "any value but 1 raises).")
     parser.add_argument("--shuffle-test", dest="shuffle_test", action="store_true")
     parser.set_defaults(shuffle_test=False)
     parser.add_argument("--eval-test", dest="eval_full_test", action="store_true")
@@ -188,18 +191,38 @@ def apply_runtime_flags(flags):
 
 
 def refuse_unported(flags):
-    """Raise NotImplementedError for a flag whose slice is not ported yet."""
-    wanted = []
-    if getattr(flags, "use_parallel", False):
-        wanted.append("--parallel")
-    if getattr(flags, "multihost", False):
-        wanted.append("--multihost")
+    """Raise NotImplementedError for --sp-size other than 1, whose slice is
+    not ported, and ValueError for --multihost without --parallel."""
+    from ..parallel.mesh import SP_NOT_PORTED
+
     if getattr(flags, "sp_size", 1) != 1:
-        wanted.append(f"--sp-size {flags.sp_size}")
-    if wanted:
-        raise NotImplementedError(
-            f"{', '.join(wanted)}: multi-device runs are not ported yet "
-            "(ROADMAP Queue 1 item 10.6)")
+        raise NotImplementedError(f"--sp-size {flags.sp_size}: {SP_NOT_PORTED}")
+    if getattr(flags, "multihost", False) and not flags.use_parallel:
+        # sharded loaders without the gradient sum would train divergent
+        # models: refuse early, as the JAX package's train.py does
+        raise ValueError("--multihost requires --parallel")
+
+
+def parallel_setup(flags, device, log_name: str):
+    """--parallel: join the process group (``parallel.init_distributed``,
+    one process per card, the card of index LOCAL_RANK unless ``device``
+    names one) and make the mesh; the train CLI over several nodes needs
+    --multihost.  Returns (mesh or None, the device, this rank, the world
+    size, the log file's name: ``log_name`` on rank 0, else
+    ``rank<i>_<log_name>``)."""
+    if not flags.use_parallel:
+        return None, device, 0, 1, log_name
+    import torch.distributed as dist
+
+    from ..parallel import init_distributed, make_mesh
+
+    device = init_distributed(device=device)
+    mesh = make_mesh()
+    if mesh.ndim > 1 and not getattr(flags, "multihost", True):
+        raise ValueError(f"--parallel over {mesh.mesh.shape[0]} nodes needs --multihost")
+    rank = dist.get_rank()
+    return mesh, device, rank, dist.get_world_size(), (
+        log_name if rank == 0 else f"rank{rank}_{log_name}")
 
 
 def ode_steps_from_env() -> int:

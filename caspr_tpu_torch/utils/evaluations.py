@@ -11,8 +11,15 @@ and, for the pose protocol, "pose" (B, 10, 4, 4).  Batches go to the
 model's device; statistics are taken on the host.  ``show=True`` exports
 each sequence's pose scene (``viz.export_pcl_seq``) beside the log.
 
-Not ported: evaluation sharded over several devices (the ``mesh``
-argument).
+``mesh`` (a ``parallel.make_mesh`` mesh) shards the evaluation over the
+ranks: the loader gives each rank its rows (``SequenceLoader(num_shards=,
+shard_index=, pad_last=True)``, with "valid_global", the real rows of the
+global batch), each rank evaluates its rows, and the per-row results and
+sequence ids are gathered in global row order.  Every rank then holds the
+one-process run's statistics; rank 0 alone logs them and writes the
+``.txt`` / ``.npz`` / ``.csv``.  The pose protocol's RANSAC runs on each
+rank over its rows, seeded by their global index, and each rank exports
+its own sequences' scenes.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import torch
 
 from ..models.caspr import resolve_device
 from ..ops import approx_match_emd, chamfer_distance
+from ..parallel.mesh import (all_gather_objects, all_gather_rows, batch_group, broadcast,
+                             group_rank_size, is_lead, shard_batch)
 from ..train.trackers import log
 from ..viz.export import export_pcl_seq, log_once
 from .ransac import ransac_rigid_registration
@@ -66,12 +75,29 @@ def _check_protocol(t, n):
         raise ValueError(f"Test protocol requires {PROTOCOL_NUM_PTS} points, got {n}")
 
 
-def _batch_ids(batch, model_ids, seq_ids):
-    """Record the real rows' ids; returns the number of real rows."""
-    valid = batch.get("valid", len(batch["input"]))
-    model_ids.extend(batch["model_id"][:valid])
-    seq_ids.extend(batch["seq_id"][:valid])
+def _batch_ids(batch, model_ids, seq_ids, group=None):
+    """Record the real rows' ids (of the global batch, gathered, with a
+    process group); returns the number of real rows."""
+    if group is None:
+        valid = batch.get("valid", len(batch["input"]))
+        model_ids.extend(batch["model_id"][:valid])
+        seq_ids.extend(batch["seq_id"][:valid])
+        return valid
+    parts = all_gather_objects((list(batch["model_id"]), list(batch["seq_id"])), group, "ids")
+    models = [m for part in parts for m in part[0]]
+    valid = batch.get("valid_global", len(models))
+    model_ids.extend(models[:valid])
+    seq_ids.extend([q for part in parts for q in part[1]][:valid])
     return valid
+
+
+def _rows_of(x, group):
+    """The rows of every rank in global row order (a tensor), or x."""
+    return x if group is None else all_gather_rows(x, group, "eval")
+
+
+def _quiet(*_args):
+    """The stand-in of print and log on a rank that does not write."""
 
 
 def _per_seq(values, num_seqs, steps):
@@ -84,20 +110,25 @@ def _csv_writer(csvfile):
 
 @torch.no_grad()
 def test_shape_recon(model, params, state, loader, log_out, observed_steps: Sequence[int],
-                     unobserved_steps: Sequence[int], generator=None, base_samples=None):
+                     unobserved_steps: Sequence[int], generator=None, base_samples=None,
+                     mesh=None):
     """Shape reconstruction: encode the observed steps, decode all ten, and
     score the observed and the unobserved steps apart.
 
     ``generator`` draws the decoder's base samples (default: seed 0 on the
     model's device); ``base_samples``, an iterable of one (B, 10, 2048, 3)
-    array per batch, replaces the draw."""
+    array per batch (the global batch's, with a ``mesh``), replaces the
+    draw.  The decode times are the first row's of the (global) batch."""
+    group = None if mesh is None else batch_group(mesh)
+    lead = is_lead(group)
+    say, show = (log, print) if lead else (_quiet, _quiet)
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
     base_samples = None if base_samples is None else iter(base_samples)
     observed_steps, unobserved_steps = list(observed_steps), list(unobserved_steps)
     use_unobserved = len(unobserved_steps) > 0
-    log(log_out, "Observed steps [%s]" % ",".join(str(i) for i in observed_steps))
-    log(log_out, "Unobserved steps [%s]" % ",".join(str(i) for i in unobserved_steps))
+    say(log_out, "Observed steps [%s]" % ",".join(str(i) for i in observed_steps))
+    say(log_out, "Unobserved steps [%s]" % ",".join(str(i) for i in unobserved_steps))
 
     nfe_stats = []
     model_ids, seq_ids = [], []
@@ -111,15 +142,20 @@ def test_shape_recon(model, params, state, loader, log_out, observed_steps: Sequ
         pcl_in = torch.as_tensor(batch["input"], device=model.device)
         nocs_out = torch.as_tensor(batch["target"], device=model.device)
         b, t, n, _ = pcl_in.shape
-        valid = _batch_ids(batch, model_ids, seq_ids)
+        valid = _batch_ids(batch, model_ids, seq_ids, group)
         _check_protocol(t, n)
         base = None
         if base_samples is not None:
-            base = torch.as_tensor(next(base_samples), device=model.device)
+            base = next(base_samples)
+            base = torch.as_tensor(base if mesh is None else shard_batch(mesh, base),
+                                   device=model.device)
+        timestamps = nocs_out[0, :, 0, 3]
+        if group is not None:
+            timestamps = broadcast(timestamps.contiguous(), group, "eval")
         _, _, pred, _, nfe = model.reconstruct(
             params, state, pcl_in[:, observed_steps].contiguous(), generator,
-            num_points=PROTOCOL_NUM_PTS, timestamps=nocs_out[0, :, 0, 3],
-            constant_in_time=False, base_samples=base)
+            num_points=PROTOCOL_NUM_PTS, timestamps=timestamps,
+            constant_in_time=False, base_samples=base, group=group)
 
         def score(steps):
             gt = nocs_out[:, steps, :, :3].reshape(b * len(steps), n, 3)
@@ -135,26 +171,26 @@ def test_shape_recon(model, params, state, loader, log_out, observed_steps: Sequ
         running statistics: the point where the host waits for the device."""
         valid = pend["valid"]
         nfe_stats.append([float(pend["nfe"][0]), float(pend["nfe"][1])])
-        chamfer, emd = (x.cpu().numpy() for x in pend["obs"])
+        chamfer, emd = (_rows_of(x, group).cpu().numpy() for x in pend["obs"])
         observed_stats["chamfer"].extend(chamfer[: valid * t_obs].tolist())
         observed_stats["emd"].extend(emd[: valid * t_obs].tolist())
         observed_stats["infer_time"].append(elapsed)
 
-        print("==== OBSERVED ====")
-        print("Shape Recon Mean Chamfer: %f" % (np.mean(observed_stats["chamfer"]) * 1000))
-        print("Shape Recon Median Chamfer: %f" % (np.median(observed_stats["chamfer"]) * 1000))
-        print("Shape Recon Mean EMD: %f" % (np.mean(observed_stats["emd"]) * 1000))
-        print("Shape Recon Median EMD: %f" % (np.median(observed_stats["emd"]) * 1000))
-        print("NFE Mean: (%f, %f)" % tuple(np.mean(nfe_stats, axis=0).tolist()))
-        print("Infer time mean: %f" % np.mean(observed_stats["infer_time"]))
+        show("==== OBSERVED ====")
+        show("Shape Recon Mean Chamfer: %f" % (np.mean(observed_stats["chamfer"]) * 1000))
+        show("Shape Recon Median Chamfer: %f" % (np.median(observed_stats["chamfer"]) * 1000))
+        show("Shape Recon Mean EMD: %f" % (np.mean(observed_stats["emd"]) * 1000))
+        show("Shape Recon Median EMD: %f" % (np.median(observed_stats["emd"]) * 1000))
+        show("NFE Mean: (%f, %f)" % tuple(np.mean(nfe_stats, axis=0).tolist()))
+        show("Infer time mean: %f" % np.mean(observed_stats["infer_time"]))
 
         if use_unobserved:
-            chamfer, emd = (x.cpu().numpy() for x in pend["unobs"])
+            chamfer, emd = (_rows_of(x, group).cpu().numpy() for x in pend["unobs"])
             unobserved_stats["chamfer"].extend(chamfer[: valid * t_unobs].tolist())
             unobserved_stats["emd"].extend(emd[: valid * t_unobs].tolist())
-            print("==== UNOBSERVED ====")
-            print("Shape Recon Mean Chamfer: %f" % (np.mean(unobserved_stats["chamfer"]) * 1000))
-            print("Shape Recon Mean EMD: %f" % (np.mean(unobserved_stats["emd"]) * 1000))
+            show("==== UNOBSERVED ====")
+            show("Shape Recon Mean Chamfer: %f" % (np.mean(unobserved_stats["chamfer"]) * 1000))
+            show("Shape Recon Mean EMD: %f" % (np.mean(unobserved_stats["emd"]) * 1000))
 
     # Depth-1 pipeline: batch i's metric kernels are enqueued (nothing waits
     # for them) and batch i+1 is dispatched before batch i's results are
@@ -164,7 +200,7 @@ def test_shape_recon(model, params, state, loader, log_out, observed_steps: Sequ
     pending = None
     t_mark = time.time()
     for i, batch in enumerate(loader):
-        print("Batch: %d / %d" % (i, len(loader)))
+        show("Batch: %d / %d" % (i, len(loader)))
         cur = dispatch(batch)
         if pending is not None:
             drain(pending, time.time() - t_mark)
@@ -172,6 +208,8 @@ def test_shape_recon(model, params, state, loader, log_out, observed_steps: Sequ
         pending = cur
     if pending is not None:
         drain(pending, time.time() - t_mark)
+    if not lead:
+        return
 
     stats_list = [observed_stats, unobserved_stats] if use_unobserved else [observed_stats]
     stats_names = ["OBSERVED", "UNOBSERVED"] if use_unobserved else ["OBSERVED"]
@@ -206,31 +244,38 @@ def test_shape_recon(model, params, state, loader, log_out, observed_steps: Sequ
 
 
 @torch.no_grad()
-def test_tnocs_regression(model, params, state, loader, log_out):
+def test_tnocs_regression(model, params, state, loader, log_out, mesh=None):
     """T-NOCS regression: mean spatial (L2) and time (absolute) error of the
-    encoder's per-point prediction.  Returns the two means."""
+    encoder's per-point prediction.  Returns the two means (of the whole
+    split on every rank, with a ``mesh``)."""
+    group = None if mesh is None else batch_group(mesh)
+    lead = is_lead(group)
+    show = print if lead else _quiet
     model_ids, seq_ids = [], []
     stat_dict = {"space": [], "time": []}
     last_t = PROTOCOL_NUM_STEPS
     for i, batch in enumerate(loader):
-        print("Batch: %d / %d" % (i, len(loader)))
+        show("Batch: %d / %d" % (i, len(loader)))
         pcl_in = torch.as_tensor(batch["input"], device=model.device)
         nocs_out = torch.as_tensor(batch["target"], device=model.device)
         _, last_t, n, _ = pcl_in.shape
-        valid = _batch_ids(batch, model_ids, seq_ids)
+        valid = _batch_ids(batch, model_ids, seq_ids, group)
         _check_protocol(last_t, n)
 
         _, pred_tnocs = model.encode(params, pcl_in)
         dist = torch.linalg.vector_norm(pred_tnocs[..., :3] - nocs_out[..., :3], dim=3).mean(dim=2)
-        stat_dict["space"].extend(dist.cpu().numpy()[:valid].reshape(-1).tolist())
+        stat_dict["space"].extend(_rows_of(dist, group).cpu().numpy()[:valid].reshape(-1).tolist())
         if pred_tnocs.shape[-1] > 3:
             tdiff = (pred_tnocs[..., 3] - nocs_out[..., 3]).abs().mean(dim=2)
-            stat_dict["time"].extend(tdiff.cpu().numpy()[:valid].reshape(-1).tolist())
+            stat_dict["time"].extend(
+                _rows_of(tdiff, group).cpu().numpy()[:valid].reshape(-1).tolist())
 
-        print("==== CURRENT ERROR ====")
-        print("mean SPATIAL error (l2 distance) %f" % np.mean(stat_dict["space"]))
-        print("mean TIME error (absolute diff): : %f" % np.mean(stat_dict["time"]))
+        show("==== CURRENT ERROR ====")
+        show("mean SPATIAL error (l2 distance) %f" % np.mean(stat_dict["space"]))
+        show("mean TIME error (absolute diff): : %f" % np.mean(stat_dict["time"]))
 
+    if not lead:
+        return np.mean(stat_dict["space"]), np.mean(stat_dict["time"])
     log(log_out, "================  TNOCS REGRESSION EVAL =====================")
     for label, key in (("SPATIAL error (l2 distance)", "space"),
                        ("TIME error (absolute diff)", "time")):
@@ -295,11 +340,16 @@ def _export_pose_scene(out_dir, name, pred_nocs, pred_nocs_rgb, pred_depth,
 
 
 @torch.no_grad()
-def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show: bool = False):
+def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show: bool = False,
+                                     mesh=None):
     """Camera pose from the predicted T-NOCS by correspondence RANSAC on the
     host (threshold 0.015, 4-point samples, 50000 iterations / 5000
     validations), against the batch's ground-truth poses.  ``show`` exports
     each sequence's pose scene, ``pose_<model>_<seq>``, next to the log."""
+    group = None if mesh is None else batch_group(mesh)
+    lead = is_lead(group)
+    echo = print if lead else _quiet
+    rank = 0 if group is None else group_rank_size(group)[0]
     loader.dataset.set_return_pose_data(True)
     note = log_once(lambda line: log(log_out, line))
 
@@ -309,18 +359,21 @@ def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show
     num_steps = PROTOCOL_NUM_STEPS
 
     for i, batch in enumerate(loader):
-        print("Batch: %d / %d" % (i, len(loader)))
+        echo("Batch: %d / %d" % (i, len(loader)))
         pcl_in = np.asarray(batch["input"])
         nocs_out = np.asarray(batch["target"])
         pose_data = np.asarray(batch["pose"])
-        _, num_steps, n, _ = pcl_in.shape
-        valid = _batch_ids(batch, model_ids, seq_ids)
+        b, num_steps, n, _ = pcl_in.shape
+        _batch_ids(batch, model_ids, seq_ids, group)
+        valid = batch.get("valid", b)  # this rank's real rows
         _check_protocol(num_steps, n)
 
         _, pred_tnocs = model.encode(params, torch.as_tensor(pcl_in, device=model.device))
         pred_tnocs = pred_tnocs.cpu().numpy()
+        found = {k: [] for k in stat_dict}
 
         for bi in range(valid):
+            row = rank * b + bi  # the row's index in the global batch
             norm_pred = pred_tnocs[bi, :, :, :3] - 0.5
             norm_gt = nocs_out[bi, :, :, :3] - 0.5
             inputs = pcl_in[bi, :, :, :3]
@@ -329,19 +382,19 @@ def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show
                 trans = ransac_rigid_registration(
                     norm_pred[si], inputs[si], max_corr_dist=0.015, ransac_n=4,
                     max_iteration=50000, max_validation=5000,
-                    seed=i * 1000 + bi * num_steps + si)
+                    seed=i * 1000 + row * num_steps + si)
                 r_pred, t_pred = trans[:3, :3], trans[:3, 3]
                 r_gt, t_gt = pose_data[bi, si, :3, :3], pose_data[bi, si, :3, 3]
                 # point errors from the ground-truth NOCS, so that the
                 # regression's error does not compound
                 pred_depth = norm_gt[si] @ r_pred.T + t_pred
                 dists = np.linalg.norm(pred_depth - inputs[si], axis=1)
-                stat_dict["point_RANSAC"].append(float(np.median(dists)))
-                stat_dict["point_mean_RANSAC"].append(float(np.mean(dists)))
+                found["point_RANSAC"].append(float(np.median(dists)))
+                found["point_mean_RANSAC"].append(float(np.mean(dists)))
                 rot_diff = (np.trace(r_pred.T @ r_gt) - 1.0) / 2.0
                 rot_err = np.degrees(np.arccos(np.clip(rot_diff, -1.0, 1.0)))
-                stat_dict["trans_RANSAC"].append(float(np.linalg.norm(t_pred - t_gt)))
-                stat_dict["rot_RANSAC"].append(float(rot_err))
+                found["trans_RANSAC"].append(float(np.linalg.norm(t_pred - t_gt)))
+                found["rot_RANSAC"].append(float(rot_err))
 
                 if show:
                     scene["pred_depth"].append(pred_depth)
@@ -363,11 +416,18 @@ def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show
                     scene["gt_cams"], scene["pred_cams"], note=note)
                 print("Exported pose viz to %s" % out)
 
-        print("==== CURRENT ERROR ====")
-        print("mean Pos error RANSAC (l2 distance) %f" % np.mean(stat_dict["trans_RANSAC"]))
-        print("mean Rot error RANSAC (degrees): %f" % np.mean(stat_dict["rot_RANSAC"]))
-        print("mean-median Point error RANSAC (L2 distance): %f" % np.mean(stat_dict["point_RANSAC"]))
-        print("mean-mean Point error RANSAC (L2 distance): %f" % np.mean(stat_dict["point_mean_RANSAC"]))
+        # every rank's frames in global row order
+        for part in ([found] if group is None else all_gather_objects(found, group, "eval")):
+            for k in stat_dict:
+                stat_dict[k].extend(part[k])
+        echo("==== CURRENT ERROR ====")
+        echo("mean Pos error RANSAC (l2 distance) %f" % np.mean(stat_dict["trans_RANSAC"]))
+        echo("mean Rot error RANSAC (degrees): %f" % np.mean(stat_dict["rot_RANSAC"]))
+        echo("mean-median Point error RANSAC (L2 distance): %f" % np.mean(stat_dict["point_RANSAC"]))
+        echo("mean-mean Point error RANSAC (L2 distance): %f" % np.mean(stat_dict["point_mean_RANSAC"]))
+
+    if not lead:
+        return
 
     for label, key in [
         ("POS error RANSAC (l2 distance)", "trans_RANSAC"),

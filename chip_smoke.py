@@ -129,7 +129,36 @@ Phases, each of which raises on failure:
      sequence's latent and emd at 10 pairs of 2048, held to their plain
      versions as in phase 2; (f) one interpolated scene timed, then under
      caspr_tpu_torch.utils.profiling.device_trace: wall, model and export
-     seconds, device busy time, idle share and NFE.
+     seconds, device busy time, idle share and NFE;
+ 10. data parallelism (caspr_tpu_torch/parallel), with the kernels built
+     in phase 1 before any rank starts (caspr_tpu_torch/checks/ranks.py
+     runs each rank as a process of its own): (a) a train step from the
+     demo weights, global batch 4 x 5 frames x 1024 points with injected
+     noise, Adam at 1e-4, on two gloo ranks that share the card (nccl
+     takes one rank a device), against the one-process step on the card
+     on the same batch: NFE equal, loss within 1e-4 relative, every flow
+     and latent-ODE gradient within 1e-3 of its leaf's largest, the
+     encoder's in relative L2 within 4x phase 7's float32 floor, the two
+     ranks' parameters, state and gradients bit-equal, the encoder
+     kernels, cnf_dynamics and cnf_dynamics_vjp launched on both ranks;
+     then the same with --ode-backward discrete; the collectives of a
+     step by kind (calls and bytes); (b) the test CLI with --parallel on
+     two such ranks over phase 8's tree (--eval-test and observed shape
+     reconstruction, as phase 8 runs them, so that the generator gives
+     the same noise and base samples; then T-NOCS regression and the pose
+     protocol): rank 0 alone writes test_log.{txt,npz,csv} and
+     test_log_RANSAC.{npz,csv} (rank 1 only rank1_test_log.txt), the
+     .npz within 1e-5 of phase 8's one-process run (the pose's 1e-4
+     relative), the .csv of its rows, ids identical and values within
+     5e-6 of each (the pose's 1e-4), beside the smallest relative gap
+     between two sequences' values (what rows out of order would show),
+     the TEST loss within 1e-5 relative, the NFE equal, the reconstruct
+     kernels and emd launched on both ranks; (c) the train CLI under torchrun (python -m
+     torch.distributed.run --standalone --nproc_per_node 1) with
+     --parallel --multihost, two epochs at 5 x 5 x 1024 on nccl: losses
+     finite, the training kernels launched, the checkpoints written, the
+     mesh logged; its seconds per step by epoch beside phase 8's
+     one-process run's, and the phase's seconds.
 
 Then it prints its own seconds (from its first line of output on), one
 JSON line listing every kernel and, last, the verdict line
@@ -1815,7 +1844,8 @@ def run_cli_path(torch, kernels, out_dir, card):
                                      f"logged forward NFE {forward} ({val_nfe})")
         runs[run] = info
         print(json.dumps(info), flush=True)
-    return runs
+    return {"train_runs": runs, "copies": copies, "cfg": cfg, "test_args": test_args,
+            "test_log": stem + ".txt"}
 
 
 VIZ_KERNELS = RECONSTRUCT_KERNELS + ("emd",)
@@ -2089,6 +2119,235 @@ def run_viz_path(torch, kernels, out_dir, card):
         raise AssertionError("the profiled viz scene shows no device time")
 
 
+# phase 10: the global batch of the two-rank train step, and its ranks
+PAR_B, PAR_RANKS = 4, 2
+PAR_LR = 1e-4
+# phase 10(b)'s bars against phase 8, relative to each value: the .csv's
+# per-sequence means (2-row decodes and encodes round otherwise than 4-row
+# ones on the card: 6.0e-7 relative on shape reconstruction and 2.8e-7 on
+# T-NOCS were read, where rows out of order differ by 1.0e-2 and 3.1e-2
+# at least), and the pose protocol's errors (RANSAC's pose moves with the
+# encoder's rounding; tests/test_torch_port_parallel.py's bar).
+PAR_CSV_REL, PAR_POSE_REL = 5e-6, 1e-4
+
+
+def parallel_step_input(batch=PAR_B):
+    """Phase 10's global batch, 4 sequences x 5 frames x 1024 points in
+    the form of phase 6's, and its Hutchinson noise, as numpy arrays."""
+    rng = np.random.default_rng(SEED + 10)
+    times = np.sort(rng.random((batch, TRAIN_T), dtype=np.float32), axis=1)
+    times -= times[:, :1]
+    x = rng.random((batch, TRAIN_T, TRAIN_N, 4), dtype=np.float32)
+    x[..., 3] = times[:, :, None] * 5.0
+    target = rng.random((batch, TRAIN_T, TRAIN_N, 4), dtype=np.float32)
+    target[..., 3] = times[:, :, None]
+    noise = rng.standard_normal((batch * TRAIN_T, TRAIN_N, 3)).astype(np.float32)
+    return x, target, noise
+
+
+def one_process_steps(torch, x, target, noise):
+    """The one-process train step on the card from the demo weights, with
+    the continuous adjoint and with the discrete backward, Adam at PAR_LR:
+    {backward: (metrics, {path: gradient})}."""
+    from caspr_tpu_torch.checks.ranks import RecordingOptimizer
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.ops.odeint import flatten_tree
+    from caspr_tpu_torch.train import make_train_step
+    from caspr_tpu_torch.weights import load_demo
+
+    model = CaSPRModel(CaSPRConfig(), device="cuda")
+    out = {}
+    for backward in ("adjoint", "discrete"):
+        params, state = load_demo(device=model.device)
+        leaves = flatten_tree(params)[0]
+        opt = RecordingOptimizer(torch.optim.Adam(leaves, lr=PAR_LR), leaves)
+        step = make_train_step(model, None, 0.01, 100.0, ode_backward=backward)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        _, _, _, m = step(params, opt, state, x, target, e=torch.from_numpy(noise).cuda())
+        torch.cuda.synchronize()
+        out[backward] = (m, dict(zip(leaf_paths(params), opt.grads)), time.perf_counter() - start)
+    return out
+
+
+def compare_parallel_step(ranks, one, floor, backward,
+                          label=f"train step, {PAR_RANKS} gloo ranks sharing the card against one "
+                                "process"):
+    """A two-rank step against the one-process step: NFE, loss, every flow
+    and latent-ODE gradient leaf (1e-3 of its largest), the encoder's in
+    relative L2 (4x the float32 floor), and the ranks' parameters equal."""
+    m1, grads1, seconds1 = one
+    got = ranks[0]
+    nfe_ok = all(r["metrics"]["nfe"] == m1["nfe"] and r["metrics"]["nfe_forward"]
+                 == m1["nfe_forward"] for r in ranks)
+    loss_rel = abs(got["metrics"]["loss"] - m1["loss"]) / abs(m1["loss"])
+    rel = {p: float(np.abs(got["grads"][p] - g).max() / max(float(np.abs(g).max()), 1e-30))
+           for p, g in grads1.items()}
+    rest = {p: r for p, r in rel.items() if not p.startswith("encoder.")}
+    enc = [p for p in grads1 if p.startswith("encoder.")]
+    flat = lambda grads: np.concatenate([grads[p].ravel().astype(np.float64) for p in enc])
+    enc_l2 = float(np.linalg.norm(flat(got["grads"]) - flat(grads1)) / np.linalg.norm(flat(grads1)))
+    equal = all(np.array_equal(r[k][p], got[k][p]) for r in ranks[1:]
+                for k in ("params", "state", "grads") for p in got[k])
+    worst = sorted(rest.items(), key=lambda kv: -kv[1])[:3]
+    print(json.dumps({
+        "parallel": label, "backward": backward, "global_batch": PAR_B, "frames": TRAIN_T, "points": TRAIN_N,
+        "nfe": [r["metrics"]["nfe"] for r in ranks] + [m1["nfe"]],
+        "nfe_forward": [r["metrics"]["nfe_forward"] for r in ranks] + [m1["nfe_forward"]],
+        "loss": [got["metrics"]["loss"], m1["loss"]], "loss_rel_err": loss_rel,
+        "flow_and_latent_rel_err_max": max(rest.values()), "flow_and_latent_worst": worst,
+        "encoder_rel_l2": enc_l2, "encoder_float32_floor_rel_l2": floor,
+        "ranks_bit_equal": equal, "step_seconds": {"ranks": [r["seconds"] for r in ranks],
+                                                   "one_process": seconds1},
+        "collectives_per_step": got["collectives"],
+        "launches": [r["launches"] for r in ranks],
+        "tolerance": {"loss": 1e-4, "flow_and_latent_leaf": 1e-3,
+                      "encoder_rel_l2": "4 x the float32 floor"}}), flush=True)
+    if (not nfe_ok or not loss_rel <= 1e-4 or not max(rest.values()) <= 1e-3
+            or not enc_l2 <= 4.0 * floor or not equal):
+        raise AssertionError(f"two-rank {backward} step against one process: see the line above")
+
+
+def run_parallel_path(torch, kernels, phase8, floor, card):
+    """Phase 10: data parallelism.  (a) a train step and (b) the test CLI
+    on two gloo ranks that share the card, against the one-process runs;
+    (c) the train CLI under torchrun on nccl, a group of one, two epochs
+    (the first one's steps carry the fresh process's warm-up and nccl's
+    first collective; phase 8's run in this process is warm)."""
+    from caspr_tpu_torch.checks.ranks import run_ranks, run_torchrun
+
+    begun = time.perf_counter()
+    x, target, noise = parallel_step_input()
+    one = one_process_steps(torch, x, target, noise)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="phase10_", dir=os.path.dirname(phase8["test_log"]))
+    case = {"x": x, "target": target, "e": noise, "optimizer": "adam", "lr": PAR_LR}
+    test_args = [a for a in phase8["test_args"]]
+    outs = {name: os.path.join(work, f"cli_test_{name}") for name in ("recon", "tnocs")}
+    parts = [{"job": "steps", "cases": [case, dict(case, ode_backward="discrete")]},
+             # --eval-test first, as in phase 8: its Hutchinson noise comes
+             # from the generator ahead of the decoder's base samples
+             {"job": "cli", "cli": "test",
+              "argv": test_args + ["--out", outs["recon"], "--parallel", "--eval-test",
+                                   "--eval-shape-recon-observed"]},
+             {"job": "cli", "cli": "test",
+              "argv": test_args + ["--out", outs["tnocs"], "--parallel",
+                                   "--eval-tnocs-regression", "--eval-pose-observed-ransac"]}]
+    start = time.perf_counter()
+    results = run_ranks(PAR_RANKS, {"job": "parts", "backend": "gloo", "device": "cuda:0",
+                                    "weights": "demo", "parts": parts, "timeout": 300},
+                        os.path.join(work, "ranks"), timeout=600)
+    ranks_seconds = time.perf_counter() - start
+
+    # (a) the train step, adjoint then discrete
+    steps = [r[0] for r in results]
+    for r in steps:
+        require_launched(r[0]["launches"], TRAIN_KERNELS, "two-rank train step")
+    for i, backward in enumerate(("adjoint", "discrete")):
+        compare_parallel_step([r[i] for r in steps], one[backward], floor, backward)
+
+    # (b) the test CLI: phase 8's artifacts, from rank 0 alone
+    with open(phase8["test_log"]) as f:
+        want_nfe = re.findall(r"^NFE Mean: \(" + FLOAT + ", " + FLOAT + r"\)", f.read(), re.M)[0]
+    test_line = r"Batch 0/0\] TEST Mean loss: " + FLOAT
+    want_loss = log_numbers(phase8["test_log"], test_line)
+    cli = {}
+    # (protocol, its CLI run, phase 8's copy, artifact stem, .npz keys, .csv id columns, bars):
+    # the .npz absolute, the .csv relative to each value (PAR_CSV_REL); the
+    # pose protocol's both relative (PAR_POSE_REL), as in
+    # tests/test_torch_port_parallel.py
+    protocols = (
+        ("recon", "recon", "recon_observed", "test_log", ("observed_chamfer", "observed_emd"), 3,
+         (1e-5, 0.0), PAR_CSV_REL),
+        ("tnocs", "tnocs", "tnocs", "test_log", ("space", "time"), 2, (1e-5, 0.0), PAR_CSV_REL),
+        ("pose", "tnocs", "pose", "test_log_RANSAC", ("trans", "rot", "point", "point_mean"), 2,
+         (0.0, PAR_POSE_REL), PAR_POSE_REL))
+    want_files = {"recon": ["test_log.txt", "test_log.npz", "test_log.csv", "rank1_test_log.txt"]}
+    want_files["tnocs"] = want_files["recon"] + ["test_log_RANSAC.npz", "test_log_RANSAC.csv"]
+    for name, run, ref, stem_name, keys, ids, (npz_abs, npz_rel), csv_rel in protocols:
+        out = outs[run]
+        stem = os.path.join(out, stem_name)
+        written = sorted(os.listdir(out))
+        got, want = np.load(stem + ".npz"), np.load(phase8["copies"][ref] + ".npz")
+        npz_ok = all(got[k].shape == want[k].shape and bool(np.all(
+            np.abs(got[k] - want[k]) <= npz_abs + npz_rel * np.abs(want[k]))) for k in keys)
+        npz_diff = max(float(np.abs(got[k] - want[k]).max()) for k in keys)
+        with open(stem + ".csv") as f:
+            rows = [r.split(",") for r in f.read().splitlines()]
+        with open(phase8["copies"][ref] + ".csv") as f:
+            want_rows = [r.split(",") for r in f.read().splitlines()]
+        same_ids = [r[:ids] for r in rows] == [r[:ids] for r in want_rows]
+        values = lambda table: np.array([r[ids:] for r in table[1:]], float)
+        got_v, want_v = values(rows), values(want_rows)
+        csv_rel_diff = float((np.abs(got_v - want_v) / np.abs(want_v)).max()) \
+            if got_v.shape == want_v.shape else math.inf
+        # what rows out of order would show at least: the smallest gap
+        # between two sequences' values in one column, over its value
+        gaps = [abs(a - b) / abs(b) for col in want_v.T for i, a in enumerate(col)
+                for b in col[i + 1:]]
+        index = 1 if run == "recon" else 2
+        cli[name] = {"files": written, "npz_max_abs_diff": npz_diff, "csv_ids_equal": same_ids,
+                     "csv_rows_identical": rows == want_rows, "csv_max_rel_diff": csv_rel_diff,
+                     "csv_rel_tolerance": csv_rel, "row_order_min_rel_gap": min(gaps, default=None),
+                     "launches": [r[index]["launches"] for r in results],
+                     "seconds": [r[index]["seconds"] for r in results],
+                     "collectives": results[0][index]["collectives"]}
+        if name == "recon":
+            with open(stem + ".txt") as f:
+                cli[name]["nfe"] = re.findall(r"^NFE Mean: \(" + FLOAT + ", " + FLOAT + r"\)",
+                                              f.read(), re.M)
+            cli[name]["nfe_one_process"] = want_nfe
+            cli[name]["test_loss"] = log_numbers(stem + ".txt", test_line)
+            cli[name]["test_loss_one_process"] = want_loss
+            if cli[name]["nfe"] != [want_nfe]:
+                raise AssertionError(f"two-rank test CLI NFE {cli[name]['nfe']}, one process "
+                                     f"{want_nfe}")
+            if (len(cli[name]["test_loss"]) != 1
+                    or not abs(cli[name]["test_loss"][0][0] - want_loss[0][0])
+                    <= 1e-5 * abs(want_loss[0][0])):
+                raise AssertionError(f"two-rank --eval-test loss {cli[name]['test_loss']}, one "
+                                     f"process {want_loss}")
+            for launches in cli[name]["launches"]:
+                require_launched(launches, VIZ_KERNELS, "two-rank test CLI")
+        if (written != sorted(want_files[run]) or not npz_ok or not same_ids
+                or len(rows) != len(want_rows) or not csv_rel_diff <= csv_rel):
+            raise AssertionError(f"two-rank test CLI ({name}) against phase 8: {cli[name]}")
+    print(json.dumps({"parallel": f"test CLI --parallel, {PAR_RANKS} gloo ranks sharing the "
+                      "card, against phase 8's one-process run", "card": card,
+                      "ranks_seconds": ranks_seconds, "protocols": cli}), flush=True)
+
+    # (c) torchrun, one rank on nccl, --parallel --multihost: the train CLI
+    run_out = os.path.join(work, "cli_train_torchrun")
+    train_args = ["--data-cfg", phase8["cfg"], "--seq-len", str(TRAIN_T), "--num-pts",
+                  str(TRAIN_N), "--batch-size", str(TRAIN_B), "--val-every", "1",
+                  "--save-every", "1", "--print-every", "1", "--seed", str(SEED), "--epochs", "2",
+                  "--out", run_out, "--parallel", "--multihost"]
+    start = time.perf_counter()
+    (res,) = run_torchrun(1, {"job": "cli", "cli": "train", "argv": train_args},
+                          os.path.join(work, "torchrun"), timeout=600)
+    seconds = time.perf_counter() - start
+    log_path = os.path.join(run_out, "train_log.txt")
+    losses = [v[0] for v in log_numbers(log_path, r"TRAIN Mean loss: " + FLOAT)]
+    timing = log_numbers(log_path, r"TIMING epoch \d+: " + FLOAT + r" s per train step over "
+                         r"(\d+) steps")
+    with open(log_path) as f:
+        text = f.read()
+    require_launched(res["launches"], TRAIN_KERNELS, "torchrun train CLI")
+    one_step = phase8["train_runs"]["adjoint"]["s_per_train_step_by_epoch"]
+    info = {"parallel": "torchrun --nproc_per_node 1 train CLI --parallel --multihost (nccl)",
+            "card": card, "backend": res["backend"], "seconds": seconds, "losses": losses,
+            "s_per_train_step_by_epoch": [t[0] for t in timing],
+            "phase8_one_process_s_per_train_step_by_epoch": one_step,
+            "collectives": res["collectives"], "launches": res["launches"],
+            "mesh_line": re.findall(r"Parallel mesh over [^\n]*", text),
+            "files": sorted(os.listdir(run_out)), "phase_seconds": time.perf_counter() - begun}
+    print(json.dumps(info), flush=True)
+    if (not losses or not all(np.isfinite(losses)) or res["backend"] != "nccl"
+            or not os.path.exists(os.path.join(run_out, "time_model_1.pkl"))
+            or info["mesh_line"] != ["Parallel mesh over 1 devices, axes ('dp',) (1,), rank 0"]):
+        raise AssertionError(f"torchrun train CLI: {info}")
+
+
 def phase_done(name: str, begun: float):
     print(json.dumps({"phase_done": name, "seconds_since_start": time.perf_counter() - begun}),
           flush=True)
@@ -2138,12 +2397,14 @@ def main() -> int:
         phase_done("6b", begun)
     cross_device_train(torch, floor)
     phase_done("7", begun)
-    with tempfile.TemporaryDirectory() as out_dir:
-        run_cli_path(torch, kernels, out_dir, card)
-    phase_done("8", begun)
-    with tempfile.TemporaryDirectory() as out_dir:
-        run_viz_path(torch, kernels, out_dir, card)
-    phase_done("9", begun)
+    with tempfile.TemporaryDirectory() as cli_dir:
+        phase8 = run_cli_path(torch, kernels, cli_dir, card)
+        phase_done("8", begun)
+        with tempfile.TemporaryDirectory() as out_dir:
+            run_viz_path(torch, kernels, out_dir, card)
+        phase_done("9", begun)
+        run_parallel_path(torch, kernels, phase8, floor, card)
+        phase_done("10", begun)
 
     listing = []
     for name, row in rows.items():
