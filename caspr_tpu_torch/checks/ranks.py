@@ -1,5 +1,5 @@
-"""Data-parallel runs of the port in processes of their own, one per rank,
-for the tests and chip_smoke.py phase 10.
+"""Data- and point-parallel runs of the port in processes of their own, one
+per rank, for the tests and chip_smoke.py phases 10 and 11.
 
     results = run_ranks(world, payload, work_dir, timeout=...)
 
@@ -16,13 +16,15 @@ fails the caller instead of holding it.  Each rank's output goes to
 ``payload["job"]`` is one of:
 
   "steps"  one train step per entry of ``payload["cases"]``, each from the
-           payload's weights, on this rank's rows of a global batch
-           (``parallel.shard_batch``, by the case's accum_steps): returns
+           payload's weights, on this rank's rows and points of a global
+           batch (``parallel.shard_batch_points``, by the case's
+           accum_steps; the noise's points on its axis 1): returns
            per case the metrics, the gradient the optimizer was handed (the
            sum over ranks), the parameters and MovingBatchNorm state after
            the step, the collectives and the kernel launches of the step;
   "evals"  ``test_shape_recon`` and ``test_tnocs_regression`` over the
-           rank's shard of a dataset's test split, rank 0 writing the logs,
+           rank's shard of a dataset's test split (sharded over the batch
+           group), rank 0 writing the logs,
            then with "pose_out" ``test_observed_camera_pose_ransac`` with
            its scenes there (rank i > 0 logging to rank<i>_pose_log.txt, as
            the test command line names a rank's log); "no_matplotlib" runs
@@ -30,6 +32,16 @@ fails the caller instead of holding it.  Each rank's output goes to
   "cli"    the train or test command line's ``main`` with its argv (which
            holds --parallel): the process group is formed before, and the
            command line keeps it;
+  "reconstruct"  ``CaSPRModel.reconstruct`` of ``payload["x"]`` at the
+           decode ``payload["timestamps"]`` from ``payload["base"]`` (the
+           global batch's base samples), on this rank's rows and points,
+           once to warm up and once timed: returns the rank's decoded
+           points, the NFE, the seconds, the launches and collectives;
+  "mesh"   for each (num_slices, sp_size) of ``payload["meshes"]`` the
+           mesh's axes and shape and the ranks of this rank's batch, point
+           and whole groups; ``shard_batch_points`` of ``payload["array"]``
+           on the first mesh; and the loader shards the command lines'
+           ``parallel_setup`` gives for ``payload["sp_size"]``;
   "parts"  each payload of ``payload["parts"]`` in turn, in one group.
 
 ``run_torchrun`` runs the "cli" job under torchrun instead, where the
@@ -39,7 +51,7 @@ Common keys: "world", "backend" ("gloo" or "nccl"), "device" (every rank's,
 e.g. "cpu" or "cuda:0": ranks may share a card over gloo; "cuda": the card
 of index LOCAL_RANK), "threads" (CPU threads a rank, default 1: ranks share
 the host's cores), "config" (CaSPRConfig fields), "num_slices" (the mesh's
-nodes, default 1).
+nodes, default 1), "sp_size" (the mesh's sp axis, default 1).
 """
 
 from __future__ import annotations
@@ -136,11 +148,12 @@ def _numpy(tree):
 
 
 def steps_job(payload, rank, world, mesh, device):
+    import numpy as np
     import torch
 
     from ..ops import kernels
     from ..ops.odeint import flatten_tree
-    from ..parallel import collectives, reset_collectives, shard_batch
+    from ..parallel import collectives, reset_collectives, shard_batch_points
     from ..parallel.mesh import describe
     from ..train import make_train_step
     from ..train.checkpoint import _flatten
@@ -156,9 +169,11 @@ def steps_job(payload, rank, world, mesh, device):
         else:
             inner = torch.optim.Adam(leaves, lr=case["lr"])
         opt = RecordingOptimizer(inner, leaves)
-        x, target = shard_batch(mesh, (case["x"], case["target"]), accum)
-        e = None if case.get("e") is None else torch.from_numpy(
-            shard_batch(mesh, case["e"], accum)).to(device)
+        x, target = shard_batch_points(mesh, (case["x"], case["target"]), accum)
+        e = case.get("e")
+        if e is not None:  # (B T, N, 3): cut as (B, T, N, 3)
+            e = shard_batch_points(mesh, e.reshape(*case["x"].shape[:2], *e.shape[1:]), accum)
+            e = torch.from_numpy(np.ascontiguousarray(e.reshape(-1, *e.shape[2:]))).to(device)
         step = make_train_step(model, None, case.get("cnf_w", 0.01), case.get("tnocs_w", 100.0),
                                accum_steps=accum, ode_backward=case.get("ode_backward", "adjoint"),
                                mesh=mesh)
@@ -183,15 +198,17 @@ def evals_job(payload, rank, world, mesh, device):
     import torch
 
     from ..data import DynamicPCLDataset, SequenceLoader
-    from ..parallel import collectives, reset_collectives
+    from ..parallel import batch_group, collectives, reset_collectives
+    from ..parallel.mesh import group_rank_size
     from ..utils import evaluations as ev
 
     cfg, model = _model(payload, device)
     params, state = _weights(payload, cfg, device)
     ds = DynamicPCLDataset(payload["data_cfg"], split="test", num_pts=ev.PROTOCOL_NUM_PTS,
                            seq_len=ev.PROTOCOL_NUM_STEPS, random_point_sample=False)
-    loader = SequenceLoader(ds, payload["batch_size"], seed=0, pad_last=True, num_shards=world,
-                            shard_index=rank)
+    index, shards = group_rank_size(batch_group(mesh))
+    loader = SequenceLoader(ds, payload["batch_size"], seed=0, pad_last=True, num_shards=shards,
+                            shard_index=index)
     out_dir = payload["out"]
     reset_collectives()
     ev.test_shape_recon(model, params, state, loader, os.path.join(out_dir, "recon_log.txt"),
@@ -241,6 +258,63 @@ def cli_job(payload, rank, world, mesh, device):
             "backend": dist.get_backend()}
 
 
+def reconstruct_job(payload, rank, world, mesh, device):
+    import torch
+
+    from ..ops import kernels
+    from ..parallel import collectives, mesh_groups, reset_collectives, shard_batch_points
+
+    cfg, model = _model(payload, device)
+    params, state = _weights(payload, cfg, device)
+    x, base = (torch.as_tensor(a, device=device).contiguous()
+               for a in shard_batch_points(mesh, (payload["x"], payload["base"])))
+    timestamps = torch.as_tensor(payload["timestamps"], device=device)
+
+    def recon():
+        with torch.no_grad():
+            out = model.reconstruct(params, state, x, None, num_points=payload["x"].shape[2],
+                                    timestamps=timestamps, base_samples=base,
+                                    groups=mesh_groups(mesh))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out
+
+    recon()
+    reset_collectives()
+    kernels.reset_launches()
+    start = time.perf_counter()
+    _, _, x_rec, _, nfe = recon()
+    return {"points": x_rec.cpu().numpy(), "nfe": nfe, "seconds": time.perf_counter() - start,
+            "launches": dict(kernels.launches),
+            "collectives": {k: dict(v) for k, v in collectives.items()}}
+
+
+def mesh_job(payload, rank, world, mesh, device):
+    import argparse
+
+    import torch.distributed as dist
+
+    from ..parallel import make_mesh, mesh_groups, shard_batch_points
+    from ..parallel.mesh import describe
+    from ..utils.config import parallel_setup
+
+    def ranks_of(group):
+        return None if group is None else dist.get_process_group_ranks(group)
+
+    meshes = []
+    for num_slices, sp_size in payload["meshes"]:
+        m = make_mesh(num_slices, sp_size=sp_size, timeout=payload.get("timeout", 120))
+        groups = mesh_groups(m)
+        meshes.append({"names": m.mesh_dim_names, "describe": describe(m),
+                       "batch": ranks_of(groups.batch), "point": ranks_of(groups.point),
+                       "whole": ranks_of(groups.whole)})
+        if len(meshes) == 1:
+            shard = shard_batch_points(m, payload["array"])
+    flags = argparse.Namespace(use_parallel=True, sp_size=payload["sp_size"], multihost=False)
+    _, _, _, shards, log_name = parallel_setup(flags, device, "log.txt")
+    return {"meshes": meshes, "shard": shard, "shards": shards, "log_name": log_name}
+
+
 def parts_job(payload, rank, world, mesh, device):
     """Each of ``payload["parts"]`` (payloads of the other jobs, over the
     common keys) in turn, in one process group; their results in order."""
@@ -248,7 +322,8 @@ def parts_job(payload, rank, world, mesh, device):
             for part in payload["parts"]]
 
 
-JOBS = {"steps": steps_job, "evals": evals_job, "cli": cli_job, "parts": parts_job}
+JOBS = {"steps": steps_job, "evals": evals_job, "cli": cli_job, "reconstruct": reconstruct_job,
+        "mesh": mesh_job, "parts": parts_job}
 
 
 def run_torchrun(nproc: int, payload: dict, work_dir: str, timeout: float = 300.0) -> list:
@@ -317,7 +392,8 @@ def main(argv) -> int:
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=payload.get("timeout", 120)))
     try:
-        mesh = make_mesh(payload.get("num_slices", 1))
+        mesh = make_mesh(payload.get("num_slices", 1), sp_size=payload.get("sp_size", 1),
+                         timeout=payload.get("timeout", 120))
         result = JOBS[payload["job"]](payload, rank, world, mesh, device)
     finally:
         dist.destroy_process_group()

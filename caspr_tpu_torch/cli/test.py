@@ -20,8 +20,11 @@ Each protocol's seconds and the loader's wait per batch go to the log.
 --parallel ...``): each rank loads and evaluates its share of every batch
 (``--batch-size`` is the global batch), and rank 0 writes the log and the
 artifacts, which are the one-process run's (``utils.evaluations``); rank i
-> 0 logs to rank<i>_<--log>.  The JAX package's test.py --parallel is one
-process over the local devices instead.
+> 0 logs to rank<i>_<--log>.  ``--sp-size k`` adds point parallelism, the
+``(dp, sp)`` mesh (``torchrun --nproc_per_node 4 -m caspr_tpu_torch.cli.test
+--parallel --sp-size 2 ...``): the k ranks of a point group load the same
+rows and each decodes its range of their points.  The JAX package's
+test.py --parallel is one process over the local devices instead.
 """
 
 from __future__ import annotations
@@ -42,8 +45,8 @@ from ..train import (TestStatTracker, load_checkpoint, log, make_eval_step, prin
                      run_one_epoch)
 from ..train.checkpoint import load_encoder_weights_from_full, load_state, load_weights
 from ..utils import evaluations as eval_utils
-from ..utils.config import (apply_runtime_flags, caspr_config_from_flags, get_general_options,
-                            get_test_options, parallel_setup, refuse_unported)
+from ..utils.config import (apply_runtime_flags, caspr_config_from_flags, check_flags,
+                            get_general_options, get_test_options, parallel_setup)
 from ..utils.evaluations import (test_observed_camera_pose_ransac, test_shape_recon,
                                  test_tnocs_regression)
 
@@ -75,8 +78,10 @@ def load_model_weights(flags, params, state, log_out):
 
 
 def test(flags, device=None):
-    refuse_unported(flags)
-    mesh, device, rank, ranks, log_name = parallel_setup(flags, device, flags.log)
+    protocols = (flags.eval_shape_recon_observed or flags.eval_shape_recon_unobserved
+                 or flags.eval_tnocs_regression or flags.eval_pose_observed_ransac)
+    check_flags(flags, eval_utils.PROTOCOL_NUM_PTS if protocols else None)
+    mesh, device, rank, shards, log_name = parallel_setup(flags, device, flags.log)
     os.makedirs(flags.out, exist_ok=True)
     log_out = os.path.join(flags.out, log_name)
     log(log_out, flags)
@@ -90,9 +95,6 @@ def test(flags, device=None):
     if mesh is not None:
         log(log_out, f"Eval mesh over {describe(mesh)}, rank {rank}")
         replicate(mesh, (params, state))
-        if flags.batch_size % ranks != 0:
-            log(log_out, f"WARNING: batch size {flags.batch_size} not divisible by dp size "
-                         f"{ranks}; sharded eval will fail -- adjust --batch-size")
 
     test_dataset = DynamicPCLDataset(
         flags.data_cfg, split="test", train_frac=0.8, val_frac=0.1, num_pts=flags.num_pts,
@@ -103,8 +105,7 @@ def test(flags, device=None):
         len(test_dataset)))
     test_loader = SequenceLoader(test_dataset, batch_size=flags.batch_size,
                                  shuffle=flags.shuffle_test, seed=flags.seed,
-                                 num_workers=flags.num_workers, pad_last=True, num_shards=ranks,
-                                 shard_index=rank)
+                                 num_workers=flags.num_workers, pad_last=True, **shards)
 
     def timed(what, fn, *args, **kwargs):
         start = time.perf_counter()

@@ -26,7 +26,11 @@ and over several nodes with ``--multihost`` (``torchrun --nnodes <n>
 global batch) and the gradients are summed over the ranks
 (``train.loop``); rank 0 writes the checkpoints, the curves and
 train_log.txt, and rank i > 0 logs to rank<i>_train_log.txt and writes
-nothing else.
+nothing else.  ``--sp-size k`` adds point parallelism, the ``(dp, sp)``
+mesh: the k ranks of a point group load the same rows and each takes its
+range of their points:
+
+    torchrun --nproc_per_node 4 -m caspr_tpu_torch.cli.train --parallel --sp-size 2 ...
 """
 
 from __future__ import annotations
@@ -48,9 +52,9 @@ from ..parallel.mesh import describe
 from ..train import (TestStatTracker, TrainLossTracker, log, make_eval_step, make_optimizer,
                      make_train_step, print_stats, run_one_epoch, save_checkpoint)
 from ..train.checkpoint import restore_adam_state
-from ..utils.config import (apply_runtime_flags, caspr_config_from_flags, get_general_options,
-                            get_train_options, ode_steps_from_env, parallel_setup,
-                            refuse_unported)
+from ..utils.config import (apply_runtime_flags, caspr_config_from_flags, check_flags,
+                            get_general_options, get_train_options, ode_steps_from_env,
+                            parallel_setup)
 from .test import load_model_weights
 
 
@@ -63,16 +67,14 @@ def parse_args(argv):
 
 
 def train(flags, device=None):
-    refuse_unported(flags)
-    mesh, device, rank, ranks, log_name = parallel_setup(flags, device, "train_log.txt")
+    check_flags(flags)
+    mesh, device, rank, shards, log_name = parallel_setup(flags, device, "train_log.txt")
     lead = rank == 0
     os.makedirs(flags.out, exist_ok=True)
     log_out = os.path.join(flags.out, log_name)
     log(log_out, flags)
     if mesh is not None:
         log(log_out, f"Parallel mesh over {describe(mesh)}, rank {rank}")
-        if flags.batch_size % ranks != 0:
-            log(log_out, "WARNING: batch size not divisible by dp size")
 
     def dataset(split, random_point_sample):
         return DynamicPCLDataset(
@@ -84,7 +86,6 @@ def train(flags, device=None):
     log(log_out, "Data loader: %s, %d train and %d val sequences" % (
         "native (native/npz_loader.cpp)" if train_dataset.use_native_loader else "numpy",
         len(train_dataset), len(val_dataset)))
-    shards = {"num_shards": ranks, "shard_index": rank}
     train_loader = SequenceLoader(train_dataset, batch_size=flags.batch_size, shuffle=True,
                                   drop_last=True, seed=flags.seed, num_workers=flags.num_workers,
                                   microbatches=flags.grad_accum, **shards)

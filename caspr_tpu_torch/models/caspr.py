@@ -10,6 +10,16 @@ the MovingBatchNorm state are dicts of tensors on that device, from a
 checkpoint (``caspr_tpu_torch.weights``) or freshly drawn (``caspr_init``).
 The device defaults to the card: without CUDA the constructor raises
 unless the caller asks for the CPU.
+
+Sharded over ranks (``groups=``, ``parallel.mesh.Groups``), a rank holds
+its rows of the global batch and, with sp, its range of each cloud's
+points.  The encoder needs whole clouds (FPS, the ball query, three-NN):
+the input is gathered over the point group ahead of it, the encoder runs
+alike on every rank of a point group, and the rank keeps its points of the
+T-NOCS prediction.  The latent ODE solves the rank's rows over the batch
+group, alike on every rank of a point group; its parameters and the
+latent code enter the gradient once (``parallel.mesh.count_once``).  The
+CNF solves the rank's rows and points over the whole group.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ import torch
 
 from ..ops import sample_gaussian, sphere_surface_points, standard_normal_logprob
 from ..ops.odeint import DISCRETE_STEPS, NFESink
-from ..parallel.mesh import all_gather_rows, group_rank_size
+from ..parallel.mesh import all_gather_cat, count_once, global_draw, group_rank_size
 from .cnf import CNFConfig, flow_forward, flow_param_shapes, flow_reverse
 from .latent_ode import LatentODEConfig, dynamics_param_shapes, latent_ode_solve
 from .tpointnet2 import TPointNet2Config, tpointnet2_apply, tpointnet2_param_shapes
@@ -155,9 +165,21 @@ class CaSPRModel:
         self.cfg = cfg
         self.device = resolve_device(device)
 
-    def encode(self, params, x):
-        """x: (B, T, N, 4) -> (z0 (B, H), tnocs_pred (B, T, N, 4) or None)."""
-        return tpointnet2_apply(params["encoder"], self.cfg.encoder_config(), x)
+    def encode(self, params, x, point=None):
+        """x: (B, T, N, 4) -> (z0 (B, H), tnocs_pred (B, T, N, 4) or None).
+
+        ``point``: a process group over which x's points are sharded, x
+        being this rank's range of them.  The clouds are gathered whole
+        over it ("points"), encoded, and tnocs_pred is this rank's range."""
+        if point is None:
+            return tpointnet2_apply(params["encoder"], self.cfg.encoder_config(), x)
+        n = x.shape[2]
+        z0, tnocs_pred = tpointnet2_apply(params["encoder"], self.cfg.encoder_config(),
+                                          all_gather_cat(x, point, "points", dim=2))
+        if tnocs_pred is not None:
+            rank = group_rank_size(point)[0]
+            tnocs_pred = tnocs_pred[:, :, rank * n:(rank + 1) * n]
+        return z0, tnocs_pred
 
     def aggregate_and_solve_latent(self, params, z0, times, shared_times: bool = False, *,
                                    adjoint: bool = False, nfe_sink: Optional[NFESink] = None,
@@ -187,7 +209,7 @@ class CaSPRModel:
             rank = 0
             if group is not None:
                 rank = group_rank_size(group)[0]
-                times = all_gather_rows(times, group, "times")
+                times = all_gather_cat(times, group, "times")
             flat = times.reshape(-1)
             order = torch.argsort(flat, stable=True)
             sorted_t = flat[order]
@@ -202,7 +224,7 @@ class CaSPRModel:
 
     def forward(self, params, state, x, sample_points, generator=None, *,
                 training: bool = False, e=None, nfe_sink=None, ode_backward: str = "adjoint",
-                ode_steps: int = DISCRETE_STEPS, group=None):
+                ode_steps: int = DISCRETE_STEPS, groups=None):
         """Forward with unreduced losses, for evaluation or training.
 
         x, sample_points: (B, T, N, 4).  Returns (out, state): out has
@@ -218,13 +240,16 @@ class CaSPRModel:
         ``NFESink``s, collects each solver's backward NFE when the gradient
         is taken, or with ``ode_backward="discrete"`` by autograd through at
         most ``ode_steps`` steps of each solve (the sinks get nothing).
-        ``group``: a process group over which the batch is sharded, x and
-        sample_points being this rank's rows; every reduction over the batch
-        is then global (``parallel.mesh``) and the outputs are this rank's
-        rows of the one-process run's."""
+        ``groups``: the process groups over which the batch (and with sp
+        the points) is sharded, x and sample_points being this rank's rows
+        and points; every reduction is then global (``parallel.mesh``) and
+        the outputs are this rank's part of the one-process run's.  The
+        latent code and the latent ODE's parameters, alike on every rank of
+        a point group, pass the point group's ``count_once``."""
         cfg = self.cfg
         b, t, n, _ = sample_points.shape
-        z0, tnocs_pred = self.encode(params, x)
+        point = None if groups is None else groups.point
+        z0, tnocs_pred = self.encode(params, x, point)
         out = {}
         if cfg.regress_tnocs:
             size = cfg.tnocs_point_size
@@ -234,74 +259,88 @@ class CaSPRModel:
             out["nfe"] = (0.0, 0.0)
             return out, state
         sink = nfe_sink or {}
+        z0 = count_once(z0, point)
+        params = {**params, "latent_ode": count_once(params["latent_ode"], point)}
         feats, ode_nfe = self.aggregate_and_solve_latent(
             params, z0, sample_points[:, :, 0, 3], adjoint=training, nfe_sink=sink.get("latent"),
-            ode_backward=ode_backward, ode_steps=ode_steps, group=group)
+            ode_backward=ode_backward, ode_steps=ode_steps,
+            group=None if groups is None else groups.batch)
         pts = sample_points[..., :3].reshape(b * t, n, 3)
         y, dlogp, cnf_state, cnf_nfe = flow_forward(
             params["point_cnf"], state["point_cnf"], cfg.cnf_config(), pts,
             feats.reshape(b * t, cfg.latent_feat_size), pts.new_zeros((b * t, n, 1)),
             generator=generator, e=e, training=training, nfe_sink=sink.get("cnf"),
-            ode_backward=ode_backward, ode_steps=ode_steps, group=group)
+            ode_backward=ode_backward, ode_steps=ode_steps, groups=groups)
         log_py = standard_normal_logprob(y).sum(dim=-1)  # (B*T, N)
         out["nll"] = -(log_py - dlogp.reshape(b * t, n)).reshape(b, t, n)
         out["nfe"] = (ode_nfe, cnf_nfe)
         return out, ({**state, "point_cnf": cnf_state} if training else state)
 
     def sample_base(self, generator, batch: int, num_points: int, truncate_std=None,
-                    sample_contours: Optional[Sequence[float]] = None, group=None):
+                    sample_contours: Optional[Sequence[float]] = None, groups=None):
         """Base samples (batch, num_points, 3): Gaussian (optionally
-        truncated), or points on spheres of the given radii.  With a process
-        ``group`` of R ranks the draw is the global batch's, (R * batch,
-        num_points, 3), and this rank keeps its rows."""
-        rank, size = (0, 1) if group is None else group_rank_size(group)
-        rows = slice(rank * batch, (rank + 1) * batch)
+        truncated), or points on spheres of the given radii.  With process
+        ``groups`` the draw is the global batch's, (R_dp * batch,
+        num_points, 3), and this rank keeps its rows and, with sp, its
+        range of num_points / sp points."""
         if sample_contours is None:
-            y = sample_gaussian(generator, (size * batch, num_points, 3), truncate_std,
-                                device=self.device)
-            return y if group is None else y[rows]
-        radii = list(sample_contours)
-        contours, taken = [], 0
-        for i, radius in enumerate(radii):
-            cur = num_points - taken if i == len(radii) - 1 else num_points // len(radii)
-            pts = sphere_surface_points(generator, size * batch * cur, radius, device=self.device)
-            contours.append(pts.reshape(size * batch, cur, 3)[rows])
-            taken += num_points // len(radii)
-        return torch.cat(contours, dim=1)
+            draw = lambda shape: sample_gaussian(generator, shape, truncate_std,
+                                                 device=self.device)
+        else:
+            radii = list(sample_contours)
 
-    def decode_from_samples(self, params, state, z, y, group=None):
+            def draw(shape):
+                contours, taken = [], 0
+                for i, radius in enumerate(radii):
+                    cur = num_points - taken if i == len(radii) - 1 else num_points // len(radii)
+                    pts = sphere_surface_points(generator, shape[0] * cur, radius,
+                                                device=self.device)
+                    contours.append(pts.reshape(shape[0], cur, 3))
+                    taken += num_points // len(radii)
+                return torch.cat(contours, dim=1)
+
+        if groups is None:
+            return draw((batch, num_points, 3))
+        sp = group_rank_size(groups.point)[1]
+        if num_points % sp:
+            raise ValueError(f"{num_points} points not divisible by {sp} sp ranks")
+        return global_draw(draw, (batch, num_points // sp, 3), groups)
+
+    def decode_from_samples(self, params, state, z, y, groups=None):
         """Decode given base samples.  z: (B, T, H); y: (B, T, N, 3) ->
-        (logp_y (B, T, N), x (B, T, N, 3), cnf_nfe).  ``group``: a process
-        group over which the rows are sharded."""
+        (logp_y (B, T, N), x (B, T, N, 3), cnf_nfe).  ``groups``: the
+        process groups over which the rows and points are sharded."""
         b, t, h = z.shape
         n = y.shape[2]
         y = y.reshape(b * t, n, 3)
         logp_y = standard_normal_logprob(y).sum(dim=-1)
         x, nfe = flow_reverse(params["point_cnf"], state["point_cnf"], self.cfg.cnf_config(),
-                              y, z.reshape(b * t, h), group)
+                              y, z.reshape(b * t, h), groups)
         return logp_y.reshape(b, t, n), x.reshape(b, t, n, 3), nfe
 
     def decode(self, params, state, z, generator, num_points: int = 1024,
                constant_in_time: bool = False, truncate_std: Optional[float] = None,
-               sample_contours: Optional[Sequence[float]] = None, group=None):
+               sample_contours: Optional[Sequence[float]] = None, groups=None):
         """Sample points at each step from latents z (B, T, H).  Returns
         (y base samples (B, T, N, 3), logp_y (B, T, N), x (B, T, N, 3), nfe).
-        ``group``: a process group over which the rows are sharded (the
-        base samples drawn for the global batch, ``sample_base``)."""
+        ``groups``: the process groups over which the rows and points are
+        sharded (the base samples drawn for the global batch and cut,
+        ``sample_base``; N is then num_points / sp)."""
         b, t, _ = z.shape
         batch = b if constant_in_time else b * t
-        y = self.sample_base(generator, batch, num_points, truncate_std, sample_contours, group)
+        y = self.sample_base(generator, batch, num_points, truncate_std, sample_contours, groups)
+        n = y.shape[1]
         if constant_in_time:
-            y = y[:, None].expand(b, t, num_points, 3)
-        y = y.reshape(b, t, num_points, 3)
-        logp_y, x, nfe = self.decode_from_samples(params, state, z, y, group)
+            y = y[:, None].expand(b, t, n, 3)
+        y = y.reshape(b, t, n, 3)
+        logp_y, x, nfe = self.decode_from_samples(params, state, z, y, groups)
         return y, logp_y, x, nfe
 
     def reconstruct(self, params, state, x, generator, num_points: int = 1024,
                     constant_in_time: bool = False, timestamps=None,
                     max_timestamp: float = 5.0, truncate_std: Optional[float] = None,
                     sample_contours: Optional[Sequence[float]] = None, base_samples=None,
-                    group=None):
+                    groups=None):
         """Encode -> advect -> decode.
 
         x: (B, T, N, 4) conditioning sequence; timestamps: (T',) decode
@@ -309,23 +348,25 @@ class CaSPRModel:
         (B, T', num_points, 3), when given, replaces the sampled base
         points (and ``generator`` is not used).  ``group``: a process group
         over which the batch is sharded, x (and base_samples) being this
-        rank's rows; every rank passes the same ``timestamps``.
+        rank's rows; every rank passes the same ``timestamps``.  With sp
+        (``groups.point``) x, base_samples and the outputs are this rank's
+        range of the points, and ``num_points`` is the global count.
         Returns (y, logp_y, x_recon, tnocs_pred, (ode_nfe, cnf_nfe))."""
         b = x.shape[0]
-        z0, tnocs_pred = self.encode(params, x)
+        z0, tnocs_pred = self.encode(params, x, None if groups is None else groups.point)
         if timestamps is None:
             all_times = x[:, :, 0, 3] / max_timestamp
         else:
             all_times = timestamps.reshape(1, -1).expand(b, timestamps.shape[-1])
         z, ode_nfe = self.aggregate_and_solve_latent(params, z0, all_times,
                                                      shared_times=timestamps is not None,
-                                                     group=group)
+                                                     group=None if groups is None else groups.batch)
         if base_samples is None:
             y, logp_y, x_rec, cnf_nfe = self.decode(
                 params, state, z, generator, num_points=num_points,
                 constant_in_time=constant_in_time, truncate_std=truncate_std,
-                sample_contours=sample_contours, group=group)
+                sample_contours=sample_contours, groups=groups)
         else:
             y = base_samples
-            logp_y, x_rec, cnf_nfe = self.decode_from_samples(params, state, z, y, group)
+            logp_y, x_rec, cnf_nfe = self.decode_from_samples(params, state, z, y, groups)
         return y, logp_y, x_rec, tnocs_pred, (ode_nfe, cnf_nfe)

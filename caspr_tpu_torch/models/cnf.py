@@ -37,6 +37,13 @@ that reaches the loss; t_end's gradient comes through the dense output.  The
 MovingBatchNorms update their running statistics
 from the batch (PointFlow's transpose-reshape statistics) and normalise
 with the statistics from before the update.
+
+Sharded over ranks (``groups=``, ``parallel.mesh.Groups``), a rank holds
+its rows of the batch and, with sp, its range of each cloud's points: the
+solvers' error norms run over the whole group, the Hutchinson noise is
+drawn at the global shape and cut, the MovingBatchNorm statistics are
+taken on the gathered global batch, and the context's cotangent, a sum
+over points, is summed over the point group.
 """
 
 from __future__ import annotations
@@ -50,8 +57,8 @@ import torch
 from ..ops import cnf_dynamics, cnf_primal, odeint
 from ..ops.cnf_fused import (context_gb, kernel_takes, pack_weights, reference_dynamics,
                               reference_primal)
-from ..ops.odeint import DISCRETE_STEPS, flatten_tree, nfe_add, odeint_train
-from ..parallel.mesh import all_gather_rows, group_rank_size
+from ..ops.odeint import DISCRETE_STEPS, REPLICATED, ROWS, flatten_tree, nfe_add, odeint_train
+from ..parallel.mesh import all_gather_cat, global_draw, sum_grad
 
 
 @dataclass(frozen=True)
@@ -148,10 +155,11 @@ def _time_context(t, context):
     return torch.cat([col, context], dim=1)
 
 
-def cnf_block_apply(params, cfg: CNFConfig, x, context, group=None):
+def cnf_block_apply(params, cfg: CNFConfig, x, context, groups=None):
     """One CNF block, reverse (sampling) direction, on the points alone.
-    x: (BT, N, D), context (BT, zdim) -> (y (BT, N, D), nfe).  ``group``:
-    the process group over which the rows are sharded (``ops.odeint``)."""
+    x: (BT, N, D), context (BT, zdim) -> (y (BT, N, D), nfe).  ``groups``:
+    the process groups over which the rows and points are sharded; the
+    solver's norms run over the whole group (``ops.odeint``)."""
     _check_supported(cfg)
     t_end = _end_time(params, cfg)
     bt, n, d = x.shape
@@ -166,13 +174,17 @@ def cnf_block_apply(params, cfg: CNFConfig, x, context, group=None):
 
     ts = np.array([0.0, t_end], np.float32)
     xs, nfe = odeint(dynamics, x.reshape(bt, n * d), ts, rtol=cfg.rtol, atol=cfg.atol,
-                     group=group)
+                     group=_whole(groups))
     return xs[1].reshape(bt, n, d), nfe
+
+
+def _whole(groups):
+    return None if groups is None else groups.whole
 
 
 def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training: bool = False,
                       nfe_sink=None, ode_backward: str = "adjoint",
-                      ode_steps: int = DISCRETE_STEPS, group=None):
+                      ode_steps: int = DISCRETE_STEPS, groups=None):
     """One CNF block, forward (likelihood) direction, on (points,
     log-density).  x, e: (BT, N, D); context (BT, zdim); logpx (BT, N, 1)
     -> (y (BT, N, D), logpy (BT, N, 1), nfe).  e is the Hutchinson noise,
@@ -180,9 +192,13 @@ def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training:
     kernel's VJP and the reference).  ``training=True`` solves through
     ``odeint_train``: the adjoint, reporting its backward NFE to
     ``nfe_sink``, or with ``ode_backward="discrete"`` autograd through at
-    most ``ode_steps`` solver steps.  ``group``: the process group over
-    which the rows are sharded; the ODEnet's parameters and t_end are the
-    adjoint's replicated args, the context its sharded one."""
+    most ``ode_steps`` solver steps.  ``groups``: the process groups over
+    which the rows and points are sharded; the ODEnet's parameters and
+    t_end are the adjoint's replicated args, the context its ROWS arg (a
+    sum over the point group's points at each evaluation).  Under
+    autograd ("discrete") the context's cotangent is summed over the point
+    group once, so that it is the one-process cotangent of the rank's rows
+    in both modes."""
     _check_supported(cfg)
     bt, n, d = x.shape
 
@@ -201,47 +217,53 @@ def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training:
         t_end = (params["sqrt_end_time"] * params["sqrt_end_time"] if cfg.train_T
                  else torch.tensor(cfg.time_length, dtype=x.dtype, device=x.device))
         ts = torch.stack([torch.zeros_like(t_end), t_end])
-        replicated = [True] * len(flatten_tree(params["odenet"])[0]) + [False, True]
+        kinds = [REPLICATED] * len(flatten_tree(params["odenet"])[0]) + [ROWS, REPLICATED]
+        point = None if groups is None else groups.point
+        if ode_backward == "discrete":
+            context = sum_grad(context, point, "discrete_ctx")
         (xs, lps), nfe = odeint_train(dynamics, state0, ts, (params["odenet"], context, t_end),
                                       rtol=cfg.rtol, atol=cfg.atol, backward=ode_backward,
-                                      num_steps=ode_steps, nfe_sink=nfe_sink, group=group,
-                                      replicated=replicated)
+                                      num_steps=ode_steps, nfe_sink=nfe_sink, group=_whole(groups),
+                                      kinds=kinds, point_group=point)
     else:
         ts = np.array([0.0, _end_time(params, cfg)], np.float32)
         args = (params["odenet"], context)
         (xs, lps), nfe = odeint(lambda t, state: dynamics(t, state, args), state0, ts,
-                                rtol=cfg.rtol, atol=cfg.atol, group=group)
+                                rtol=cfg.rtol, atol=cfg.atol, group=_whole(groups))
     return xs[1].reshape(bt, n, d), lps[1].reshape(bt, n, 1), nfe
 
 
-def _mbn_batch_stats(x, group=None):
+def _mbn_batch_stats(x, groups=None):
     """PointFlow's running-statistics update reads x transposed to
     (N, BT, C) and reshaped to (C, -1) -- not a per-channel reduction; kept
     as the JAX package keeps it (caspr_tpu/models/cnf.py::_mbn_batch_stats).
     Returns (mean, unbiased variance) over each row.
 
-    With a process group x is this rank's rows of the global batch; the
-    quirk's rows are point ranges over every rank's rows (cut inside a
-    point where C does not divide N, at a place that depends on the number
-    of ranks), so the global batch is gathered and the one-process
-    statistics taken on it."""
-    if group is not None:
-        x = all_gather_rows(x, group, "mbn")
+    With process groups x is this rank's rows (and points) of the global
+    batch; the quirk's rows are point ranges over every rank's rows (cut
+    inside a point where C does not divide N, at a place that depends on
+    the number of ranks and the points a rank holds), so the global batch
+    is gathered, its points over the point group, then its rows over the
+    batch group, and the one-process statistics taken on it."""
+    if groups is not None:
+        if groups.point is not None:
+            x = all_gather_cat(x, groups.point, "mbn", dim=1)
+        x = all_gather_cat(x, groups.batch, "mbn")
     xt = x.transpose(0, 1).reshape(x.shape[-1], -1)
     return xt.mean(dim=1), xt.var(dim=1, correction=1)
 
 
-def mbn_forward(params, state, cfg: CNFConfig, x, logpx, training: bool = False, group=None):
+def mbn_forward(params, state, cfg: CNFConfig, x, logpx, training: bool = False, groups=None):
     """The MovingBatchNorm with its running statistics and its log-det:
     (y, logpx - sum_c(weight_c - log(var_c + eps) / 2), new_state).  It
     normalises with the statistics from before the update; with
     ``training`` the new state moves them bn_decay of the way to the
-    batch's (no gradient; global over ``group``'s ranks) and counts the
+    batch's (no gradient; global over ``groups``) and counts the
     step, else it is ``state``."""
     new_state = state
     if training:
         with torch.no_grad():
-            bmean, bvar = _mbn_batch_stats(x, group)
+            bmean, bvar = _mbn_batch_stats(x, groups)
             mean, var = state["running_mean"], state["running_var"]
             new_state = {"running_mean": mean - cfg.bn_decay * (mean - bmean),
                          "running_var": var - cfg.bn_decay * (var - bvar),
@@ -258,24 +280,24 @@ def mbn_reverse(params, state, cfg: CNFConfig, x):
     return y * torch.sqrt(state["running_var"] + cfg.bn_eps) + state["running_mean"]
 
 
-def flow_reverse(params, state, cfg: CNFConfig, y, context, group=None):
+def flow_reverse(params, state, cfg: CNFConfig, y, context, groups=None):
     """Base samples y (BT, N, D) -> points, visiting the chain back to
-    front.  Returns (x, nfe).  ``group``: the process group over which the
-    rows are sharded."""
+    front.  Returns (x, nfe).  ``groups``: the process groups over which
+    the rows and points are sharded."""
     kinds = cfg.chain()
     nfe = 0.0
     for i in range(len(kinds) - 1, -1, -1):
         if kinds[i] == "mbn":
             y = mbn_reverse(params[i], state[i], cfg, y)
         else:
-            y, block_nfe = cnf_block_apply(params[i], cfg, y, context, group)
+            y, block_nfe = cnf_block_apply(params[i], cfg, y, context, groups)
             nfe += block_nfe
     return y, nfe
 
 
 def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=None, e=None, *,
                  training: bool = False, nfe_sink=None, ode_backward: str = "adjoint",
-                 ode_steps: int = DISCRETE_STEPS, group=None):
+                 ode_steps: int = DISCRETE_STEPS, groups=None):
     """Points x (BT, N, D) with log-density channel logpx (BT, N, 1) ->
     (y, logpy, new_state, nfe), visiting the chain front to back.
 
@@ -285,31 +307,30 @@ def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=Non
     ``training`` updates the MovingBatchNorm statistics (new_state) and
     solves the blocks for their gradient (``cnf_block_forward``).
 
-    ``group``: a process group over which the rows are sharded, this
-    rank's rows being the rank-th equal part of the global batch.  Each
-    block's noise is then drawn at the global shape (R * BT, N, D) and this
-    rank keeps its rows, so that ranks whose generators are alike hold the
-    one-process noise; ``e`` is this rank's rows."""
+    ``groups``: the process groups over which the rows and points are
+    sharded, this rank's rows being the batch-group rank's equal part of
+    the global batch and its points the point-group rank's range.  Each
+    block's noise is then drawn at the global shape (R_dp * BT, sp * N, D)
+    and this rank keeps its rows and points, so that ranks whose generators
+    are alike hold the one-process noise; ``e`` is this rank's part."""
     noise = None if e is None else ([e] if isinstance(e, torch.Tensor) else list(e))
     new_state = list(state)
     nfe, block = 0.0, 0
     for i, (kind, p) in enumerate(zip(cfg.chain(), params)):
         if kind == "mbn":
-            x, logpx, new_state[i] = mbn_forward(p, state[i], cfg, x, logpx, training, group)
+            x, logpx, new_state[i] = mbn_forward(p, state[i], cfg, x, logpx, training, groups)
             continue
-        if noise is None and group is None:
+        if noise is None and groups is None:
             cur = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
         elif noise is None:
-            rank, size = group_rank_size(group)
-            cur = torch.randn((size * x.shape[0], *x.shape[1:]), generator=generator,
-                              dtype=x.dtype, device=x.device)[rank * x.shape[0]:
-                                                              (rank + 1) * x.shape[0]]
+            cur = global_draw(lambda shape: torch.randn(shape, generator=generator, dtype=x.dtype,
+                                                        device=x.device), x.shape, groups)
         else:
             cur = noise[block]
         x, logpx, block_nfe = cnf_block_forward(p, cfg, x, context, logpx, cur,
                                                 training=training, nfe_sink=nfe_sink,
                                                 ode_backward=ode_backward, ode_steps=ode_steps,
-                                                group=group)
+                                                groups=groups)
         nfe = nfe_add(nfe, block_nfe)
         block += 1
     return x, logpx, new_state, nfe

@@ -12,7 +12,7 @@ import torch
 
 from ..nn import linear
 from ..ops import odeint
-from ..ops.odeint import DISCRETE_STEPS, odeint_train
+from ..ops.odeint import DISCRETE_STEPS, REPLICATED, odeint_train
 
 
 @dataclass(frozen=True)
@@ -56,7 +56,8 @@ def latent_ode_solve(params, cfg: LatentODEConfig, z0, t, *, adjoint: bool = Fal
     adjoint, two evaluations each, as in the JAX package.
     ``group``: a process group over which z0's rows are sharded (every
     rank passes the same t); the parameters are the adjoint's replicated
-    args."""
+    args.  Under point parallelism it is the batch group: every rank of a
+    point group solves the same rows alike."""
     rel_t = t - t[0]
     if cfg.augment_size > 0:
         z0 = torch.cat([z0, z0.new_zeros((z0.shape[0], cfg.augment_size))], dim=1)
@@ -64,7 +65,7 @@ def latent_ode_solve(params, cfg: LatentODEConfig, z0, t, *, adjoint: bool = Fal
         zs, nfe = odeint_train(lambda _t, z, p: dynamics_apply(p, z), z0, rel_t, params,
                                rtol=cfg.rtol, atol=cfg.atol, backward=ode_backward,
                                num_steps=ode_steps, nfe_sink=nfe_sink, group=group,
-                               replicated=True)
+                               kinds=REPLICATED)
     else:
         zs, nfe = odeint(lambda _t, z: dynamics_apply(params, z), z0, rel_t,
                          rtol=cfg.rtol, atol=cfg.atol, group=group)  # (T, B, H')

@@ -36,16 +36,17 @@ marker on its NFE.  ``odeint_train`` is the training solve, one or the
 other by its ``backward`` argument.  ``nfe_add`` and ``nfe_sum`` combine
 NFE counts as the JAX package does (caspr_tpu/ops/odeint.py:440-456).
 
-Data parallelism: each solver takes ``group=``, a process group over which
-the state's batch rows are sharded (``parallel.mesh``).  ``None`` is the
-one-process solver, op for op.  With a group the error norms are global
-(``_norm``: one all-reduce per norm of the sharded leaves' sums of squares
-and counts, still one host read), so every accept, NaN reject and
-initial-step decision, and the end of the loop, is the same on every rank
-and the one-process run's; the ranks stay in lockstep through the
-collectives inside the loop.  The adjoint also sums the VJP of its
-replicated args over the ranks at each augmented evaluation
-(``odeint_adjoint``).
+Data and point parallelism: each solver takes ``group=``, a process group
+over which the state's rows (and, with sp, its points) are sharded
+(``parallel.mesh``).  ``None`` is the one-process solver, op for op.  With
+a group the error norms are global (``_norm``: one all-reduce per norm of
+the sharded leaves' sums of squares and counts, still one host read), so
+every accept, NaN reject and initial-step decision, and the end of the
+loop, is the same on every rank and the one-process run's; the ranks stay
+in lockstep through the collectives inside the loop.  The adjoint also
+sums the VJP of its replicated args over the ranks at each augmented
+evaluation, and that of its args sharded over the rows alone over the
+point group (``odeint_adjoint``).
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import all_reduce_sum, all_reduce_sum_leaves
+from ..parallel.mesh import all_reduce_sum, all_reduce_sum_leaves, is_lead
 
 F32 = np.float32
 
@@ -88,6 +89,10 @@ _C_MID = np.array([
     11237099 / 235043384 / 2,
 ], np.float64).astype(F32)
 
+# the kinds of an adjoint's arg leaves (odeint_adjoint)
+REPLICATED, ROWS = "replicated", "rows"
+ARG_KINDS = (REPLICATED, ROWS)
+
 # the attempted-step bound of odeint_discrete: about 2x the trained flow's
 # step count at the reference's tolerances
 DISCRETE_STEPS = 128
@@ -112,46 +117,49 @@ def _axpy(y, h, d):
     return tuple(a + float(h) * b for a, b in zip(y, d))
 
 
-def _norm(leaves, group=None, sharded=None) -> np.float32:
+def _norm(leaves, group=None, weights=None) -> np.float32:
     """max over the leaves of sqrt(mean(leaf^2)), in one host read.
 
-    With a process group, the leaves flagged in ``sharded`` (default: all)
-    hold this rank's rows of a batch-sharded leaf: their mean is over every
-    rank's rows, from one all-reduce of each such leaf's (sum of squares,
-    element count) in float64.  The others are equal on every rank and enter
-    as they are.  Every rank gets the same value, so every host decision
-    taken on it is the same on every rank."""
+    With a process group, a leaf whose entry in ``weights`` (default: 1
+    for every leaf) is a number holds this rank's part of a sharded leaf:
+    its mean is over every rank's part, from one all-reduce of each such
+    leaf's (sum of squares, element count) in float64, times the weight,
+    1, or 0 where another rank holds the same part and adds it.  A leaf
+    whose entry is None is equal on every rank and enters as it is.  Every
+    rank gets the same value, so every host decision taken on it is the
+    same on every rank."""
     if group is None:
         rms = [torch.sqrt(torch.mean(torch.square(leaf))) for leaf in leaves]
         return F32((rms[0] if len(rms) == 1 else torch.stack(rms).max()).item())
-    sharded = (True,) * len(leaves) if sharded is None else tuple(sharded)
-    split = [leaf for leaf, s in zip(leaves, sharded) if s]
-    rms = [torch.sqrt(torch.mean(torch.square(leaf))) for leaf, s in zip(leaves, sharded) if not s]
+    weights = (1.0,) * len(leaves) if weights is None else tuple(weights)
+    split = [(leaf, w) for leaf, w in zip(leaves, weights) if w is not None]
+    rms = [torch.sqrt(torch.mean(torch.square(leaf)))
+           for leaf, w in zip(leaves, weights) if w is None]
     if split:
         sums = torch.stack([torch.stack([leaf.double().square().sum(),
-                                         leaf.new_tensor(leaf.numel(), dtype=torch.float64)])
-                            for leaf in split])
+                                         leaf.new_tensor(leaf.numel(), dtype=torch.float64)]) * w
+                            for leaf, w in split])
         sums = all_reduce_sum(sums, group, "norm")
         rms.extend(torch.sqrt(sums[:, 0] / sums[:, 1]).float())
     return F32(torch.stack(rms).max().item())
 
 
-def _error_ratio(err, y0, y1, rtol, atol, group=None, sharded=None) -> np.float32:
+def _error_ratio(err, y0, y1, rtol, atol, group=None, weights=None) -> np.float32:
     return _norm([e / (atol + rtol * torch.maximum(a.abs(), b.abs()))
-                  for e, a, b in zip(err, y0, y1)], group, sharded)
+                  for e, a, b in zip(err, y0, y1)], group, weights)
 
 
-def _initial_step(func, t0, y0, f0, rtol, atol, group=None, sharded=None) -> np.float32:
+def _initial_step(func, t0, y0, f0, rtol, atol, group=None, weights=None) -> np.float32:
     """Hairer's starting-step heuristic (one extra function evaluation)."""
     scale = [atol + rtol * y.abs() for y in y0]
-    d0 = _norm([y / s for y, s in zip(y0, scale)], group, sharded)
-    d1 = _norm([f / s for f, s in zip(f0, scale)], group, sharded)
+    d0 = _norm([y / s for y, s in zip(y0, scale)], group, weights)
+    d1 = _norm([f / s for f, s in zip(f0, scale)], group, weights)
     if d0 < F32(1e-5) or d1 < F32(1e-5):
         h0 = F32(1e-6)
     else:
         h0 = F32(0.01) * d0 / d1
     f1 = func(t0 + h0, _axpy(y0, h0, f0))
-    d2 = _norm([(a - b) / s for a, b, s in zip(f1, f0, scale)], group, sharded) / h0
+    d2 = _norm([(a - b) / s for a, b, s in zip(f1, f0, scale)], group, weights) / h0
     dmax = max(d1, d2)
     if dmax <= F32(1e-15):
         h1 = max(F32(1e-6), h0 * F32(1e-3))
@@ -185,14 +193,14 @@ def _dense_output(y0, y1, y_mid, f0, f1, h, theta):
     return y0 + th * (hf0 + th * (c2 + th * (c3 + th * c4)))
 
 
-def _solve(func, y0, ts, rtol, atol, max_steps: int, group=None, sharded=None):
+def _solve(func, y0, ts, rtol, atol, max_steps: int, group=None, weights=None):
     """The dopri5 loop of ``odeint`` and ``odeint_discrete``: (ys, nfe,
     whether every request time was reached).  The step controller (the
     initial step, the error ratio) runs without autograd; the stages and
     the dense output run under whatever grad mode the caller set.  Where
     grad is on and ts requires it, the dense output's theta = (ts_i - t) /
     h is a tensor, so the request times get their gradient through it.
-    ``group`` and ``sharded`` go to the error norms (``_norm``)."""
+    ``group`` and ``weights`` go to the error norms (``_norm``)."""
     single = isinstance(y0, torch.Tensor)
     if single:
         y0, leaf_func = (y0,), func
@@ -208,7 +216,7 @@ def _solve(func, y0, ts, rtol, atol, max_steps: int, group=None, sharded=None):
     t, t_final = ts[0], ts[-1]
     f = func(t, y0)
     with torch.no_grad():
-        h = _initial_step(func, t, y0, f, rtol, atol, group, sharded)
+        h = _initial_step(func, t, y0, f, rtol, atol, group, weights)
     y = y0
     filled = ts <= t
     outs = [y0 if done else None for done in filled]
@@ -220,7 +228,7 @@ def _solve(func, y0, ts, rtol, atol, max_steps: int, group=None, sharded=None):
         y1 = _axpy(y, h, _weighted_sum(_B, ks))
         with torch.no_grad():
             err = [float(h) * d for d in _weighted_sum(_B_ERR, ks)]
-            ratio = _error_ratio(err, y, y1, rtol, atol, group, sharded)
+            ratio = _error_ratio(err, y, y1, rtol, atol, group, weights)
         accept = bool(ratio <= F32(1.0))
         t1 = t + h
         if accept:
@@ -259,7 +267,8 @@ def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000, g
     ``group``, a process group over which the state's batch is sharded,
     makes every error norm global (``_norm``): each rank then takes the
     steps of the one-process solve of the whole batch.  Every leaf of y0
-    is this rank's rows.  The ranks must call with equal ts."""
+    is this rank's part (its rows, or its rows' points), which no other
+    rank of the group holds.  The ranks must call with equal ts."""
     ys, nfe, _ = _solve(func, y0, ts, rtol, atol, max_steps, group)
     return ys, nfe
 
@@ -363,8 +372,7 @@ class _Adjoint(torch.autograd.Function):
         num_y = spec["num_y"]
         saved = ctx.saved_tensors
         ts, ys, arg_leaves = saved[0], saved[1:1 + num_y], [a.detach() for a in saved[1 + num_y:]]
-        func, rebuild, group, replicated = (spec["func"], spec["rebuild"], spec["group"],
-                                            spec["replicated"])
+        func, rebuild, group, kinds = spec["func"], spec["rebuild"], spec["group"], spec["kinds"]
         g_ys = [torch.zeros_like(y) if g is None else g for g, y in zip(g_ys, ys)]
         times = ts.detach().cpu().numpy().astype(F32)
         num_t = len(times)
@@ -401,15 +409,13 @@ class _Adjoint(torch.autograd.Function):
                     ) if pairs else (None,) * (num_y + len(args))
                 vjp = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, (*y, *args))]
                 if group is not None:
-                    vjp[num_y:] = _sum_replicated(vjp[num_y:], replicated, group)
+                    vjp[num_y:] = _sum_args(vjp[num_y:], kinds, group, spec["point_group"])
                 return (*(-fo.detach() for fo in f), *vjp)
 
             span = times[i] - times[i - 1]
-            # the replicated leaves' a_args is equal on every rank: it
-            # enters the global norm unreduced
             aug, aug_nfe, _ = _solve(augmented, (*y_i, *a_y, *a_args), np.array([0.0, span], F32),
                                      spec["rtol"], spec["atol"], spec["max_steps"], group,
-                                     (True,) * (2 * num_y) + tuple(not r for r in replicated))
+                                     (1.0,) * (2 * num_y) + spec["arg_weights"])
             a_at_lo = tuple(leaf[1] for leaf in aug[num_y:2 * num_y])
             a_args = tuple(leaf[1] for leaf in aug[2 * num_y:])
             nfe_bwd += aug_nfe + 1.0  # every augmented evaluation calls func once; +1 for f_i
@@ -423,20 +429,28 @@ class _Adjoint(torch.autograd.Function):
             # a replicated leaf's a_args is its gradient summed over ranks
             # already: it leaves from rank 0 alone, so that the caller's sum
             # of every gradient over the ranks adds it once, and exactly
-            a_args = tuple(torch.zeros_like(a) if r else a for a, r in zip(a_args, replicated))
+            a_args = tuple(torch.zeros_like(a) if k == REPLICATED else a
+                           for a, k in zip(a_args, kinds))
         return (None, grad_ts, *a_y, *a_args)
 
 
-def _sum_replicated(vjp, replicated, group):
+def _sum_args(vjp, kinds, group, point_group):
     """The VJP leaves of the replicated args summed over the ranks of
-    ``group`` (one all-reduce of one flat buffer); the others as they are."""
-    summed = iter(all_reduce_sum_leaves([v for v, r in zip(vjp, replicated) if r], group,
-                                        "adjoint_vjp") if any(replicated) else ())
-    return [next(summed) if r else v for v, r in zip(vjp, replicated)]
+    ``group``, and with a ``point_group`` those of the ROWS args over its
+    ranks (one all-reduce of one flat buffer each); the others as they
+    are."""
+    out = list(vjp)
+    for kind, over, name in ((REPLICATED, group, "adjoint_vjp"),
+                             (ROWS, point_group, "adjoint_ctx")):
+        at = [i for i, k in enumerate(kinds) if k == kind]
+        if at and over is not None:
+            for i, v in zip(at, all_reduce_sum_leaves([vjp[i] for i in at], over, name)):
+                out[i] = v
+    return out
 
 
 def odeint_adjoint(func, y0, ts, args=(), *, rtol: float, atol: float, max_steps: int = 50_000,
-                   nfe_sink: NFESink | None = None, group=None, replicated=None):
+                   nfe_sink: NFESink | None = None, group=None, kinds=None, point_group=None):
     """``odeint`` with gradients by the continuous adjoint.
 
     func(t, y, args) -> dy/dt, with y a tensor or a tuple of tensors (as
@@ -455,18 +469,25 @@ def odeint_adjoint(func, y0, ts, args=(), *, rtol: float, atol: float, max_steps
     (sum over the intervals of the augmented solve's NFE + 1, + 1) to
     ``nfe_sink.value``.
 
-    ``group``: a process group over which y0's batch is sharded.  Both
-    solves then take the one-process steps (``odeint``), and the caller
-    says which tensor leaves of args are ``replicated`` (equal on every
-    rank, such as parameters): a sequence of bools, one per leaf in
-    ``flatten_tree`` order, or one bool for all.  At each augmented
-    evaluation the VJP of the replicated leaves is summed over the ranks,
-    so that their a_args is the global value on every rank, as in the JAX
-    package, and enters the error norm so; the other arg leaves (this
-    rank's rows, such as the CNF's context) stay local and enter the norm
-    reduced.  The gradient of a replicated leaf is returned on the group's
-    rank 0, and zero on the others: a sum over the ranks of every gradient
-    then counts it once.  dL/dts is this rank's part of the sum over rows."""
+    ``group``: a process group over which y0 is sharded (``odeint``).  Both
+    solves then take the one-process steps, and the caller says of each
+    tensor leaf of args, in ``flatten_tree`` order (a sequence, or one kind
+    for all), which of ``ARG_KINDS`` it is:
+      - REPLICATED: equal on every rank, such as parameters.  At each
+        augmented evaluation its VJP is summed over ``group`` ("adjoint_vjp"),
+        so that its a_args is the global value on every rank, as in the
+        JAX package, and enters the error norm so.  Its gradient is returned
+        on the group's rank 0 and zero on the others: a sum over the ranks
+        of every gradient then counts it once.
+      - ROWS: this rank's rows, such as the CNF's context.  Without a
+        ``point_group`` its a_args stays local and enters the norm reduced.
+        With one, over which y0's points are sharded and whose ranks hold
+        the same rows, its VJP, a sum over points, is summed over
+        ``point_group`` at each evaluation ("adjoint_ctx"), so that every
+        rank of it holds the one-process cotangent of its rows; it then
+        enters the norm from the point group's rank 0.  Its gradient is
+        returned on every rank.
+    dL/dts is this rank's part of the sum over rows (and points)."""
     single = isinstance(y0, torch.Tensor)
     y_leaves = (y0,) if single else tuple(y0)
     arg_leaves, rebuild = flatten_tree(args)
@@ -476,34 +497,37 @@ def odeint_adjoint(func, y0, ts, args=(), *, rtol: float, atol: float, max_steps
     if not isinstance(ts, torch.Tensor):
         ts = torch.as_tensor(np.asarray(ts, dtype=F32))
     if group is None:
-        replicated = (False,) * len(arg_leaves)
-    elif replicated is None:
-        raise ValueError("a sharded adjoint needs `replicated`: which arg leaves every rank "
-                         "holds alike")
-    elif isinstance(replicated, bool):
-        replicated = (replicated,) * len(arg_leaves)
-    replicated = tuple(bool(r) for r in replicated)
-    if len(replicated) != len(arg_leaves):
-        raise ValueError(f"`replicated` has {len(replicated)} flags for {len(arg_leaves)} leaves")
+        kinds = (ROWS,) * len(arg_leaves)
+    elif kinds is None:
+        raise ValueError(f"a sharded adjoint needs `kinds`: one of {ARG_KINDS} per arg leaf")
+    elif isinstance(kinds, str):
+        kinds = (kinds,) * len(arg_leaves)
+    kinds = tuple(kinds)
+    if len(kinds) != len(arg_leaves) or not set(kinds) <= set(ARG_KINDS):
+        raise ValueError(f"`kinds` {kinds} for {len(arg_leaves)} leaves, each one of {ARG_KINDS}")
+    lead = 1.0 if is_lead(point_group) else 0.0
     spec = {"func": func, "rebuild": rebuild, "num_y": len(y_leaves), "rtol": rtol,
             "atol": atol, "max_steps": max_steps, "sink": nfe_sink, "group": group,
-            "replicated": replicated}
+            "kinds": kinds, "point_group": point_group,
+            # the arg leaves' weights in the augmented solve's error norm
+            "arg_weights": tuple(None if k == REPLICATED else lead for k in kinds)}
     ys = _Adjoint.apply(spec, ts, *y_leaves, *arg_leaves)
     return (ys[0] if single else tuple(ys)), spec["nfe"]
 
 
 def odeint_train(func, y0, ts, args=(), *, rtol: float, atol: float, backward: str = "adjoint",
                  num_steps: int = DISCRETE_STEPS, nfe_sink: NFESink | None = None, group=None,
-                 replicated=None):
+                 kinds=None, point_group=None):
     """The training solve of func(t, y, args): ``odeint_adjoint`` with
     ``backward="adjoint"`` (backward NFE to ``nfe_sink``), or
     ``odeint_discrete`` (at most ``num_steps`` steps; ``nfe_sink`` gets
     nothing: its gradient is autograd's, and the NFE is forward-only).
-    ``group`` and ``replicated`` are ``odeint_adjoint``'s; with "discrete"
-    every gradient is this rank's part of the sum over rows."""
+    ``group``, ``kinds`` and ``point_group`` are ``odeint_adjoint``'s; with
+    "discrete" every gradient is this rank's part of the sum over rows and
+    points (autograd's, which reads no kind: the caller sums what it must)."""
     if backward == "adjoint":
         return odeint_adjoint(func, y0, ts, args, rtol=rtol, atol=atol, nfe_sink=nfe_sink,
-                              group=group, replicated=replicated)
+                              group=group, kinds=kinds, point_group=point_group)
     if backward == "discrete":
         return odeint_discrete(lambda t, y: func(t, y, args), y0, ts, rtol=rtol, atol=atol,
                                num_steps=num_steps, group=group)

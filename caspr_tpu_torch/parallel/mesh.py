@@ -1,58 +1,62 @@
-"""Data parallelism over torch.distributed (counterpart of
+"""Data and point parallelism over torch.distributed (counterpart of
 caspr_tpu/parallel/mesh.py).
 
-The JAX package shards the batch over a ``(dp,)`` or ``(dcn, dp)`` device
-mesh and lets GSPMD run the one-device program over the global batch, so
-every reduction over the batch is global by construction.  The port runs
-PyTorch's way, one process (rank) per device, and a rank holds only its
-rows of each global batch; nothing is global unless the code says so.  The
-reductions the model makes over the batch are made global explicitly, each
-through one of the helpers below:
+The JAX package shards the batch over the ``dp`` axes of a ``(dp,)``,
+``(dcn, dp)``, ``(dp, sp)`` or ``(dcn, dp, sp)`` device mesh, and the point
+axis over ``sp``, and lets GSPMD run the one-device program over the global
+batch, so every reduction is global by construction.  The port runs
+PyTorch's way, one process (rank) per device: a rank holds only its rows
+of each global batch and, with ``sp``, only its range of each cloud's
+points; nothing is global unless the code says so.  Each reduction the
+model makes over rows or points is made global explicitly, through one of
+the helpers below and the process groups of the mesh (``Mesh``): the
+batch group (the dp axes flattened: the ranks that hold the other rows of
+the same points), the point group (the sp axis: the other points of the
+same rows) and the whole group (every rank).  The kinds they count:
 
   - the dopri5 error norms and Hairer's initial step (``ops/odeint.py``,
-    kind "norm"), so that every rank takes the one-process run's steps;
+    "norm"), so that every rank takes the one-process run's steps;
   - the VJP of the replicated parameters at each evaluation of the
-    adjoint's augmented dynamics ("adjoint_vjp");
+    adjoint's augmented dynamics ("adjoint_vjp"), and with sp that of the
+    CNF's context, a sum over points ("adjoint_ctx"; "discrete_ctx" under
+    autograd through the solver);
   - the MovingBatchNorm's batch statistics ("mbn");
   - the latent ODE's request times, the union of every row's ("times");
+  - the encoder's input, whose clouds sp gathers whole ("points");
   - the gradient, summed over ranks in one flat buffer before the
     optimizer's step ("grad"), and the logged scalars ("metrics");
   - the evaluations' per-row results ("eval") and sequence ids ("ids");
   - ``replicate``'s broadcast of the parameters from rank 0 ("replicate").
 
-Random draws over the batch (the Hutchinson noise, the decoder's base
-samples) are made at the global batch's shape from a generator every rank
-seeds alike, and a rank keeps its rows: each rank holds the one-process
-run's numbers.
+Random draws (the Hutchinson noise, the decoder's base samples) are made
+at the global batch's shape from a generator every rank seeds alike, and a
+rank keeps its rows and its points: each rank holds the one-process run's
+numbers.  The rule for sums over ranks: a value sharded over sp enters
+every sum from every rank; a value replicated over sp enters once, from
+the point group's rank 0 (``count_once``).
 
 The helpers count their calls and bytes by kind in ``collectives``, as
 ``ops.kernels`` counts launches.  Bytes are what one rank hands to the
 collective: the buffer of an all-reduce or broadcast, the local part of an
 all-gather, the pickled object of an object gather.
-
-``sp`` (point parallelism) is not ported: ``make_mesh(sp_size > 1)``
-raises (ROADMAP Queue 1 item 10.8).  ``dcn`` is: the 2-D mesh over several
-nodes reduces over its flattened group, where NCCL picks the topology.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import pickle
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh
 
 DP_AXIS = "dp"
 DCN_AXIS = "dcn"
 SP_AXIS = "sp"
-SP_NOT_PORTED = (
-    "point parallelism (--sp-size > 1) is not ported: FPS, the ball query and three-NN need "
-    "each whole cloud, the MovingBatchNorm's statistics rows are point ranges that an sp split "
-    "cuts, and it needs an all-gather ahead of the encoder and a point-sharded CNF reduced over "
-    "the (dp, sp) group (ROADMAP Queue 1 item 10.8)")
+# the point axis of a (B, T, N, ...) batch, cut over sp
+POINT_AXIS = 2
 
 # calls and bytes of each kind of collective since the last
 # reset_collectives(): {kind: {"calls": n, "bytes": b}}
@@ -116,17 +120,45 @@ def init_distributed(backend=None, device=None) -> torch.device:
     return dev
 
 
-def make_mesh(num_slices=None, *, sp_size: int = 1) -> DeviceMesh:
-    """The ``(dp,)`` mesh over every rank of the process group, or ``(dcn,
-    dp)`` with one row per node when there is more than one.
+class Mesh:
+    """The ranks of the process group laid out on named axes, with the
+    process groups the model reduces over.
+
+    ``mesh`` is the tensor of global ranks, of shape ``(dp,)``, ``(dcn,
+    dp)``, ``(dp, sp)`` or ``(dcn, dp, sp)``; ``mesh_dim_names`` its axes.
+    ``batch``: this rank's group over the dp axes flattened (the ranks that
+    hold the other rows of the same points; one such group per sp index).
+    ``point``: its group over sp (the ranks that hold the other points of
+    the same rows), None without sp.  The whole group is every rank."""
+
+    def __init__(self, ranks: torch.Tensor, names, batch, point):
+        self.mesh, self.mesh_dim_names = ranks, tuple(names)
+        self.batch, self.point = batch, point
+
+    @property
+    def ndim(self) -> int:
+        return self.mesh.ndim
+
+
+def _subgroup(rank_lists, timeout):
+    """This rank's group among ``rank_lists`` (every rank makes every
+    group, in the same order)."""
+    return dist.new_subgroups_by_enumeration(rank_lists, timeout=timeout)[0]
+
+
+def make_mesh(num_slices=None, *, sp_size: int = 1, timeout: float | None = None) -> Mesh:
+    """The ``(dp,)`` mesh over every rank of the process group, ``(dcn,
+    dp)`` with one row per node when there is more than one, and with
+    ``sp_size > 1`` an inner ``sp`` axis: ``(dp, sp)`` or ``(dcn, dp,
+    sp)``.  ``sp`` is innermost, so that the ranks of a point group are
+    consecutive and share a node.
 
     ``num_slices`` (nodes) defaults to WORLD_SIZE // LOCAL_WORLD_SIZE from
     torchrun's environment (1 without it); pass it to shape a mesh
-    explicitly.  ``sp_size > 1`` raises NotImplementedError.  The mesh's
-    device type is "cuda" on nccl and "cpu" on gloo (which also takes CUDA
-    tensors); its only use here is its process group."""
-    if sp_size > 1:
-        raise NotImplementedError(SP_NOT_PORTED)
+    explicitly.  A per-node rank count that ``sp_size`` does not divide
+    raises ValueError, as the JAX package's make_mesh does.  ``timeout``
+    (seconds): the deadline of each collective of the sp groups (default:
+    the backend's)."""
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_distributed() first")
     world = dist.get_world_size()
@@ -134,31 +166,65 @@ def make_mesh(num_slices=None, *, sp_size: int = 1) -> DeviceMesh:
         num_slices = max(world // int(os.environ.get("LOCAL_WORLD_SIZE", world)), 1)
     if num_slices < 1 or world % num_slices:
         raise ValueError(f"{world} ranks do not divide into {num_slices} slices")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    ranks = torch.arange(world)
-    if num_slices == 1:
-        return DeviceMesh(device_type, ranks, mesh_dim_names=(DP_AXIS,))
-    return DeviceMesh(device_type, ranks.reshape(num_slices, -1),
-                      mesh_dim_names=(DCN_AXIS, DP_AXIS))
+    if sp_size < 1 or (world // num_slices) % sp_size:
+        raise ValueError(f"per-node rank count {world // num_slices} is not divisible by "
+                         f"sp_size={sp_size}")
+    names = ((DCN_AXIS,) if num_slices > 1 else ()) + (DP_AXIS,) + (
+        (SP_AXIS,) if sp_size > 1 else ())
+    shape = ((num_slices,) if num_slices > 1 else ()) + (world // num_slices // sp_size,) + (
+        (sp_size,) if sp_size > 1 else ())
+    ranks = torch.arange(world).reshape(shape)
+    if sp_size == 1:
+        return Mesh(ranks, names, dist.group.WORLD, None)
+    layout = ranks.reshape(-1, sp_size)  # a row per point group, a column per batch group
+    timeout = None if timeout is None else datetime.timedelta(seconds=timeout)
+    batch = _subgroup(layout.T.tolist(), timeout)
+    return Mesh(ranks, names, batch, _subgroup(layout.tolist(), timeout))
 
 
-def describe(mesh: DeviceMesh) -> str:
+def describe(mesh: Mesh) -> str:
     """'<n> devices, axes (<names>) (<shape>)', as the JAX package logs a mesh."""
     return (f"{mesh.mesh.numel()} devices, axes {tuple(mesh.mesh_dim_names)} "
             f"{tuple(mesh.mesh.shape)}")
 
 
-def batch_group(mesh: DeviceMesh):
-    """The process group of every data-parallel axis of ``mesh`` flattened:
-    the group over which the batch is sharded."""
+def _check_spans(mesh: Mesh):
     if mesh.mesh.numel() != dist.get_world_size():
         raise ValueError("the mesh must span every rank of the process group")
-    return mesh.get_group(0) if mesh.ndim == 1 else dist.group.WORLD
+
+
+def batch_group(mesh: Mesh):
+    """The process group of every data-parallel axis of ``mesh`` flattened:
+    the group over which the batch is sharded (every rank without sp)."""
+    _check_spans(mesh)
+    return mesh.batch
+
+
+def point_group(mesh: Mesh):
+    """The process group of the ``sp`` axis: the group over which the
+    points are sharded; None without sp."""
+    return mesh.point
+
+
+class Groups(NamedTuple):
+    """The process groups a sharded model call reduces over: ``batch``
+    (rows), ``point`` (points; None without sp) and ``whole`` (both)."""
+
+    batch: object
+    point: object
+    whole: object
+
+
+def mesh_groups(mesh: Mesh | None) -> Groups | None:
+    """The groups of ``mesh`` for the model's ``groups=``; None without a mesh."""
+    if mesh is None:
+        return None
+    return Groups(batch_group(mesh), point_group(mesh), dist.group.WORLD)
 
 
 def group_rank_size(group):
-    """(this rank's index in ``group``, the group's size)."""
-    return dist.get_rank(group), dist.get_world_size(group)
+    """(this rank's index in ``group``, the group's size); (0, 1) for None."""
+    return (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
 
 
 def is_lead(group) -> bool:
@@ -186,14 +252,15 @@ def all_reduce_sum_leaves(leaves, group, kind: str) -> list:
     return out
 
 
-def all_gather_rows(tensor, group, kind: str):
-    """Every rank's ``tensor`` (equal shapes) concatenated along dim 0 in
-    rank order: the global batch's rows from each rank's."""
+def all_gather_cat(tensor, group, kind: str, dim: int = 0):
+    """Every rank's ``tensor`` (equal shapes) concatenated along ``dim`` in
+    rank order: along 0 the global batch's rows from each rank's, along a
+    point axis each cloud's points from each rank's range."""
     tensor = tensor.contiguous()
     _count(kind, _nbytes(tensor))
     parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, tensor, group=group)
-    return torch.cat(parts)
+    return torch.cat(parts, dim=dim)
 
 
 def broadcast(tensor, group, kind: str):
@@ -211,18 +278,75 @@ def all_gather_objects(obj, group, kind: str) -> list:
     return out
 
 
-def replicate(mesh: DeviceMesh, tree):
-    """Broadcast every tensor leaf of ``tree`` from rank 0 in place (one
-    flat buffer per dtype and device); returns ``tree``."""
+class _CountOnce(torch.autograd.Function):
+    """The identity; its gradient passes on the lead rank and is zero elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x, lead):
+        ctx.lead = lead
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.lead else torch.zeros_like(grad)), None
+
+
+def count_once(tree, group):
+    """``tree``, tensors (a tensor, or a dict / list / tuple of them) every
+    rank of ``group`` holds alike, whose gradient enters a sum over the
+    ranks from the group's rank 0 alone: the identity, whose backward
+    passes the cotangent on rank 0 and zero elsewhere.  With ``group``
+    None, ``tree``."""
+    if group is None:
+        return tree
+    lead = is_lead(group)
+    return _map(lambda x: _CountOnce.apply(x, lead), tree)
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity; its gradient is summed over a group."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.contiguous().clone(), ctx.group, ctx.kind), None, None
+
+
+def sum_grad(x, group, kind: str):
+    """``x``, whose cotangent each rank of ``group`` holds a part of (a sum
+    over its points), made the whole on every rank: the identity, whose
+    backward sums the cotangent over ``group``.  With ``group`` None, ``x``."""
+    return x if group is None else _SumGrad.apply(x, group, kind)
+
+
+def global_draw(draw, shape, groups):
+    """This rank's part of ``draw(global shape)``: of a (rows, points, ...)
+    draw at R_dp x the rows and sp x the points, the batch-group rank's
+    rows and the point-group rank's points."""
+    b_rank, b_size = group_rank_size(groups.batch)
+    p_rank, p_size = group_rank_size(groups.point)
+    rows, n = shape[0], shape[1]
+    full = draw((b_size * rows, p_size * n, *shape[2:]))
+    return full[b_rank * rows:(b_rank + 1) * rows, p_rank * n:(p_rank + 1) * n].contiguous()
+
+
+def replicate(mesh: Mesh, tree):
+    """Broadcast every tensor leaf of ``tree`` from rank 0 to every rank in
+    place (one flat buffer per dtype and device); returns ``tree``."""
     from ..ops.odeint import flatten_tree  # ops.odeint imports this module
 
-    group = batch_group(mesh)
+    _check_spans(mesh)
     by_kind = {}
     for leaf in flatten_tree(tree)[0]:
         by_kind.setdefault((leaf.dtype, leaf.device), []).append(leaf)
     with torch.no_grad():
         for leaves in by_kind.values():
-            flat = broadcast(torch.cat([t.reshape(-1) for t in leaves]), group, "replicate")
+            flat = broadcast(torch.cat([t.reshape(-1) for t in leaves]), dist.group.WORLD,
+                             "replicate")
             at = 0
             for t in leaves:
                 t.copy_(flat[at:at + t.numel()].view_as(t))
@@ -244,6 +368,18 @@ def _rows(x, rank: int, size: int, microbatches: int):
     return torch.cat(pieces) if isinstance(x, torch.Tensor) else np.concatenate(pieces)
 
 
+def _points(x, rank: int, size: int):
+    """Range ``rank`` of ``size`` equal ranges of ``x`` along ``POINT_AXIS``;
+    leaves without that axis as they are."""
+    if size == 1 or getattr(x, "ndim", 0) <= POINT_AXIS:
+        return x
+    n = x.shape[POINT_AXIS]
+    if n % size:
+        raise ValueError(f"{n} points not divisible by {size} sp ranks")
+    index = (slice(None),) * POINT_AXIS + (slice(rank * n // size, (rank + 1) * n // size),)
+    return x[index]
+
+
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
@@ -252,28 +388,40 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def shard_batch(mesh: DeviceMesh, tree, microbatches: int = 1):
+def shard_batch(mesh: Mesh, tree, microbatches: int = 1):
     """This rank's rows of a batch every rank holds: each array leaf (numpy
-    or tensor) cut along its leading axis into equal parts in rank order;
-    0-d leaves as they are.  With ``microbatches`` the leading axis is that
-    many contiguous microbatches, and the rank takes its part of each in
-    turn (as ``SequenceLoader(microbatches=)`` does)."""
+    or tensor) cut along its leading axis into equal parts in the order of
+    the batch group's ranks; 0-d leaves as they are.  With ``microbatches``
+    the leading axis is that many contiguous microbatches, and the rank
+    takes its part of each in turn (as ``SequenceLoader(microbatches=)``
+    does).  The ranks of a point group hold the same rows."""
     rank, size = group_rank_size(batch_group(mesh))
     return _map(lambda x: _rows(x, rank, size, microbatches), tree)
 
 
-def shard_batch_points(mesh: DeviceMesh, tree):
-    """``shard_batch``: the batch axis over the ranks.  The point axis
-    would go over ``sp``, which is not ported, so it stays whole."""
-    return shard_batch(mesh, tree)
+def shard_points(mesh: Mesh, tree):
+    """This rank's points of rows it holds whole: each leaf with more than
+    ``POINT_AXIS`` axes, a (B, T, N, ...) batch, cut along N into equal
+    ranges in sp-rank order; the others as they are (also without sp)."""
+    rank, size = group_rank_size(point_group(mesh))
+    return _map(lambda x: _points(x, rank, size), tree)
 
 
-def global_batch_points(mesh: DeviceMesh, tree, device=None):
-    """Put this rank's rows of a sharded loader's batch (every leaf an
-    array whose leading axis is the rank's rows) on this rank's device,
-    ``rank_device(device)``: its card unless the caller names the CPU,
-    whatever backend the mesh runs (gloo also carries CUDA tensors).
-    Together the ranks hold the global batch."""
-    del mesh  # the rows are this rank's already
+def shard_batch_points(mesh: Mesh, tree, microbatches: int = 1):
+    """``shard_batch``, then ``shard_points``: the batch axis over the dp
+    axes and the point axis over sp.  Leaves with ``ndim <= POINT_AXIS``
+    (such as (B, T) timestamps) are cut by rows only; 0-d leaves are left
+    as they are."""
+    return shard_points(mesh, shard_batch(mesh, tree, microbatches))
+
+
+def global_batch_points(mesh: Mesh, tree, device=None):
+    """Put this rank's part of a sharded loader's batch (every leaf an
+    array whose leading axis is the rank's rows, ``SequenceLoader(
+    num_shards=, shard_index=)`` over the batch group) on this rank's
+    device, ``rank_device(device)``: its card unless the caller names the
+    CPU, whatever backend the mesh runs (gloo also carries CUDA tensors).
+    The rows are placed as they are and cut to the rank's point range
+    (``shard_points``): together the ranks hold the global batch."""
     device = rank_device(device)
-    return _map(lambda x: torch.as_tensor(x, device=device), tree)
+    return _map(lambda x: torch.as_tensor(x, device=device), shard_points(mesh, tree))

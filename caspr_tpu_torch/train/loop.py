@@ -10,17 +10,22 @@ weight decay (added to the gradient before the moments) and bias
 correction are those of the JAX package's optax chain.  Parameters are
 updated in place.
 
-Data parallelism (``mesh=``, a ``parallel.make_mesh`` mesh): each rank
-(process) holds its equal share of every global batch.  Its loss is its
-share of the global-batch loss, (its rows' mean) / R, so that the sum over
-the ranks is the one-process loss; the model makes its reductions over the
-batch global (``CaSPRModel.forward(group=)``), and the gradient is summed
-over the ranks in one flat buffer before the optimizer's step, the
-counterpart of the psum XLA inserts.  No DistributedDataParallel wrapper:
-the parameters are a tensor tree, and the adjoint's replicated leaves
-arrive summed already (on rank 0 alone, ``ops.odeint.odeint_adjoint``).
-Every rank then takes the same step, and its parameters stay bit-equal to
-the others'.  The logged scalars are the global values.
+Data and point parallelism (``mesh=``, a ``parallel.make_mesh`` mesh):
+each rank (process) holds its equal share of every global batch, its rows
+over the dp axes and, with sp, its range of their points.  Its loss is
+its share of the global-batch loss, so that the sum over every rank is
+the one-process loss: the CNF part is a mean over rows of sums over
+points, its rows' mean of its points' sums over R_dp; the T-NOCS part a
+mean over every point, its points' mean over R_dp x sp.  The model makes
+its reductions global (``CaSPRModel.forward(groups=)``), and the gradient
+is summed over every rank in one flat buffer before the optimizer's step,
+the counterpart of the psum XLA inserts.  No DistributedDataParallel
+wrapper: the parameters are a tensor tree, and what is alike on several
+ranks arrives counted once already (the adjoint's replicated leaves on
+rank 0 alone, ``ops.odeint.odeint_adjoint``; what a point group holds
+alike from its rank 0, ``parallel.mesh.count_once``).  Every rank then
+takes the same step, and its parameters stay bit-equal to the others'.
+The logged scalars are the global values.
 """
 
 from __future__ import annotations
@@ -32,8 +37,8 @@ import numpy as np
 import torch
 
 from ..ops.odeint import DISCRETE_STEPS, ODE_BACKWARDS, NFESink, flatten_tree, nfe_add, nfe_sum
-from ..parallel.mesh import (all_gather_rows, all_reduce_sum, all_reduce_sum_leaves, batch_group,
-                             group_rank_size)
+from ..parallel.mesh import (all_gather_cat, all_reduce_sum, all_reduce_sum_leaves,
+                             group_rank_size, mesh_groups, shard_points)
 from .trackers import log, print_stats
 
 
@@ -79,22 +84,27 @@ def make_eval_step(model, cnf_loss_weight, tnocs_loss_weight, mesh=None):
     caller can mask loader padding out of every statistic.  ``e`` injects
     the CNF's Hutchinson noise instead of drawing it from ``generator``.
     x and target may be numpy arrays: they go to the model's device.  With
-    a ``mesh`` x, target and e are this rank's rows, and so are the
-    unreduced errors (``run_one_epoch`` gathers them); the scalar losses are
-    the global batch's."""
-    group = None if mesh is None else batch_group(mesh)
+    a ``mesh`` x, target and e are this rank's rows and points; the
+    unreduced errors are its rows, their points gathered over the point
+    group (``run_one_epoch`` gathers the rows); the scalar losses are the
+    global batch's."""
+    groups = mesh_groups(mesh)
 
     @torch.no_grad()
     def step(params, mbn_state, x, target, generator=None, e=None):
         x = torch.as_tensor(x, device=model.device)
         target = torch.as_tensor(target, device=model.device)
         out, _ = model.forward(params, mbn_state, x, target, generator, training=False, e=e,
-                               group=group)
-        loss, cnf_loss, tnocs_loss = compute_losses(out, cnf_loss_weight, tnocs_loss_weight)
-        if group is not None:
-            shares = torch.stack([loss, cnf_loss, tnocs_loss]) / group_rank_size(group)[1]
-            loss, cnf_loss, tnocs_loss = all_reduce_sum(shares, group, "metrics")
+                               groups=groups)
         b, t, n, _ = target.shape
+        if groups is not None and groups.point is not None:  # every point of the rank's rows
+            out = {**out, **{k: all_gather_cat(out[k], groups.point, "eval", dim=2)
+                             for k in ("nll", "tnocs_loss") if k in out}}
+            n *= group_rank_size(groups.point)[1]
+        loss, cnf_loss, tnocs_loss = compute_losses(out, cnf_loss_weight, tnocs_loss_weight)
+        if groups is not None:
+            shares = torch.stack([loss, cnf_loss, tnocs_loss]) / group_rank_size(groups.batch)[1]
+            loss, cnf_loss, tnocs_loss = all_reduce_sum(shares, groups.batch, "metrics")
         nll = out["nll"] if "nll" in out else target.new_zeros((b, t, n))
         tn = out["tnocs_loss"] if "tnocs_loss" in out else target.new_zeros((b, t, n, 4))
         cnf_per_item = cnf_loss_weight * nll.sum(dim=2).mean(dim=1)
@@ -151,15 +161,18 @@ def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: 
     target may be numpy arrays: they go to the model's device.
 
     With a ``mesh`` (module docstring) x, target and e are this rank's
-    rows.  With ``accum_steps > 1`` they must be this rank's rows of each
+    rows and points (``parallel.shard_batch_points``; e's points on its
+    axis 1).  With ``accum_steps > 1`` they must be this rank's rows of each
     global microbatch in turn, as ``SequenceLoader(microbatches=)`` gives
     them, so that microbatch i is the one-process step's microbatch i.  The
     NFE must agree on every rank (a RuntimeError otherwise)."""
     del tx
     if ode_backward not in ODE_BACKWARDS:
         raise ValueError(f"ode_backward {ode_backward!r}, expected one of {ODE_BACKWARDS}")
-    group = None if mesh is None else batch_group(mesh)
-    ranks = 1 if group is None else group_rank_size(group)[1]
+    groups = mesh_groups(mesh)
+    # the parts of the global batch's rows and of every point a rank holds
+    rows = 1 if groups is None else group_rank_size(groups.batch)[1]
+    parts = rows * (1 if groups is None else group_rank_size(groups.point)[1])
 
     def grads_of(params, leaves, mbn_state, x, target, generator, e):
         sinks = {"latent": NFESink(), "cnf": NFESink()}
@@ -167,22 +180,23 @@ def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: 
             out, new_state = model.forward(params, mbn_state, x, target, generator,
                                            training=True, e=e, nfe_sink=sinks,
                                            ode_backward=ode_backward, ode_steps=ode_steps,
-                                           group=group)
-            loss, cnf_loss, tnocs_loss = compute_losses(out, cnf_loss_weight, tnocs_loss_weight)
-            if group is not None:  # this rank's share of the global-batch loss
-                loss, cnf_loss, tnocs_loss = loss / ranks, cnf_loss / ranks, tnocs_loss / ranks
+                                           groups=groups)
+            _, cnf_loss, tnocs_loss = compute_losses(out, cnf_loss_weight, tnocs_loss_weight)
+            # this rank's share of the global-batch loss (module docstring)
+            cnf_loss, tnocs_loss = cnf_loss / rows, tnocs_loss / parts
+            loss = cnf_loss + tnocs_loss
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
         scalars = {"loss": loss.item(), "cnf_loss": cnf_loss.item(),
                    "tnocs_loss": tnocs_loss.item(),
-                   "mean_nll": out["nll"].mean().item() / ranks if "nll" in out else 0.0,
+                   "mean_nll": out["nll"].mean().item() / parts if "nll" in out else 0.0,
                    "nfe_forward": tuple(float(v) for v in out["nfe"]),
                    "nfe_backward": (sinks["latent"].value, sinks["cnf"].value)}
         if "tnocs_loss" in out:
             per_point = out["tnocs_loss"].detach()
             pos_err = torch.linalg.vector_norm(per_point[..., :3], dim=-1).mean()
-            scalars["tnocs_pos_err"] = float(pos_err) / ranks
-            scalars["tnocs_time_err"] = float(per_point[..., 3].mean()) / ranks
+            scalars["tnocs_pos_err"] = float(pos_err) / parts
+            scalars["tnocs_time_err"] = float(per_point[..., 3].mean()) / parts
         return grads, new_state, scalars
 
     def step(params, opt_state, mbn_state, x, target, generator=None, e=None):
@@ -204,9 +218,9 @@ def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: 
         m = {k: float(np.mean([p[k] for p in parts])) for k in parts[0] if not k.startswith("nfe")}
         nfe_fwd = tuple(nfe_sum([p["nfe_forward"][j] for p in parts]) for j in range(2))
         nfe_bwd = tuple(nfe_sum([p["nfe_backward"][j] for p in parts]) for j in range(2))
-        if group is not None:
-            grads = all_reduce_sum_leaves(grads, group, "grad")
-            m = _global_scalars(m, nfe_fwd + nfe_bwd, group, model.device)
+        if groups is not None:
+            grads = all_reduce_sum_leaves(grads, groups.whole, "grad")
+            m = _global_scalars(m, nfe_fwd + nfe_bwd, groups.whole, model.device)
         for leaf, g in zip(leaves, grads):
             leaf.grad = g
         opt_state.step()
@@ -227,7 +241,7 @@ def _global_scalars(m, nfe, group, device):
     all-gather with the NFE counts), after checking that every rank counted
     the same NFE."""
     keys = sorted(m)
-    rows = all_gather_rows(torch.tensor([[m[k] for k in keys] + list(nfe)], dtype=torch.float64,
+    rows = all_gather_cat(torch.tensor([[m[k] for k in keys] + list(nfe)], dtype=torch.float64,
                                         device=device), group, "metrics").cpu().numpy()
     if not (rows[:, len(keys):] == rows[0, len(keys):]).all():
         raise RuntimeError(f"the ranks counted different NFE (forward, backward): "
@@ -240,7 +254,7 @@ def _gather_eval_rows(metrics, group):
     order (one all-gather)."""
     keys = ("loss_per_item", "nll", "tnocs_pos_err", "tnocs_time_err")
     b = metrics["loss_per_item"].shape[0]
-    flat = all_gather_rows(torch.cat([metrics[k].reshape(b, -1) for k in keys], dim=1), group,
+    flat = all_gather_cat(torch.cat([metrics[k].reshape(b, -1) for k in keys], dim=1), group,
                            "eval")
     out, at = {}, 0
     for k in keys:
@@ -266,17 +280,24 @@ def run_one_epoch(step_fn, params, opt_state, mbn_state, loader, generator, epoc
     per-item losses over the real rows is the unpadded batch loss.
 
     ``mesh``: the steps were made with it, and the loader gives this rank's
-    rows (``SequenceLoader(num_shards=, shard_index=)``).  An eval step's
-    rows are gathered from every rank in global row order and the padding
+    rows (``SequenceLoader(num_shards=, shard_index=)`` over the batch
+    group), of which the step takes the rank's points
+    (``parallel.shard_points``).  An eval step's rows are gathered from
+    every rank of the batch group in global row order and the padding
     masked by the batch's "valid_global", so that every rank's tracker
     holds the one-process run's statistics."""
-    group = None if mesh is None else batch_group(mesh)
+    group = None if mesh is None else mesh_groups(mesh).batch
+
+    def inputs(batch):
+        xy = (batch["input"], batch["target"])
+        return xy if mesh is None else shard_points(mesh, xy)
+
     num_batches = len(loader)
     if mode == "train":
         batch_losses = []
         for i, batch in enumerate(loader):
             params, opt_state, mbn_state, metrics = step_fn(
-                params, opt_state, mbn_state, batch["input"], batch["target"], generator)
+                params, opt_state, mbn_state, *inputs(batch), generator)
             batch_losses.append(metrics["loss"])
             if i % print_stats_every == 0:
                 loss_tracker.record_train_step(float(np.mean(batch_losses)), metrics["cnf_loss"],
@@ -292,12 +313,13 @@ def run_one_epoch(step_fn, params, opt_state, mbn_state, loader, generator, epoc
                 batch_losses = []
         return params, opt_state, mbn_state
     for i, batch in enumerate(loader):
-        metrics = step_fn(params, mbn_state, batch["input"], batch["target"], generator)
+        metrics = step_fn(params, mbn_state, *inputs(batch), generator)
         if group is None:
             valid = batch.get("valid", len(batch["input"]))
         else:
             metrics = {**metrics, **_gather_eval_rows(metrics, group)}
-            valid = batch.get("valid_global", len(metrics["loss_per_item"]))
+            # "valid" is the global count where the loader has one shard
+            valid = batch.get("valid_global", batch.get("valid", len(metrics["loss_per_item"])))
         host = {k: metrics[k][:valid].cpu().numpy()
                 for k in ("loss_per_item", "nll", "tnocs_pos_err", "tnocs_time_err")}
         loss_tracker.record_stats(

@@ -2,8 +2,7 @@
 port's own copy of caspr_tpu/utils/config.py): the same option strings,
 dests, defaults, types, nargs and choices, so every documented recipe
 parses unchanged.  Help texts say what a flag means on the port;
-``--sp-size`` other than 1, whose slice is not ported, parses and is
-refused by ``refuse_unported``.
+``check_flags`` refuses the combinations a run cannot shard.
 """
 
 from __future__ import annotations
@@ -64,9 +63,11 @@ def get_train_options(parser: argparse.ArgumentParser):
                              "gradients are summed over the ranks.")
     parser.set_defaults(use_parallel=False)
     parser.add_argument("--sp-size", type=int, default=1,
-                        help="Point-parallel mesh axis: shard each cloud's "
-                             "points over this many devices (not ported: "
-                             "any value but 1 raises).")
+                        help="Point-parallel mesh axis (with --parallel): "
+                             "shard each cloud's points over this many "
+                             "ranks, the innermost axis of the (dp, sp) "
+                             "mesh; it must divide the ranks of a node and "
+                             "--num-pts.")
     parser.add_argument("--epochs", type=int, default=200)
     parser.add_argument("--val-every", type=int, default=3)
     parser.add_argument("--save-every", type=int, default=10)
@@ -107,8 +108,9 @@ def get_test_options(parser: argparse.ArgumentParser):
                              "the logs and artifacts.")
     parser.set_defaults(use_parallel=False)
     parser.add_argument("--sp-size", type=int, default=1,
-                        help="Point-parallel mesh axis for eval (not ported: "
-                             "any value but 1 raises).")
+                        help="Point-parallel mesh axis for eval (with "
+                             "--parallel): shard each cloud's points over "
+                             "this many ranks.")
     parser.add_argument("--shuffle-test", dest="shuffle_test", action="store_true")
     parser.set_defaults(shuffle_test=False)
     parser.add_argument("--eval-test", dest="eval_full_test", action="store_true")
@@ -190,39 +192,61 @@ def apply_runtime_flags(flags):
     torch.backends.cudnn.allow_tf32 = False
 
 
-def refuse_unported(flags):
-    """Raise NotImplementedError for --sp-size other than 1, whose slice is
-    not ported, and ValueError for --multihost without --parallel."""
-    from ..parallel.mesh import SP_NOT_PORTED
+def check_flags(flags, protocol_points=None):
+    """Refuse, with a ValueError naming the flag, what a run cannot shard,
+    before any process group is formed: --multihost or --sp-size other
+    than 1 without --parallel, and with it a node's rank count (torchrun's
+    LOCAL_WORLD_SIZE, else the world's) that --sp-size does not divide, a
+    --batch-size that the dp ranks do not divide, and a point count,
+    --num-pts or the evaluation protocol's ``protocol_points``, that
+    --sp-size does not divide."""
+    import torch.distributed as dist
 
-    if getattr(flags, "sp_size", 1) != 1:
-        raise NotImplementedError(f"--sp-size {flags.sp_size}: {SP_NOT_PORTED}")
-    if getattr(flags, "multihost", False) and not flags.use_parallel:
+    sp = getattr(flags, "sp_size", 1)
+    parallel = getattr(flags, "use_parallel", False)
+    if getattr(flags, "multihost", False) and not parallel:
         # sharded loaders without the gradient sum would train divergent
         # models: refuse early, as the JAX package's train.py does
         raise ValueError("--multihost requires --parallel")
+    if sp != 1 and not parallel:
+        raise ValueError(f"--sp-size {sp} requires --parallel")
+    if not parallel:
+        return
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    node = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if sp < 1 or node % sp:
+        raise ValueError(f"--sp-size {sp} does not divide the {node} ranks of a node")
+    if flags.batch_size % (world // sp):
+        raise ValueError(f"--batch-size {flags.batch_size} is not divisible by the "
+                         f"{world // sp} dp ranks ({world} ranks / --sp-size {sp})")
+    for name, n in (("--num-pts", flags.num_pts), ("the protocol's points", protocol_points)):
+        if n is not None and n % sp:
+            raise ValueError(f"{name} {n} is not divisible by --sp-size {sp}")
 
 
 def parallel_setup(flags, device, log_name: str):
     """--parallel: join the process group (``parallel.init_distributed``,
     one process per card, the card of index LOCAL_RANK unless ``device``
-    names one) and make the mesh; the train CLI over several nodes needs
-    --multihost.  Returns (mesh or None, the device, this rank, the world
-    size, the log file's name: ``log_name`` on rank 0, else
-    ``rank<i>_<log_name>``)."""
+    names one) and make the mesh, ``(dp,)`` or ``(dp, sp)`` by --sp-size;
+    the train CLI over several nodes needs --multihost.  Returns (mesh or
+    None, the device, this rank, the loader's shards over the batch group
+    ({"num_shards": dp ranks, "shard_index": this rank's index}), the log
+    file's name: ``log_name`` on rank 0, else ``rank<i>_<log_name>``)."""
     if not flags.use_parallel:
-        return None, device, 0, 1, log_name
+        return None, device, 0, {}, log_name
     import torch.distributed as dist
 
-    from ..parallel import init_distributed, make_mesh
+    from ..parallel import DCN_AXIS, batch_group, init_distributed, make_mesh
 
     device = init_distributed(device=device)
-    mesh = make_mesh()
-    if mesh.ndim > 1 and not getattr(flags, "multihost", True):
+    mesh = make_mesh(sp_size=flags.sp_size)
+    if DCN_AXIS in mesh.mesh_dim_names and not getattr(flags, "multihost", True):
         raise ValueError(f"--parallel over {mesh.mesh.shape[0]} nodes needs --multihost")
     rank = dist.get_rank()
-    return mesh, device, rank, dist.get_world_size(), (
-        log_name if rank == 0 else f"rank{rank}_{log_name}")
+    group = batch_group(mesh)
+    shards = {"num_shards": dist.get_world_size(group), "shard_index": dist.get_rank(group)}
+    return mesh, device, rank, shards, log_name if rank == 0 else f"rank{rank}_{log_name}"
 
 
 def ode_steps_from_env() -> int:

@@ -13,13 +13,20 @@ each sequence's pose scene (``viz.export_pcl_seq``) beside the log.
 
 ``mesh`` (a ``parallel.make_mesh`` mesh) shards the evaluation over the
 ranks: the loader gives each rank its rows (``SequenceLoader(num_shards=,
-shard_index=, pad_last=True)``, with "valid_global", the real rows of the
-global batch), each rank evaluates its rows, and the per-row results and
-sequence ids are gathered in global row order.  Every rank then holds the
-one-process run's statistics; rank 0 alone logs them and writes the
-``.txt`` / ``.npz`` / ``.csv``.  The pose protocol's RANSAC runs on each
-rank over its rows, seeded by their global index, and each rank exports
-its own sequences' scenes.
+shard_index=, pad_last=True)`` over the batch group, with "valid_global",
+the real rows of the global batch), each rank evaluates its rows, and the
+per-row results and sequence ids are gathered in global row order over the
+batch group.  With sp a rank also takes its range of the input's points:
+shape reconstruction decodes point-sharded and gathers the decoded clouds
+over the point group, in rank order, before Chamfer and EMD, which need
+whole clouds (each rank of the point group scores its share of the
+frames, and the scores are gathered); T-NOCS regression gathers its
+per-point errors.  Every
+rank then holds the one-process run's statistics; rank 0 of the whole
+group alone logs them and writes the ``.txt`` / ``.npz`` / ``.csv``.  The
+pose protocol encodes each rank's rows whole (the encoder reads whole
+clouds), and its RANSAC runs on the point group's rank 0 over its rows,
+seeded by their global index, which exports its own sequences' scenes.
 """
 
 from __future__ import annotations
@@ -34,8 +41,9 @@ import torch
 
 from ..models.caspr import resolve_device
 from ..ops import approx_match_emd, chamfer_distance
-from ..parallel.mesh import (all_gather_objects, all_gather_rows, batch_group, broadcast,
-                             group_rank_size, is_lead, shard_batch)
+from ..parallel.mesh import (all_gather_cat, all_gather_objects, broadcast,
+                             group_rank_size, is_lead, mesh_groups, shard_batch_points,
+                             shard_points)
 from ..train.trackers import log
 from ..viz.export import export_pcl_seq, log_once
 from .ransac import ransac_rigid_registration
@@ -56,6 +64,21 @@ def _recon_metrics(pred, gt):
     pred, gt = pred.contiguous(), gt.contiguous()
     d1, d2 = chamfer_distance(pred, gt)
     return d1.mean(dim=1) + d2.mean(dim=1), approx_match_emd(pred, gt) / pred.shape[1]
+
+
+def _recon_metrics_over(pred, gt, point):
+    """``_recon_metrics`` of F frame pairs of whole clouds that every rank
+    of ``point`` holds alike, each rank scoring its share of the frames
+    (ceil(F / size), the last frame repeated to fill the share) and the
+    shares gathered in rank order; or ``_recon_metrics`` without a group."""
+    if point is None:
+        return _recon_metrics(pred, gt)
+    rank, size = group_rank_size(point)
+    frames = pred.shape[0]
+    share = -(-frames // size)
+    mine = torch.arange(rank * share, (rank + 1) * share, device=pred.device).clamp(max=frames - 1)
+    got = torch.stack(_recon_metrics(pred[mine], gt[mine]))
+    return tuple(all_gather_cat(got, point, "eval", dim=1)[:, :frames])
 
 
 def eval_reconstr_frames(pred, gt, device=None):
@@ -85,7 +108,8 @@ def _batch_ids(batch, model_ids, seq_ids, group=None):
         return valid
     parts = all_gather_objects((list(batch["model_id"]), list(batch["seq_id"])), group, "ids")
     models = [m for part in parts for m in part[0]]
-    valid = batch.get("valid_global", len(models))
+    # "valid" is the global count where the loader has one shard (dp 1)
+    valid = batch.get("valid_global", batch.get("valid", len(models)))
     model_ids.extend(models[:valid])
     seq_ids.extend([q for part in parts for q in part[1]][:valid])
     return valid
@@ -93,7 +117,12 @@ def _batch_ids(batch, model_ids, seq_ids, group=None):
 
 def _rows_of(x, group):
     """The rows of every rank in global row order (a tensor), or x."""
-    return x if group is None else all_gather_rows(x, group, "eval")
+    return x if group is None else all_gather_cat(x, group, "eval")
+
+
+def _whole_points(x, point):
+    """Every rank's points of the same rows along axis 2, in rank order, or x."""
+    return x if point is None else all_gather_cat(x, point, "eval", dim=2)
 
 
 def _quiet(*_args):
@@ -119,8 +148,9 @@ def test_shape_recon(model, params, state, loader, log_out, observed_steps: Sequ
     model's device); ``base_samples``, an iterable of one (B, 10, 2048, 3)
     array per batch (the global batch's, with a ``mesh``), replaces the
     draw.  The decode times are the first row's of the (global) batch."""
-    group = None if mesh is None else batch_group(mesh)
-    lead = is_lead(group)
+    groups = mesh_groups(mesh)
+    group, point = (None, None) if groups is None else (groups.batch, groups.point)
+    lead = groups is None or is_lead(groups.whole)
     say, show = (log, print) if lead else (_quiet, _quiet)
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
@@ -147,19 +177,21 @@ def test_shape_recon(model, params, state, loader, log_out, observed_steps: Sequ
         base = None
         if base_samples is not None:
             base = next(base_samples)
-            base = torch.as_tensor(base if mesh is None else shard_batch(mesh, base),
+            base = torch.as_tensor(base if mesh is None else shard_batch_points(mesh, base),
                                    device=model.device)
         timestamps = nocs_out[0, :, 0, 3]
-        if group is not None:
-            timestamps = broadcast(timestamps.contiguous(), group, "eval")
+        if groups is not None:
+            timestamps = broadcast(timestamps.contiguous(), groups.whole, "eval")
+            pcl_in = shard_points(mesh, pcl_in)
         _, _, pred, _, nfe = model.reconstruct(
             params, state, pcl_in[:, observed_steps].contiguous(), generator,
             num_points=PROTOCOL_NUM_PTS, timestamps=timestamps,
-            constant_in_time=False, base_samples=base, group=group)
+            constant_in_time=False, base_samples=base, groups=groups)
+        pred = _whole_points(pred, point)
 
         def score(steps):
             gt = nocs_out[:, steps, :, :3].reshape(b * len(steps), n, 3)
-            return _recon_metrics(pred[:, steps].reshape(b * len(steps), n, 3), gt)
+            return _recon_metrics_over(pred[:, steps].reshape(b * len(steps), n, 3), gt, point)
 
         out = {"nfe": nfe, "valid": valid, "obs": score(observed_steps)}
         if use_unobserved:
@@ -248,8 +280,9 @@ def test_tnocs_regression(model, params, state, loader, log_out, mesh=None):
     """T-NOCS regression: mean spatial (L2) and time (absolute) error of the
     encoder's per-point prediction.  Returns the two means (of the whole
     split on every rank, with a ``mesh``)."""
-    group = None if mesh is None else batch_group(mesh)
-    lead = is_lead(group)
+    groups = mesh_groups(mesh)
+    group, point = (None, None) if groups is None else (groups.batch, groups.point)
+    lead = groups is None or is_lead(groups.whole)
     show = print if lead else _quiet
     model_ids, seq_ids = [], []
     stat_dict = {"space": [], "time": []}
@@ -262,11 +295,14 @@ def test_tnocs_regression(model, params, state, loader, log_out, mesh=None):
         valid = _batch_ids(batch, model_ids, seq_ids, group)
         _check_protocol(last_t, n)
 
-        _, pred_tnocs = model.encode(params, pcl_in)
-        dist = torch.linalg.vector_norm(pred_tnocs[..., :3] - nocs_out[..., :3], dim=3).mean(dim=2)
+        if groups is not None:
+            pcl_in, nocs_out = shard_points(mesh, (pcl_in, nocs_out))
+        _, pred_tnocs = model.encode(params, pcl_in, point)
+        dist = _whole_points(torch.linalg.vector_norm(pred_tnocs[..., :3] - nocs_out[..., :3],
+                                                      dim=3), point).mean(dim=2)
         stat_dict["space"].extend(_rows_of(dist, group).cpu().numpy()[:valid].reshape(-1).tolist())
         if pred_tnocs.shape[-1] > 3:
-            tdiff = (pred_tnocs[..., 3] - nocs_out[..., 3]).abs().mean(dim=2)
+            tdiff = _whole_points((pred_tnocs[..., 3] - nocs_out[..., 3]).abs(), point).mean(dim=2)
             stat_dict["time"].extend(
                 _rows_of(tdiff, group).cpu().numpy()[:valid].reshape(-1).tolist())
 
@@ -345,11 +381,15 @@ def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show
     """Camera pose from the predicted T-NOCS by correspondence RANSAC on the
     host (threshold 0.015, 4-point samples, 50000 iterations / 5000
     validations), against the batch's ground-truth poses.  ``show`` exports
-    each sequence's pose scene, ``pose_<model>_<seq>``, next to the log."""
-    group = None if mesh is None else batch_group(mesh)
-    lead = is_lead(group)
+    each sequence's pose scene, ``pose_<model>_<seq>``, next to the log.
+    With sp, the ranks of a point group encode the same rows, and its rank
+    0 alone runs their RANSAC and exports their scenes."""
+    groups = mesh_groups(mesh)
+    group = None if groups is None else groups.batch
+    lead = groups is None or is_lead(groups.whole)
+    registers = groups is None or is_lead(groups.point)  # runs RANSAC on the rank's rows
     echo = print if lead else _quiet
-    rank = 0 if group is None else group_rank_size(group)[0]
+    rank = group_rank_size(group)[0]
     loader.dataset.set_return_pose_data(True)
     note = log_once(lambda line: log(log_out, line))
 
@@ -372,7 +412,7 @@ def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show
         pred_tnocs = pred_tnocs.cpu().numpy()
         found = {k: [] for k in stat_dict}
 
-        for bi in range(valid):
+        for bi in range(valid if registers else 0):
             row = rank * b + bi  # the row's index in the global batch
             norm_pred = pred_tnocs[bi, :, :, :3] - 0.5
             norm_gt = nocs_out[bi, :, :, :3] - 0.5
@@ -416,8 +456,11 @@ def test_observed_camera_pose_ransac(model, params, state, loader, log_out, show
                     scene["gt_cams"], scene["pred_cams"], note=note)
                 print("Exported pose viz to %s" % out)
 
-        # every rank's frames in global row order
-        for part in ([found] if group is None else all_gather_objects(found, group, "eval")):
+        # every rank's frames in global row order (the batch groups of the
+        # point groups' rank 0 gather them)
+        parts = [found] if group is None or not registers else all_gather_objects(found, group,
+                                                                                  "eval")
+        for part in parts:
             for k in stat_dict:
                 stat_dict[k].extend(part[k])
         echo("==== CURRENT ERROR ====")

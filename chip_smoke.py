@@ -2172,10 +2172,13 @@ def one_process_steps(torch, x, target, noise):
 
 def compare_parallel_step(ranks, one, floor, backward,
                           label=f"train step, {PAR_RANKS} gloo ranks sharing the card against one "
-                                "process"):
-    """A two-rank step against the one-process step: NFE, loss, every flow
-    and latent-ODE gradient leaf (1e-3 of its largest), the encoder's in
-    relative L2 (4x the float32 floor), and the ranks' parameters equal."""
+                                "process", bars=None):
+    """A step on ranks against the one-process step: NFE, the loss, every
+    flow and latent-ODE gradient leaf (of its largest), the encoder's in
+    relative L2, and the ranks' parameters equal.  ``bars``: (loss, leaf,
+    encoder), by default data parallelism's 1e-4, 1e-3 and 4x the float32
+    floor."""
+    loss_bar, leaf_bar, enc_bar = bars or (1e-4, 1e-3, 4.0 * floor)
     m1, grads1, seconds1 = one
     got = ranks[0]
     nfe_ok = all(r["metrics"]["nfe"] == m1["nfe"] and r["metrics"]["nfe_forward"]
@@ -2201,11 +2204,86 @@ def compare_parallel_step(ranks, one, floor, backward,
                                                    "one_process": seconds1},
         "collectives_per_step": got["collectives"],
         "launches": [r["launches"] for r in ranks],
-        "tolerance": {"loss": 1e-4, "flow_and_latent_leaf": 1e-3,
-                      "encoder_rel_l2": "4 x the float32 floor"}}), flush=True)
-    if (not nfe_ok or not loss_rel <= 1e-4 or not max(rest.values()) <= 1e-3
-            or not enc_l2 <= 4.0 * floor or not equal):
-        raise AssertionError(f"two-rank {backward} step against one process: see the line above")
+        "tolerance": {"loss": loss_bar, "flow_and_latent_leaf": leaf_bar,
+                      "encoder_rel_l2": enc_bar}}), flush=True)
+    if (not nfe_ok or not loss_rel <= loss_bar or not max(rest.values()) <= leaf_bar
+            or not enc_l2 <= enc_bar or not equal):
+        raise AssertionError(f"{backward} step on ranks against one process: see the line above")
+
+
+def compare_test_cli(runs, outs, phase8, label, card, ranks_seconds):
+    """Phase 10(b) and 11(b): the test CLI's artifacts on ranks (``runs``:
+    {"recon": each rank's "cli" result of --eval-test
+    --eval-shape-recon-observed, "tnocs": of --eval-tnocs-regression
+    --eval-pose-observed-ransac}, written to ``outs``) against phase 8's
+    one-process run, from rank 0 alone: the .npz within 1e-5 (the pose
+    protocol's PAR_POSE_REL relative), the .csv's ids equal and values
+    within PAR_CSV_REL relative, the NFE and the --eval-test loss."""
+    with open(phase8["test_log"]) as f:
+        want_nfe = re.findall(r"^NFE Mean: \(" + FLOAT + ", " + FLOAT + r"\)", f.read(), re.M)[0]
+    test_line = r"Batch 0/0\] TEST Mean loss: " + FLOAT
+    want_loss = log_numbers(phase8["test_log"], test_line)
+    cli = {}
+    # (protocol, its CLI run, phase 8's copy, artifact stem, .npz keys, .csv id columns, bars):
+    # the .npz absolute, the .csv relative to each value (PAR_CSV_REL); the
+    # pose protocol's both relative (PAR_POSE_REL), as in
+    # tests/test_torch_port_parallel.py
+    protocols = (
+        ("recon", "recon", "recon_observed", "test_log", ("observed_chamfer", "observed_emd"), 3,
+         (1e-5, 0.0), PAR_CSV_REL),
+        ("tnocs", "tnocs", "tnocs", "test_log", ("space", "time"), 2, (1e-5, 0.0), PAR_CSV_REL),
+        ("pose", "tnocs", "pose", "test_log_RANSAC", ("trans", "rot", "point", "point_mean"), 2,
+         (0.0, PAR_POSE_REL), PAR_POSE_REL))
+    want_files = {"recon": ["test_log.txt", "test_log.npz", "test_log.csv", "rank1_test_log.txt"]}
+    want_files["tnocs"] = want_files["recon"] + ["test_log_RANSAC.npz", "test_log_RANSAC.csv"]
+    for name, run, ref, stem_name, keys, ids, (npz_abs, npz_rel), csv_rel in protocols:
+        out = outs[run]
+        stem = os.path.join(out, stem_name)
+        written = sorted(os.listdir(out))
+        got, want = np.load(stem + ".npz"), np.load(phase8["copies"][ref] + ".npz")
+        npz_ok = all(got[k].shape == want[k].shape and bool(np.all(
+            np.abs(got[k] - want[k]) <= npz_abs + npz_rel * np.abs(want[k]))) for k in keys)
+        npz_diff = max(float(np.abs(got[k] - want[k]).max()) for k in keys)
+        with open(stem + ".csv") as f:
+            rows = [r.split(",") for r in f.read().splitlines()]
+        with open(phase8["copies"][ref] + ".csv") as f:
+            want_rows = [r.split(",") for r in f.read().splitlines()]
+        same_ids = [r[:ids] for r in rows] == [r[:ids] for r in want_rows]
+        values = lambda table: np.array([r[ids:] for r in table[1:]], float)
+        got_v, want_v = values(rows), values(want_rows)
+        csv_rel_diff = float((np.abs(got_v - want_v) / np.abs(want_v)).max()) \
+            if got_v.shape == want_v.shape else math.inf
+        # what rows out of order would show at least: the smallest gap
+        # between two sequences' values in one column, over its value
+        gaps = [abs(a - b) / abs(b) for col in want_v.T for i, a in enumerate(col)
+                for b in col[i + 1:]]
+        cli[name] = {"files": written, "npz_max_abs_diff": npz_diff, "csv_ids_equal": same_ids,
+                     "csv_rows_identical": rows == want_rows, "csv_max_rel_diff": csv_rel_diff,
+                     "csv_rel_tolerance": csv_rel, "row_order_min_rel_gap": min(gaps, default=None),
+                     "launches": [r["launches"] for r in runs[run]],
+                     "seconds": [r["seconds"] for r in runs[run]],
+                     "collectives": runs[run][0]["collectives"]}
+        if name == "recon":
+            with open(stem + ".txt") as f:
+                cli[name]["nfe"] = re.findall(r"^NFE Mean: \(" + FLOAT + ", " + FLOAT + r"\)",
+                                              f.read(), re.M)
+            cli[name]["nfe_one_process"] = want_nfe
+            cli[name]["test_loss"] = log_numbers(stem + ".txt", test_line)
+            cli[name]["test_loss_one_process"] = want_loss
+            if cli[name]["nfe"] != [want_nfe]:
+                raise AssertionError(f"{label}: NFE {cli[name]['nfe']}, one process {want_nfe}")
+            if (len(cli[name]["test_loss"]) != 1
+                    or not abs(cli[name]["test_loss"][0][0] - want_loss[0][0])
+                    <= 1e-5 * abs(want_loss[0][0])):
+                raise AssertionError(f"{label}: --eval-test loss {cli[name]['test_loss']}, one "
+                                     f"process {want_loss}")
+            for launches in cli[name]["launches"]:
+                require_launched(launches, VIZ_KERNELS, label)
+        if (written != sorted(want_files[run]) or not npz_ok or not same_ids
+                or len(rows) != len(want_rows) or not csv_rel_diff <= csv_rel):
+            raise AssertionError(f"{label} ({name}) against phase 8: {cli[name]}")
+    print(json.dumps({"parallel": label, "card": card, "ranks_seconds": ranks_seconds,
+                      "protocols": cli}), flush=True)
 
 
 def run_parallel_path(torch, kernels, phase8, floor, card):
@@ -2247,74 +2325,9 @@ def run_parallel_path(torch, kernels, phase8, floor, card):
         compare_parallel_step([r[i] for r in steps], one[backward], floor, backward)
 
     # (b) the test CLI: phase 8's artifacts, from rank 0 alone
-    with open(phase8["test_log"]) as f:
-        want_nfe = re.findall(r"^NFE Mean: \(" + FLOAT + ", " + FLOAT + r"\)", f.read(), re.M)[0]
-    test_line = r"Batch 0/0\] TEST Mean loss: " + FLOAT
-    want_loss = log_numbers(phase8["test_log"], test_line)
-    cli = {}
-    # (protocol, its CLI run, phase 8's copy, artifact stem, .npz keys, .csv id columns, bars):
-    # the .npz absolute, the .csv relative to each value (PAR_CSV_REL); the
-    # pose protocol's both relative (PAR_POSE_REL), as in
-    # tests/test_torch_port_parallel.py
-    protocols = (
-        ("recon", "recon", "recon_observed", "test_log", ("observed_chamfer", "observed_emd"), 3,
-         (1e-5, 0.0), PAR_CSV_REL),
-        ("tnocs", "tnocs", "tnocs", "test_log", ("space", "time"), 2, (1e-5, 0.0), PAR_CSV_REL),
-        ("pose", "tnocs", "pose", "test_log_RANSAC", ("trans", "rot", "point", "point_mean"), 2,
-         (0.0, PAR_POSE_REL), PAR_POSE_REL))
-    want_files = {"recon": ["test_log.txt", "test_log.npz", "test_log.csv", "rank1_test_log.txt"]}
-    want_files["tnocs"] = want_files["recon"] + ["test_log_RANSAC.npz", "test_log_RANSAC.csv"]
-    for name, run, ref, stem_name, keys, ids, (npz_abs, npz_rel), csv_rel in protocols:
-        out = outs[run]
-        stem = os.path.join(out, stem_name)
-        written = sorted(os.listdir(out))
-        got, want = np.load(stem + ".npz"), np.load(phase8["copies"][ref] + ".npz")
-        npz_ok = all(got[k].shape == want[k].shape and bool(np.all(
-            np.abs(got[k] - want[k]) <= npz_abs + npz_rel * np.abs(want[k]))) for k in keys)
-        npz_diff = max(float(np.abs(got[k] - want[k]).max()) for k in keys)
-        with open(stem + ".csv") as f:
-            rows = [r.split(",") for r in f.read().splitlines()]
-        with open(phase8["copies"][ref] + ".csv") as f:
-            want_rows = [r.split(",") for r in f.read().splitlines()]
-        same_ids = [r[:ids] for r in rows] == [r[:ids] for r in want_rows]
-        values = lambda table: np.array([r[ids:] for r in table[1:]], float)
-        got_v, want_v = values(rows), values(want_rows)
-        csv_rel_diff = float((np.abs(got_v - want_v) / np.abs(want_v)).max()) \
-            if got_v.shape == want_v.shape else math.inf
-        # what rows out of order would show at least: the smallest gap
-        # between two sequences' values in one column, over its value
-        gaps = [abs(a - b) / abs(b) for col in want_v.T for i, a in enumerate(col)
-                for b in col[i + 1:]]
-        index = 1 if run == "recon" else 2
-        cli[name] = {"files": written, "npz_max_abs_diff": npz_diff, "csv_ids_equal": same_ids,
-                     "csv_rows_identical": rows == want_rows, "csv_max_rel_diff": csv_rel_diff,
-                     "csv_rel_tolerance": csv_rel, "row_order_min_rel_gap": min(gaps, default=None),
-                     "launches": [r[index]["launches"] for r in results],
-                     "seconds": [r[index]["seconds"] for r in results],
-                     "collectives": results[0][index]["collectives"]}
-        if name == "recon":
-            with open(stem + ".txt") as f:
-                cli[name]["nfe"] = re.findall(r"^NFE Mean: \(" + FLOAT + ", " + FLOAT + r"\)",
-                                              f.read(), re.M)
-            cli[name]["nfe_one_process"] = want_nfe
-            cli[name]["test_loss"] = log_numbers(stem + ".txt", test_line)
-            cli[name]["test_loss_one_process"] = want_loss
-            if cli[name]["nfe"] != [want_nfe]:
-                raise AssertionError(f"two-rank test CLI NFE {cli[name]['nfe']}, one process "
-                                     f"{want_nfe}")
-            if (len(cli[name]["test_loss"]) != 1
-                    or not abs(cli[name]["test_loss"][0][0] - want_loss[0][0])
-                    <= 1e-5 * abs(want_loss[0][0])):
-                raise AssertionError(f"two-rank --eval-test loss {cli[name]['test_loss']}, one "
-                                     f"process {want_loss}")
-            for launches in cli[name]["launches"]:
-                require_launched(launches, VIZ_KERNELS, "two-rank test CLI")
-        if (written != sorted(want_files[run]) or not npz_ok or not same_ids
-                or len(rows) != len(want_rows) or not csv_rel_diff <= csv_rel):
-            raise AssertionError(f"two-rank test CLI ({name}) against phase 8: {cli[name]}")
-    print(json.dumps({"parallel": f"test CLI --parallel, {PAR_RANKS} gloo ranks sharing the "
-                      "card, against phase 8's one-process run", "card": card,
-                      "ranks_seconds": ranks_seconds, "protocols": cli}), flush=True)
+    compare_test_cli({"recon": [r[1] for r in results], "tnocs": [r[2] for r in results]},
+                     outs, phase8, f"test CLI --parallel, {PAR_RANKS} gloo ranks sharing the "
+                     "card, against phase 8's one-process run", card, ranks_seconds)
 
     # (c) torchrun, one rank on nccl, --parallel --multihost: the train CLI
     run_out = os.path.join(work, "cli_train_torchrun")
@@ -2346,6 +2359,200 @@ def run_parallel_path(torch, kernels, phase8, floor, card):
             or not os.path.exists(os.path.join(run_out, "time_model_1.pkl"))
             or info["mesh_line"] != ["Parallel mesh over 1 devices, axes ('dp',) (1,), rank 0"]):
         raise AssertionError(f"torchrun train CLI: {info}")
+    return one
+
+
+# phase 11: point parallelism, (dp 1, sp 2) on two gloo ranks sharing the card
+SP_RANKS = 2
+# phase 11(a)'s bars against the one-process step (loss, flow or latent
+# leaf of its largest, encoder relative L2).  With dp 1 only the sums over
+# points are reordered: 4.7e-8, 9.2e-7 and 3.3e-6 were read (adjoint; the
+# discrete step less) on an H100 80GB HBM3 at 700 W.  A context cotangent
+# not summed over sp halves the encoder's gradient through the latent code,
+# and a value replicated over sp but counted on each rank doubles its
+# leaves; a share off by far less than a factor of 2 still fails them.
+SP_STEP_BARS = (1e-6, 1e-5, 1e-4)
+# the point counts a row the CNF kernels take under sp: 2048 and 1024
+# points over sp 2 and 4, and 1000 over 2 (a ragged last 64-row tile)
+SP_CNF_POINTS = (1024, 512, 256, 500)
+
+
+def check_sp_cnf_shapes(torch):
+    """Phase 11(e): cnf_primal, cnf_dynamics and cnf_dynamics_vjp at the
+    point counts a rank holds under sp (SP_CNF_POINTS), 20 clouds of each,
+    from the demo weights, against their plain versions in float64 on the
+    card: each output within 1e-4 of its largest magnitude."""
+    from caspr_tpu_torch.ops import cnf_fused, kernels
+    from caspr_tpu_torch.weights import load_demo
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    odenet = load_demo(device=dev)[0]["point_cnf"][1]["odenet"]
+    wf, wh, wl = cnf_fused.pack_weights(odenet)
+    bt = 20
+    tc = torch.cat([torch.full((bt, 1), 0.25, device=dev),
+                    torch.randn((bt, 1600), generator=gen, device=dev)], dim=1)
+    gb = cnf_fused.context_gb(odenet, tc)
+    w64 = [t.double() for t in (gb, wf, wh, wl)]
+    errs = {}
+    for n in SP_CNF_POINTS:
+        y, e, ct = (torch.randn((bt, n, 3), generator=gen, device=dev) for _ in range(3))
+        ct_div = torch.randn((bt, n), generator=gen, device=dev)
+        cases = {
+            "cnf_primal": ((kernels.cnf_primal(y, gb, wf, wh, wl),),
+                           (cnf_fused.primal_packed(y.double(), *w64),)),
+            "cnf_dynamics": (kernels.cnf_dynamics(y, e, gb, wf, wh, wl),
+                             cnf_fused.dynamics_packed(y.double(), e.double(), *w64)),
+            "cnf_dynamics_vjp": (
+                kernels.cnf_dynamics_vjp(y, e, gb, wf, wh, wl, ct, ct_div),
+                cnf_fused.dynamics_vjp_packed(y.double(), e.double(), *w64, ct.double(),
+                                              ct_div.double())),
+        }
+        for name, (got, exact) in cases.items():
+            errs[f"{name} N={n}"] = max(float((g.double() - x).abs().max() / x.abs().max())
+                                        for g, x in zip(got, exact))
+    print(json.dumps({"sp_cnf_kernels": "the CNF kernels at the point counts of a rank under sp, "
+                      "against float64", "clouds": bt, "rel_err_vs_float64": errs,
+                      "tolerance": 1e-4}), flush=True)
+    if not max(errs.values()) <= 1e-4:
+        raise AssertionError(f"CNF kernels at sp point counts: {errs}")
+
+
+def sp_reconstruct_input(torch):
+    """Phase 11(c)'s reconstruct: phase 3's input and decode times and
+    base samples from SEED + 11, as numpy arrays."""
+    x, timestamps, _ = reconstruct_input(torch)
+    base = np.random.default_rng(SEED + 11).standard_normal(
+        (BATCH, FRAMES, POINTS, 3)).astype(np.float32)
+    return x.cpu().numpy(), timestamps.cpu().numpy(), base
+
+
+def one_process_reconstruct(torch, x, timestamps, base):
+    """The one-process reconstruct of phase 3 on the card from the demo
+    weights, with the given base samples: (points, NFE, seconds of the
+    second of two runs)."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.weights import load_demo
+
+    model = CaSPRModel(CaSPRConfig(), device="cuda")
+    params, state = load_demo(device=model.device)
+    args = [torch.as_tensor(a, device=model.device) for a in (x, timestamps, base)]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with torch.no_grad():
+            _, _, x_rec, _, nfe = model.reconstruct(params, state, args[0], None,
+                                                    num_points=x.shape[2], timestamps=args[1],
+                                                    base_samples=args[2])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    return x_rec.cpu().numpy(), nfe, seconds
+
+
+def compare_sp_reconstruct(ranks, one, label, card):
+    """The ranks' point ranges, joined in sp-rank order, against the
+    one-process reconstruct: equal NFE, every point within 1e-3."""
+    points, nfe, seconds = one
+    got = np.concatenate([r["points"] for r in ranks], axis=2)
+    diff = float(np.abs(got - points).max()) if got.shape == points.shape else math.inf
+    info = {"parallel": label, "card": card, "shape": list(points.shape),
+            "nfe": [r["nfe"] for r in ranks] + [nfe], "max_abs_diff": diff, "tolerance": 1e-3,
+            "seconds": {"ranks": [r["seconds"] for r in ranks], "one_process": seconds},
+            "collectives": ranks[0]["collectives"], "launches": [r["launches"] for r in ranks]}
+    print(json.dumps(info), flush=True)
+    for r in ranks:
+        require_launched(r["launches"], RECONSTRUCT_KERNELS, label)
+    if not diff <= 1e-3 or any(tuple(r["nfe"]) != tuple(nfe) for r in ranks):
+        raise AssertionError(f"{label}: see the line above")
+
+
+def run_sp_path(torch, kernels, phase8, floor, card, one):
+    """Phase 11: point parallelism on two gloo ranks that share the card
+    as (dp 1, sp 2), in one launch: (a) phase 10's train step (global
+    batch 4 x 5 frames x 1024 points, 512 a rank), adjoint and discrete,
+    against phase 10's one-process steps ``one``; (b) the test CLI with
+    --parallel --sp-size 2 against phase 8's one-process artifacts; (c) the
+    full-width reconstruct, batch 4 x 10 x 2048 (1024 points a rank),
+    against the one-process reconstruct on the same base samples; (d) the
+    train CLI with --parallel --sp-size 2, one epoch of phase 8's recipe,
+    against phase 8's first epoch; and (e) the CNF kernels at a rank's
+    point counts."""
+    from caspr_tpu_torch.checks.ranks import run_ranks
+
+    begun = time.perf_counter()
+    check_sp_cnf_shapes(torch)
+    x, target, noise = parallel_step_input()
+    rx, rts, rbase = sp_reconstruct_input(torch)
+    one_recon = one_process_reconstruct(torch, rx, rts, rbase)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="phase11_", dir=os.path.dirname(phase8["test_log"]))
+    case = {"x": x, "target": target, "e": noise, "optimizer": "adam", "lr": PAR_LR}
+    outs = {name: os.path.join(work, f"cli_test_{name}") for name in ("recon", "tnocs")}
+    train_out = os.path.join(work, "cli_train")
+    sp_flags = ["--parallel", "--sp-size", str(SP_RANKS)]
+    parts = [{"job": "steps", "cases": [case, dict(case, ode_backward="discrete")]},
+             {"job": "cli", "cli": "test",
+              "argv": phase8["test_args"] + ["--out", outs["recon"], *sp_flags, "--eval-test",
+                                             "--eval-shape-recon-observed"]},
+             {"job": "cli", "cli": "test",
+              "argv": phase8["test_args"] + ["--out", outs["tnocs"], *sp_flags,
+                                             "--eval-tnocs-regression",
+                                             "--eval-pose-observed-ransac"]},
+             {"job": "reconstruct", "x": rx, "timestamps": rts, "base": rbase},
+             {"job": "cli", "cli": "train",
+              "argv": ["--data-cfg", phase8["cfg"], "--seq-len", str(TRAIN_T), "--num-pts",
+                       str(TRAIN_N), "--batch-size", str(TRAIN_B), "--val-every", "1",
+                       "--save-every", "1", "--print-every", "1", "--seed", str(SEED),
+                       "--epochs", "1", "--out", train_out, *sp_flags]}]
+    start = time.perf_counter()
+    results = run_ranks(SP_RANKS, {"job": "parts", "backend": "gloo", "device": "cuda:0",
+                                   "sp_size": SP_RANKS, "weights": "demo", "parts": parts,
+                                   "timeout": 300}, os.path.join(work, "ranks"), timeout=600)
+    ranks_seconds = time.perf_counter() - start
+    label = f"(dp 1, sp {SP_RANKS}) on {SP_RANKS} gloo ranks sharing the card"
+
+    # (a) the train step, adjoint then discrete
+    steps = [r[0] for r in results]
+    for r in steps:
+        require_launched(r[0]["launches"], TRAIN_KERNELS, f"{label}: train step")
+        if r[0]["mesh"] != f"{SP_RANKS} devices, axes ('dp', 'sp') (1, {SP_RANKS})":
+            raise AssertionError(f"{label}: mesh {r[0]['mesh']}")
+    for i, backward in enumerate(("adjoint", "discrete")):
+        compare_parallel_step([r[i] for r in steps], one[backward], floor, backward,
+                              f"train step, {label}, against one process", SP_STEP_BARS)
+    # (b) the test CLI
+    compare_test_cli({"recon": [r[1] for r in results], "tnocs": [r[2] for r in results]},
+                     outs, phase8, f"test CLI --parallel --sp-size {SP_RANKS}, {label}, against "
+                     "phase 8's one-process run", card, ranks_seconds)
+    # (c) the full-width reconstruct, point-sharded
+    compare_sp_reconstruct([r[3] for r in results], one_recon,
+                           f"reconstruct {BATCH} x {FRAMES} x {POINTS}, {label}, against one "
+                           "process", card)
+    # (d) the train CLI: rank 0 writes what one process writes, rank 1 its log
+    logs = [os.path.join(train_out, name) for name in ("train_log.txt", "rank1_train_log.txt")]
+    losses = [[v[0] for v in log_numbers(path, r"TRAIN Mean loss: " + FLOAT)] for path in logs]
+    want = phase8["train_runs"]["adjoint"]["losses"][:len(losses[0])]
+    rel = max((abs(a - b) / abs(b) for a, b in zip(losses[0], want)), default=math.inf)
+    timing = log_numbers(logs[0], r"TIMING epoch \d+: " + FLOAT + r" s per train step")
+    with open(logs[0]) as f:
+        mesh_line = re.findall(r"Parallel mesh over [^\n]*", f.read())
+    info = {"parallel": f"train CLI --parallel --sp-size {SP_RANKS}, {label}, one epoch against "
+            "phase 8's first", "card": card, "losses": losses[0], "phase8_losses": want,
+            "max_rel_diff": rel, "tolerance": 1e-4, "mesh_line": mesh_line,
+            "s_per_train_step": [t[0] for t in timing], "files": sorted(os.listdir(train_out)),
+            "launches": [r[4]["launches"] for r in results],
+            "collectives": results[0][4]["collectives"]}
+    print(json.dumps(info), flush=True)
+    for r in results:
+        require_launched(r[4]["launches"], TRAIN_KERNELS, f"{label}: train CLI")
+    if (losses[0] != losses[1] or len(losses[0]) != len(want) or not rel <= 1e-4
+            or mesh_line != [f"Parallel mesh over {SP_RANKS} devices, axes ('dp', 'sp') "
+                             f"(1, {SP_RANKS}), rank 0"]
+            or not {"time_model_0.pkl", "BEST_time_model.pkl", "rank1_train_log.txt"}
+            <= set(info["files"])):
+        raise AssertionError(f"{label}: train CLI: see the line above")
+    print(json.dumps({"phase": "11", "card": card, "ranks_seconds": ranks_seconds,
+                      "phase_seconds": time.perf_counter() - begun}), flush=True)
 
 
 def phase_done(name: str, begun: float):
@@ -2403,8 +2610,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as out_dir:
             run_viz_path(torch, kernels, out_dir, card)
         phase_done("9", begun)
-        run_parallel_path(torch, kernels, phase8, floor, card)
+        one = run_parallel_path(torch, kernels, phase8, floor, card)
         phase_done("10", begun)
+        run_sp_path(torch, kernels, phase8, floor, card, one)
+        phase_done("11", begun)
 
     listing = []
     for name, row in rows.items():

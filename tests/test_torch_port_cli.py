@@ -18,11 +18,14 @@ on the CPU, at the TINY configuration of tests/test_torch_port_model.py.
   in every artifact.  The radii are widened by ``--radii`` so that the
   encoder's balls hold distinct points (a ball of copies of one point
   magnifies rounding up to 316x in GroupNorm, tests/test_torch_port_model.py).
-- The train CLI: two epochs; every checkpoint loads in the JAX package's
-  load_checkpoint and load_weights with every key found; BEST written after
-  validation; a JAX-written checkpoint with an optax state resumes (with
-  --ode-backward discrete and --grad-accum 2) with Adam's moments restored
-  (one update from them equals optax's, 1e-6).
+- The train CLI: a JAX-written checkpoint with an optax state resumes
+  (with --ode-backward discrete and --grad-accum 2) with Adam's moments
+  restored (one update from them equals optax's, 1e-6); and in
+  tests/test_torch_port_cli_train.py (with this file's fixtures, on a
+  worker of its own under ``--dist loadfile``) two epochs whose every
+  checkpoint loads in the JAX package's load_checkpoint and load_weights
+  with every key found, BEST written after validation, and the refusal of
+  the flags a run cannot shard.
 """
 
 import argparse
@@ -137,22 +140,6 @@ def test_runtime_flags_write_no_environment(monkeypatch):
     assert config.ode_steps_from_env() == 128
 
 
-@pytest.mark.parametrize("cli, argv, item", [
-    ("train", ["--parallel", "--sp-size", "2"], "10.8"), ("train", ["--multihost"], None),
-    ("train", ["--sp-size", "2"], "10.8"), ("test", ["--parallel", "--sp-size", "2"], "10.8"),
-    ("test", ["--sp-size", "4"], "10.8"),
-])
-def test_unported_flags_raise(cli, argv, item, tmp_path):
-    """--sp-size other than 1 is not ported (ROADMAP Queue 1 item 10.8);
-    --multihost without --parallel is refused as the JAX package refuses it.
-    --parallel itself runs (tests/test_torch_port_parallel.py)."""
-    main = {"train": cli_train.main, "test": cli_test.main}[cli]
-    error, match = ((NotImplementedError, f"item {item}") if item else
-                    (ValueError, "--multihost requires --parallel"))
-    with pytest.raises(error, match=re.escape(match)):
-        main(["--data-cfg", "x.cfg", "--out", str(tmp_path)] + argv, device="cpu")
-
-
 @pytest.mark.parametrize("cli", ["train", "test"])
 def test_cli_without_cuda_raises(cli, tree, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -230,41 +217,6 @@ def test_test_cli_shape_recon_artifacts(tree, jax_ckpt, tiny, tmp_path):
     assert [r[:3] for r in rows] == [r[:3] for r in jrows]
     assert len(rows) == 2 * SIZES["test"] + 1
     assert sorted({r[1] for r in rows[1:]}) == [f"test_{i:04d}" for i in range(SIZES["test"])]
-
-
-def _jax_leaves(tree_):
-    return [np.asarray(v) for v in jax.tree_util.tree_leaves(tree_)]
-
-
-def test_train_cli_checkpoints_cross_to_jax(tree, tiny, tmp_path):
-    out = str(tmp_path / "train")
-    cli_train.main(["--data-cfg", tree, "--out", out, "--seq-len", "3", "--num-pts", "64",
-                    "--batch-size", "2", "--epochs", "2", "--val-every", "1", "--save-every",
-                    "1", "--print-every", "1", "--radii", *RADII], device="cpu")
-    names = sorted(os.listdir(out))
-    for name in ("BEST_time_model.pkl", "time_model_0.pkl", "time_model_1.pkl",
-                 "train_curve.npz", "train_log.txt"):
-        assert name in names
-    log = open(os.path.join(out, "train_log.txt")).read()
-    assert log.index("VAL Mean loss") < log.index("BEST Val loss so far! Saving checkpoint...")
-    losses = [float(v) for v in re.findall(r"TRAIN Mean loss: (\S+)", log)]
-    assert len(losses) == 4 and np.all(np.isfinite(losses))
-    assert len(re.findall(r"TIMING epoch \d: \S+ s per train step over 2 steps", log)) == 2
-    curve = np.load(os.path.join(out, "train_curve.npz"))
-    assert curve["train_losses"].shape == (4,) and curve["val_losses"].shape == (2,)
-
-    jshapes = jax.eval_shape(lambda k: jax_caspr_init(k, JaxConfig(**TINY)), jax.random.PRNGKey(0))
-    for name in ("BEST_time_model.pkl", "time_model_1.pkl"):
-        ck = jcheckpoint.load_checkpoint(os.path.join(out, name))
-        target = jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype), jshapes[0])
-        merged = jcheckpoint.load_weights(target, ck["params"])
-        port_ck = checkpoint.load_checkpoint(os.path.join(out, name))
-        flat = checkpoint._flatten(port_ck["params"])
-        assert len(_jax_leaves(merged)) == len(flat)
-        got = jcheckpoint._flatten(jax.tree_util.tree_map(np.asarray, merged))
-        for k, v in flat.items():
-            np.testing.assert_array_equal(got[k], v, err_msg=k)
-        assert int(ck["opt_state"]["count"]) == 4  # two epochs of two steps
 
 
 def test_jax_checkpoint_resumes_with_adam_moments(tree, jax_ckpt, tiny, tmp_path):

@@ -24,6 +24,7 @@ Tolerances:
   - decoded points: 1e-4 abs (the flow's states are O(1) there).
 """
 
+import contextlib
 import functools
 import os
 import subprocess
@@ -46,6 +47,28 @@ from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel, caspr_param_sh
 from caspr_tpu_torch.weights import DEMO_CHECKPOINT, load_checkpoint, params_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# The port's tests share the machine's cores with each other (pytest-xdist
+# workers, gloo rank processes) and with XLA's threads.  PyTorch's pool of
+# a thread a core in every process then oversubscribes them, and its
+# threads wait on each other: tests/test_torch_port_tf32x3.py's NFE case
+# takes 7 s alone and 280-300 s among six workers on an 8-CPU x86 machine.
+# Every test process that imports this module computes on one thread, as
+# the rank processes do (caspr_tpu_torch/checks/ranks.py).
+DEFAULT_THREADS = torch.get_num_threads()
+torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def torch_threads(count):
+    """PyTorch on ``count`` intra-op threads inside the block."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(count)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
 TINY = dict(
     sa_points=(16, 8, 8, 4, 4),
     ball_samples=(4, 8),
