@@ -35,8 +35,11 @@ fails the caller instead of holding it.  Each rank's output goes to
   "reconstruct"  ``CaSPRModel.reconstruct`` of ``payload["x"]`` at the
            decode ``payload["timestamps"]`` from ``payload["base"]`` (the
            global batch's base samples), on this rank's rows and points,
-           once to warm up and once timed: returns the rank's decoded
-           points, the NFE, the seconds, the launches and collectives;
+           once to warm up and once timed (with "sample_div" the
+           reference-parity decode, its noise ``payload["e"]``, the global
+           (B T', N, 3), cut as the base samples): returns the rank's
+           decoded points, the NFE, the seconds, the launches and
+           collectives;
   "mesh"   for each (num_slices, sp_size) of ``payload["meshes"]`` the
            mesh's axes and shape and the ranks of this rank's batch, point
            and whole groups; ``shard_batch_points`` of ``payload["array"]``
@@ -269,12 +272,17 @@ def reconstruct_job(payload, rank, world, mesh, device):
     x, base = (torch.as_tensor(a, device=device).contiguous()
                for a in shard_batch_points(mesh, (payload["x"], payload["base"])))
     timestamps = torch.as_tensor(payload["timestamps"], device=device)
+    e = payload.get("e")
+    if e is not None:  # (B T', N, 3): cut as (B, T', N, 3)
+        e = shard_batch_points(mesh, e.reshape(*payload["base"].shape[:2], *e.shape[1:]))
+        e = torch.as_tensor(e, device=device).reshape(-1, *e.shape[2:]).contiguous()
 
     def recon():
         with torch.no_grad():
             out = model.reconstruct(params, state, x, None, num_points=payload["x"].shape[2],
                                     timestamps=timestamps, base_samples=base,
-                                    groups=mesh_groups(mesh))
+                                    groups=mesh_groups(mesh),
+                                    sample_div=payload.get("sample_div", False), e=e)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return out

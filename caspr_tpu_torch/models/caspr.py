@@ -57,6 +57,11 @@ class CaSPRConfig:
     space_time_pt_feat: int = 64
     cnf_dims: Tuple[int, ...] = (512, 512, 512)
     sa_impl: str = "xla"  # "xla" | "factored" | "fused": see models/pointnet2.py
+    # the CNF's diffeq layer type and nonlinearity (models/cnf.py::CNFConfig);
+    # the JAX package's CaSPRConfig has the defaults alone and reaches the
+    # others through a CNFConfig
+    cnf_layer_type: str = "concatsquash"
+    cnf_nonlinearity: str = "softplus"
 
     def encoder_config(self) -> TPointNet2Config:
         return TPointNet2Config(
@@ -79,7 +84,8 @@ class CaSPRConfig:
 
     def cnf_config(self) -> CNFConfig:
         return CNFConfig(zdim=self.latent_feat_size, num_blocks=self.cnf_blocks,
-                         dims=tuple(self.cnf_dims))
+                         dims=tuple(self.cnf_dims), layer_type=self.cnf_layer_type,
+                         nonlinearity=self.cnf_nonlinearity)
 
 
 def caspr_param_shapes(cfg: CaSPRConfig):
@@ -101,7 +107,7 @@ def caspr_init(generator: torch.Generator, cfg: CaSPRConfig, device=None):
         (nn/core.py::linear_init, torch.nn.Linear's default);
       - the latent ODE's weights N(0, 0.1), biases 0 (latent_ode.py);
       - GroupNorm weights 1, biases 0; MovingBatchNorm weights and biases 0;
-        sqrt_end_time sqrt(0.5) (cnf.py);
+        sqrt_end_time sqrt(0.5), swish_beta 1 (cnf.py);
       - MovingBatchNorm state: mean 0, variance 1, step 0.
     The leaves are drawn in the order of ``caspr_param_shapes``; the numbers
     are not the JAX package's (another generator), their distributions are."""
@@ -129,6 +135,8 @@ def caspr_init(generator: torch.Generator, cfg: CaSPRConfig, device=None):
                 out[name] = draw(shape, path + (name,))
             elif name == "sqrt_end_time":
                 out[name] = torch.tensor(math.sqrt(time_length), device=device)
+            elif name == "swish_beta":
+                out[name] = torch.ones(shape, device=device)
             elif name == "weight" and path[0] == "encoder":  # GroupNorm scale
                 out[name] = torch.ones(shape, device=device)
             else:  # GroupNorm shift, MovingBatchNorm weight and bias
@@ -306,23 +314,31 @@ class CaSPRModel:
             raise ValueError(f"{num_points} points not divisible by {sp} sp ranks")
         return global_draw(draw, (batch, num_points // sp, 3), groups)
 
-    def decode_from_samples(self, params, state, z, y, groups=None):
+    def decode_from_samples(self, params, state, z, y, groups=None, *, sample_div: bool = False,
+                            generator=None, e=None):
         """Decode given base samples.  z: (B, T, H); y: (B, T, N, 3) ->
-        (logp_y (B, T, N), x (B, T, N, 3), cnf_nfe).  ``groups``: the
-        process groups over which the rows and points are sharded."""
+        (logp_y (B, T, N), x (B, T, N, 3), cnf_nfe).  ``sample_div=True``
+        decodes as the reference does, integrating a log-density beside the
+        points with a Hutchinson noise from ``generator`` or ``e`` (B*T, N,
+        3) (``models.cnf.flow_reverse``).  ``groups``: the process groups over
+        which the rows and points are sharded."""
         b, t, h = z.shape
         n = y.shape[2]
         y = y.reshape(b * t, n, 3)
         logp_y = standard_normal_logprob(y).sum(dim=-1)
         x, nfe = flow_reverse(params["point_cnf"], state["point_cnf"], self.cfg.cnf_config(),
-                              y, z.reshape(b * t, h), groups)
+                              y, z.reshape(b * t, h), groups, sample_div=sample_div,
+                              generator=generator, e=e)
         return logp_y.reshape(b, t, n), x.reshape(b, t, n, 3), nfe
 
     def decode(self, params, state, z, generator, num_points: int = 1024,
                constant_in_time: bool = False, truncate_std: Optional[float] = None,
-               sample_contours: Optional[Sequence[float]] = None, groups=None):
+               sample_contours: Optional[Sequence[float]] = None, groups=None, *,
+               sample_div: bool = False, e=None):
         """Sample points at each step from latents z (B, T, H).  Returns
         (y base samples (B, T, N, 3), logp_y (B, T, N), x (B, T, N, 3), nfe).
+        ``sample_div``, ``e``: see ``decode_from_samples`` (the noise drawn
+        from ``generator`` after the base samples).
         ``groups``: the process groups over which the rows and points are
         sharded (the base samples drawn for the global batch and cut,
         ``sample_base``; N is then num_points / sp)."""
@@ -333,25 +349,28 @@ class CaSPRModel:
         if constant_in_time:
             y = y[:, None].expand(b, t, n, 3)
         y = y.reshape(b, t, n, 3)
-        logp_y, x, nfe = self.decode_from_samples(params, state, z, y, groups)
+        logp_y, x, nfe = self.decode_from_samples(params, state, z, y, groups,
+                                                  sample_div=sample_div, generator=generator, e=e)
         return y, logp_y, x, nfe
 
     def reconstruct(self, params, state, x, generator, num_points: int = 1024,
                     constant_in_time: bool = False, timestamps=None,
                     max_timestamp: float = 5.0, truncate_std: Optional[float] = None,
                     sample_contours: Optional[Sequence[float]] = None, base_samples=None,
-                    groups=None):
+                    groups=None, *, sample_div: bool = False, e=None):
         """Encode -> advect -> decode.
 
         x: (B, T, N, 4) conditioning sequence; timestamps: (T',) decode
         times (default: the input times / max_timestamp).  ``base_samples``
         (B, T', num_points, 3), when given, replaces the sampled base
-        points (and ``generator`` is not used).  ``group``: a process group
-        over which the batch is sharded, x (and base_samples) being this
-        rank's rows; every rank passes the same ``timestamps``.  With sp
-        (``groups.point``) x, base_samples and the outputs are this rank's
-        range of the points, and ``num_points`` is the global count.
-        Returns (y, logp_y, x_recon, tnocs_pred, (ode_nfe, cnf_nfe))."""
+        points.  ``sample_div=True`` decodes as the reference does, with the
+        Hutchinson noise ``e`` (B*T', num_points, 3) or, without it, drawn
+        from ``generator`` (``decode_from_samples``).  ``group``: a process
+        group over which the batch is sharded, x (and base_samples and e)
+        being this rank's rows; every rank passes the same ``timestamps``.
+        With sp (``groups.point``) x, base_samples, e and the outputs are
+        this rank's range of the points, and ``num_points`` is the global
+        count.  Returns (y, logp_y, x_recon, tnocs_pred, (ode_nfe, cnf_nfe))."""
         b = x.shape[0]
         z0, tnocs_pred = self.encode(params, x, None if groups is None else groups.point)
         if timestamps is None:
@@ -365,8 +384,9 @@ class CaSPRModel:
             y, logp_y, x_rec, cnf_nfe = self.decode(
                 params, state, z, generator, num_points=num_points,
                 constant_in_time=constant_in_time, truncate_std=truncate_std,
-                sample_contours=sample_contours, groups=groups)
+                sample_contours=sample_contours, groups=groups, sample_div=sample_div, e=e)
         else:
             y = base_samples
-            logp_y, x_rec, cnf_nfe = self.decode_from_samples(params, state, z, y, groups)
+            logp_y, x_rec, cnf_nfe = self.decode_from_samples(
+                params, state, z, y, groups, sample_div=sample_div, generator=generator, e=e)
         return y, logp_y, x_rec, tnocs_pred, (ode_nfe, cnf_nfe)

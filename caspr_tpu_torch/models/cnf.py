@@ -1,13 +1,19 @@
 """Conditional CNF over points (counterpart of caspr_tpu/models/cnf.py):
-the chain MovingBatchNorm -> CNF block -> MovingBatchNorm, in both
+the chain MovingBatchNorm -> CNF block(s) -> MovingBatchNorm, in both
 directions, with running statistics, and the likelihood direction's
 training form.
 
 Sampling (``flow_reverse``) visits the chain back to front and maps base
-samples to points.  The CNF block integrates the points alone (no
-log-density channel: decode never reads it) from 0 to t_end =
+samples to points.  The CNF block integrates from 0 to t_end =
 sqrt_end_time^2 with the time-reflected reverse dynamics, t_phys = t_end -
-s and the field negated, so the solver always runs forward.
+s and the field negated, so the solver always runs forward.  By default it
+integrates the points alone (no log-density channel: decode never reads
+it).  With ``sample_div=True`` it integrates the reference's two-leaf state
+instead, the points and a log-density from zero with the field (-dx,
+e^T J e) for one Hutchinson noise e held for the solve: dopri5's error norm
+then has the log-density's term, so the decode takes the reference's
+accepted steps and NFE (reference cnf.py:85-99; the JAX package's
+CASPR_TPU_SAMPLE_DIV=1).  The log-density is discarded.
 
 Likelihood (``flow_forward``) visits the chain front to back and maps
 points to the base space together with the change of their log-density.
@@ -15,28 +21,32 @@ The CNF block integrates the two-leaf state (points, log-density) with the
 Hutchinson estimate of the divergence, -e^T J e per point, for one noise
 tensor e drawn per solve and held fixed across evaluations.
 
-The dynamics are the concatsquash ODEnet with softplus.  For a config the
-fused kernels take (``ops.cnf_fused.kernel_takes``: equal hidden widths, a
-multiple of 32 up to 512, 1-6 hidden-to-hidden layers) its per-point work
-runs in them (``ops.kernels.cnf_primal`` and ``cnf_dynamics``, their plain
-versions for CPU tensors); any other config runs the unfused composition
+The ODEnet is any of the JAX package's layer types (ignore, concat,
+concat_v2, squash, scale, concatsquash, concatscale) with any of its
+nonlinearities (tanh, relu, softplus, elu, square, identity, swish with a
+learned beta per layer, ``odenet.swish_beta``), chosen by ``CNFConfig``.
+For a config the fused kernels take (``ops.cnf_fused.kernel_takes``:
+concatsquash with softplus, equal hidden widths, a multiple of 32 up to
+512, 1-6 hidden-to-hidden layers) its per-point work runs in them
+(``ops.kernels.cnf_primal`` and ``cnf_dynamics``, their plain versions for
+CPU tensors); any other config runs the unfused composition
 (``reference_primal``, ``reference_dynamics``) on either device, with
 autograd as its VJP in training, as the JAX package runs ``odenet_apply``
 where ``can_fuse`` is false.
 
 Training (``training=True`` of the likelihood direction) solves each block
-through ``odeint_adjoint`` with the ODEnet's parameters, the context and
-t_end as its args (each evaluation of the adjoint's augmented dynamics
-runs ``cnf_dynamics`` and its VJP kernel ``cnf_dynamics_vjp``, or the
-composition and autograd); t_end = sqrt_end_time^2 enters as the last
-request time, so its gradient is the adjoint's dL/dts.  With
-``ode_backward="discrete"`` the block is solved by ``odeint_discrete``
-under autograd instead: each evaluation's ``cnf_dynamics`` saves its
-inputs, and the backward runs ``cnf_dynamics_vjp`` once per evaluation
-that reaches the loss; t_end's gradient comes through the dense output.  The
-MovingBatchNorms update their running statistics
-from the batch (PointFlow's transpose-reshape statistics) and normalise
-with the statistics from before the update.
+through ``odeint_adjoint`` with the ODEnet's parameters (swish_beta among
+them), the context and t_end as its args (each evaluation of the
+adjoint's augmented dynamics runs ``cnf_dynamics`` and its VJP kernel
+``cnf_dynamics_vjp``, or the composition and autograd); t_end =
+sqrt_end_time^2 enters as the last request time, so its gradient is the
+adjoint's dL/dts.  With ``ode_backward="discrete"`` the block is solved by
+``odeint_discrete`` under autograd instead: each evaluation's
+``cnf_dynamics`` saves its inputs, and the backward runs
+``cnf_dynamics_vjp`` once per evaluation that reaches the loss; t_end's
+gradient comes through the dense output.  The MovingBatchNorms update
+their running statistics from the batch (PointFlow's transpose-reshape
+statistics) and normalise with the statistics from before the update.
 
 Sharded over ranks (``groups=``, ``parallel.mesh.Groups``), a rank holds
 its rows of the batch and, with sp, its range of each cloud's points: the
@@ -84,15 +94,26 @@ class CNFConfig:
         return blocks
 
 
-def _check_supported(cfg: CNFConfig):
-    if cfg.layer_type != "concatsquash" or cfg.nonlinearity != "softplus":
-        raise NotImplementedError(
-            f"the port runs concatsquash + softplus, got {cfg.layer_type} + {cfg.nonlinearity}")
+def _layer_shapes(layer_type: str, d_in: int, d_out: int, zdim: int):
+    """The leaves of one layer, as caspr_tpu/models/cnf.py::_layer_init
+    makes them, in the (out, in) layout."""
+    lin = lambda n_in: {"weight": (d_out, n_in), "bias": (d_out,)}
+    if layer_type == "ignore":
+        return {"_layer": lin(d_in)}
+    if layer_type == "concat":
+        return {"_layer": lin(d_in + 1 + zdim)}
+    if layer_type == "concat_v2":
+        return {"_layer": lin(d_in), "_hyper_bias": {"weight": (d_out, 1 + zdim)}}
+    if layer_type in ("squash", "scale"):
+        return {"_layer": lin(d_in), "_hyper": lin(1 + zdim)}
+    if layer_type in ("concatsquash", "concatscale"):
+        return {"_layer": lin(d_in), "_hyper_bias": {"weight": (d_out, 1 + zdim)},
+                "_hyper_gate": lin(1 + zdim)}
+    raise ValueError(f"unknown diffeq layer type {layer_type!r}")
 
 
 def flow_param_shapes(cfg: CNFConfig):
     """(params, state) shape trees of the chain."""
-    _check_supported(cfg)
     params, state = [], []
     for kind in cfg.chain():
         if kind == "mbn":
@@ -103,13 +124,11 @@ def flow_param_shapes(cfg: CNFConfig):
         layers = []
         d_in = cfg.input_dim
         for d_out in tuple(cfg.dims) + (cfg.input_dim,):
-            layers.append({
-                "_layer": {"weight": (d_out, d_in), "bias": (d_out,)},
-                "_hyper_bias": {"weight": (d_out, 1 + cfg.zdim)},
-                "_hyper_gate": {"weight": (d_out, 1 + cfg.zdim), "bias": (d_out,)},
-            })
+            layers.append(_layer_shapes(cfg.layer_type, d_in, d_out, cfg.zdim))
             d_in = d_out
         block = {"odenet": {"layers": layers}}
+        if cfg.nonlinearity == "swish":
+            block["odenet"]["swish_beta"] = (len(cfg.dims),)
         if cfg.train_T:
             block["sqrt_end_time"] = ()
         params.append(block)
@@ -132,7 +151,7 @@ def odenet_primal(params, cfg: CNFConfig, tc, y):
     """f(y): the fused kernel where the config fits it, else the composition."""
     if kernel_takes(cfg):
         return fused_concatsquash_primal(params, tc, y)
-    return reference_primal(params, tc, y)
+    return reference_primal(params, tc, y, cfg.layer_type, cfg.nonlinearity)
 
 
 def odenet_dynamics(params, cfg: CNFConfig, tc, y, e):
@@ -140,7 +159,7 @@ def odenet_dynamics(params, cfg: CNFConfig, tc, y, e):
     the composition."""
     if kernel_takes(cfg):
         return fused_concatsquash_dynamics(params, tc, y, e)
-    return reference_dynamics(params, tc, y, e)
+    return reference_dynamics(params, tc, y, e, cfg.layer_type, cfg.nonlinearity)
 
 
 def _end_time(params, cfg: CNFConfig) -> np.float32:
@@ -155,24 +174,36 @@ def _time_context(t, context):
     return torch.cat([col, context], dim=1)
 
 
-def cnf_block_apply(params, cfg: CNFConfig, x, context, groups=None):
-    """One CNF block, reverse (sampling) direction, on the points alone.
-    x: (BT, N, D), context (BT, zdim) -> (y (BT, N, D), nfe).  ``groups``:
-    the process groups over which the rows and points are sharded; the
-    solver's norms run over the whole group (``ops.odeint``)."""
-    _check_supported(cfg)
+def cnf_block_apply(params, cfg: CNFConfig, x, context, groups=None, *, sample_div: bool = False,
+                    e=None):
+    """One CNF block, reverse (sampling) direction.  x: (BT, N, D), context
+    (BT, zdim) -> (y (BT, N, D), nfe).  By default it integrates the points
+    alone.  ``sample_div=True`` integrates (points, log-density from 0) with
+    the field (-dx, e^T J e) for the Hutchinson noise e (BT, N, D), as the
+    reference decodes, and discards the log-density.  ``groups``: the
+    process groups over which the rows and points are sharded; the solver's
+    norms run over the whole group (``ops.odeint``)."""
     t_end = _end_time(params, cfg)
     bt, n, d = x.shape
     odenet = params["odenet"]
+    ts = np.array([0.0, t_end], np.float32)
+    # time-reflected: solver time s runs 0 -> t_end, the flow's time is
+    # t_end - s, and the field is negated.  The state rides flattened
+    # (BT, N*D) as in the JAX package.
+    if sample_div:
+        def dynamics(s, state):
+            tc = _time_context(t_end - s, context)
+            dx, div = odenet_dynamics(odenet, cfg, tc, state[0].reshape(bt, n, d), e)
+            return -dx.reshape(bt, -1), div
+
+        (xs, _), nfe = odeint(dynamics, (x.reshape(bt, n * d), x.new_zeros((bt, n))), ts,
+                              rtol=cfg.rtol, atol=cfg.atol, group=_whole(groups))
+        return xs[1].reshape(bt, n, d), nfe
 
     def dynamics(s, x_flat):
-        # time-reflected: solver time s runs 0 -> t_end, the flow's time is
-        # t_end - s, and the field is negated.  The state rides flattened
-        # (BT, N*D) as in the JAX package.
         tc = _time_context(t_end - s, context)
         return -odenet_primal(odenet, cfg, tc, x_flat.reshape(bt, n, d)).reshape(bt, -1)
 
-    ts = np.array([0.0, t_end], np.float32)
     xs, nfe = odeint(dynamics, x.reshape(bt, n * d), ts, rtol=cfg.rtol, atol=cfg.atol,
                      group=_whole(groups))
     return xs[1].reshape(bt, n, d), nfe
@@ -199,7 +230,6 @@ def cnf_block_forward(params, cfg: CNFConfig, x, context, logpx, e, *, training:
     autograd ("discrete") the context's cotangent is summed over the point
     group once, so that it is the one-process cotangent of the rank's rows
     in both modes."""
-    _check_supported(cfg)
     bt, n, d = x.shape
 
     def dynamics(t, state, args):
@@ -280,19 +310,53 @@ def mbn_reverse(params, state, cfg: CNFConfig, x):
     return y * torch.sqrt(state["running_var"] + cfg.bn_eps) + state["running_mean"]
 
 
-def flow_reverse(params, state, cfg: CNFConfig, y, context, groups=None):
+def flow_reverse(params, state, cfg: CNFConfig, y, context, groups=None, *,
+                 sample_div: bool = False, generator=None, e=None):
     """Base samples y (BT, N, D) -> points, visiting the chain back to
-    front.  Returns (x, nfe).  ``groups``: the process groups over which
-    the rows and points are sharded."""
+    front.  Returns (x, nfe).  ``sample_div=True`` decodes as the reference
+    does (``cnf_block_apply``), each block with a Hutchinson noise drawn
+    from ``generator`` or taken from ``e``, as ``flow_forward`` draws and
+    takes it.  ``groups``: the process groups over which the rows and points
+    are sharded."""
+    noise = _noise_list(e)
     kinds = cfg.chain()
-    nfe = 0.0
+    nfe, block = 0.0, 0
     for i in range(len(kinds) - 1, -1, -1):
         if kinds[i] == "mbn":
             y = mbn_reverse(params[i], state[i], cfg, y)
-        else:
-            y, block_nfe = cnf_block_apply(params[i], cfg, y, context, groups)
-            nfe += block_nfe
+            continue
+        cur = _block_noise(noise, block, generator, y, groups) if sample_div else None
+        y, block_nfe = cnf_block_apply(params[i], cfg, y, context, groups, sample_div=sample_div,
+                                       e=cur)
+        nfe = nfe_add(nfe, block_nfe)
+        block += 1
     return y, nfe
+
+
+def _noise_list(e):
+    return None if e is None else ([e] if isinstance(e, torch.Tensor) else list(e))
+
+
+def _block_noise(noise, block, generator, x, groups):
+    """A block's Hutchinson noise: ``noise[block]``, else drawn from
+    ``generator`` at x's shape (the global shape under ``groups``, this
+    rank's part kept)."""
+    if noise is not None:
+        return noise[block]
+    draw = lambda shape: torch.randn(shape, generator=generator, dtype=x.dtype, device=x.device)
+    return draw(x.shape) if groups is None else global_draw(draw, x.shape, groups)
+
+
+def flow_total_time(params, cfg: CNFConfig):
+    """The sum of the CNF blocks' end times, sqrt_end_time^2 each (a tensor
+    with its gradient) or time_length without train_T: the counterpart of
+    the reference's count_total_time (flow.py:29-41)."""
+    total = 0.0
+    for kind, p in zip(cfg.chain(), params):
+        if kind == "cnf":
+            total = total + (p["sqrt_end_time"] * p["sqrt_end_time"] if cfg.train_T
+                             else cfg.time_length)
+    return total
 
 
 def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=None, e=None, *,
@@ -313,20 +377,14 @@ def flow_forward(params, state, cfg: CNFConfig, x, context, logpx, generator=Non
     block's noise is then drawn at the global shape (R_dp * BT, sp * N, D)
     and this rank keeps its rows and points, so that ranks whose generators
     are alike hold the one-process noise; ``e`` is this rank's part."""
-    noise = None if e is None else ([e] if isinstance(e, torch.Tensor) else list(e))
+    noise = _noise_list(e)
     new_state = list(state)
     nfe, block = 0.0, 0
     for i, (kind, p) in enumerate(zip(cfg.chain(), params)):
         if kind == "mbn":
             x, logpx, new_state[i] = mbn_forward(p, state[i], cfg, x, logpx, training, groups)
             continue
-        if noise is None and groups is None:
-            cur = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
-        elif noise is None:
-            cur = global_draw(lambda shape: torch.randn(shape, generator=generator, dtype=x.dtype,
-                                                        device=x.device), x.shape, groups)
-        else:
-            cur = noise[block]
+        cur = _block_noise(noise, block, generator, x, groups)
         x, logpx, block_nfe = cnf_block_forward(p, cfg, x, context, logpx, cur,
                                                 training=training, nfe_sink=nfe_sink,
                                                 ode_backward=ode_backward, ode_steps=ode_steps,

@@ -1,18 +1,40 @@
-"""The CNF dynamics around the fused concatsquash kernels.
+"""The CNF dynamics: the ODEnet of every diffeq layer type and nonlinearity,
+and the fused concatsquash kernels around it.
 
-The concatsquash ODEnet (4 layers 3 -> 512 -> 512 -> 512 -> 3 with
-softplus between them) runs once per solver step of every CNF solve.  As
-in the JAX package (caspr_tpu/ops/cnf_fused.py), the context-dependent
-part of each layer -- a sigmoid gate and an effective bias per (cloud,
-channel) -- is computed here in plain PyTorch, a (BT, 1+zdim) x (1+zdim, H)
-product per layer, and the per-point work goes to a kernel that keeps
-every activation on chip: ``ops.kernels.cnf_primal`` for the sampling
-direction (points alone), ``ops.kernels.cnf_dynamics`` for the likelihood
-direction (points and the Hutchinson tangent J e, giving e^T J e).
+The ODEnet (the paper's 3 -> 512 -> 512 -> 512 -> 3) runs once per solver
+step of every CNF solve.  Each layer is one of the seven context-conditioned
+layer types of the JAX package (caspr_tpu/models/cnf.py::_layer_apply),
+applied to y with tc = [t, context]:
 
-The tangent is analytic for concatsquash + softplus: gate and bias do not
-depend on y, so the tangent of ``L(y) * gate + b`` is ``L(e) * gate``, and
-softplus' derivative is the sigmoid of its pre-activation.
+  ignore        L(y)
+  concat        L([y, tc])        (computed as y W_y^T + (tc W_c^T + b))
+  concat_v2     L(y) + H_b(tc)
+  squash        L(y) * sigmoid(H(tc))
+  scale         L(y) * H(tc)
+  concatsquash  L(y) * sigmoid(H_g(tc)) + H_b(tc)
+  concatscale   L(y) * H_g(tc) + H_b(tc)
+
+with L the layer's own linear map and H, H_g, H_b the hyper layers
+(``_hyper``, ``_hyper_gate``, ``_hyper_bias``; H_b without bias), and one
+of tanh, relu, softplus, elu, square, identity or swish (``v *
+sigmoid(beta_i v)``, beta_i the layer's learned ``swish_beta``) between
+layers (``odenet_apply``).  ``reference_primal`` computes f(y),
+``reference_dynamics`` (f(y), e^T J_f(y) e) with an analytic tangent: the
+gate and the additive terms do not depend on y, so a layer's tangent is
+``(e W^T) * gate`` (only y's columns of concat's weight; no gate for the
+types without one), times the activation's derivative at the primal
+pre-activation, the slope JAX's own functions give (relu's 0 at 0, elu's
+exp below 0).  Autograd through it is the adjoint's VJP.
+
+For concatsquash with softplus the context-dependent part of each layer --
+a sigmoid gate and an effective bias per (cloud, channel) -- is computed
+here in plain PyTorch, a (BT, 1+zdim) x (1+zdim, H) product per layer, and
+where the config fits them (``kernel_takes``) the per-point work goes to a
+kernel that keeps every activation on chip: ``ops.kernels.cnf_primal`` for
+the points alone, ``ops.kernels.cnf_dynamics`` for the points and the
+Hutchinson tangent J e, giving e^T J e.  The JAX package has a kernel for
+that config alone (caspr_tpu/ops/cnf_fused.py::can_fuse), and so does the
+port: any other config runs the composition on either device.
 """
 
 from __future__ import annotations
@@ -108,17 +130,88 @@ def primal_packed(y, gb, w_first, w_hidden, w_last):
     return z
 
 
-def reference_primal(params, tc, y):
-    """The unfused concatsquash stack, ``(y @ W^T + b) * gate + hyper_bias``
-    per layer (caspr_tpu/ops/cnf_fused.py::_reference_primal)."""
-    layers = params["layers"]
-    dx = y
-    for i, lp in enumerate(layers):
+def _act(name: str, beta=None):
+    """(f, f') of a nonlinearity between layers, with the slope of JAX's own
+    function (the tangent jax.jvp takes through it)."""
+    if name == "tanh":
+        return torch.tanh, lambda v: 1.0 - torch.tanh(v) ** 2
+    if name == "relu":
+        return torch.relu, lambda v: (v > 0).to(v.dtype)
+    if name == "softplus":
+        return softplus, torch.sigmoid
+    if name == "elu":
+        # jax.nn.elu: where(v > 0, v, expm1(where(v > 0, 0, v)))
+        safe = lambda v: torch.where(v > 0, torch.zeros_like(v), v)
+        return (lambda v: torch.where(v > 0, v, torch.expm1(safe(v))),
+                lambda v: torch.where(v > 0, torch.ones_like(v), torch.exp(safe(v))))
+    if name == "square":
+        return torch.square, lambda v: 2.0 * v
+    if name == "identity":
+        return (lambda v: v), torch.ones_like
+    if name == "swish":
+        def grad(v):
+            s = torch.sigmoid(beta * v)
+            return s + v * (beta * (s * (1.0 - s)))
+        return (lambda v: v * torch.sigmoid(beta * v)), grad
+    raise ValueError(f"unknown nonlinearity {name!r}")
+
+
+def _acts(params, nonlinearity: str):
+    """(f, f') of each layer but the last."""
+    n = len(params["layers"]) - 1
+    if nonlinearity == "swish":
+        return [_act("swish", params["swish_beta"][i]) for i in range(n)]
+    return [_act(nonlinearity)] * n
+
+
+def _layer_terms(lp, layer_type: str, tc):
+    """A layer as (weight on the points, its (out, in) columns of y; the map
+    of y, ``z -> z W^T + inner``; the gate or None; the bias after the gate
+    or None), the last three from tc."""
+    w = lp["_layer"]["weight"]
+    if layer_type == "concat":
+        # [y, tc] W^T + b split into y's columns and tc's: the context part
+        # is one (BT, 1+zdim) product, not a (BT, N, 1+zdim) broadcast
+        d_in = w.shape[1] - tc.shape[1]
+        ctx = (torch.matmul(tc, w[:, d_in:].T) + lp["_layer"]["bias"])[:, None, :]
+        return w[:, :d_in], lambda z: torch.matmul(z, w[:, :d_in].T) + ctx, None, None
+    apply = lambda z: linear(lp["_layer"], z)
+    if layer_type == "ignore":
+        return w, apply, None, None
+    if layer_type == "concat_v2":
+        return w, apply, None, linear(lp["_hyper_bias"], tc)[:, None, :]
+    if layer_type == "squash":
+        return w, apply, torch.sigmoid(linear(lp["_hyper"], tc))[:, None, :], None
+    if layer_type == "scale":
+        return w, apply, linear(lp["_hyper"], tc)[:, None, :], None
+    if layer_type == "concatsquash":
         gate = torch.sigmoid(linear(lp["_hyper_gate"], tc))[:, None, :]
-        bias = linear(lp["_hyper_bias"], tc)[:, None, :]
-        dx = linear(lp["_layer"], dx) * gate + bias
-        if i < len(layers) - 1:
-            dx = softplus(dx)
+        return w, apply, gate, linear(lp["_hyper_bias"], tc)[:, None, :]
+    if layer_type == "concatscale":
+        gate = linear(lp["_hyper_gate"], tc)[:, None, :]
+        return w, apply, gate, linear(lp["_hyper_bias"], tc)[:, None, :]
+    raise ValueError(f"unknown diffeq layer type {layer_type!r}")
+
+
+def _primal_layer(terms, z):
+    _, apply, gate, bias = terms
+    z = apply(z)
+    if gate is not None:
+        z = z * gate
+    return z if bias is None else z + bias
+
+
+def reference_primal(params, tc, y, layer_type: str = "concatsquash",
+                     nonlinearity: str = "softplus"):
+    """The unfused ODEnet f(y) of a layer type and nonlinearity
+    (caspr_tpu/models/cnf.py::odenet_apply; for concatsquash with softplus
+    caspr_tpu/ops/cnf_fused.py::_reference_primal)."""
+    acts = _acts(params, nonlinearity)
+    dx = y
+    for i, lp in enumerate(params["layers"]):
+        dx = _primal_layer(_layer_terms(lp, layer_type, tc), dx)
+        if i < len(acts):
+            dx = acts[i][0](dx)
     return dx
 
 
@@ -200,17 +293,21 @@ def dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
     return cp, dgb, dws[0], torch.stack(dws[1:-1]), dws[-1]
 
 
-def reference_dynamics(params, tc, y, e):
-    """The unfused composition with its analytic tangent
-    (caspr_tpu/ops/cnf_fused.py::_reference_dynamics): (dx, e^T J e)."""
-    layers = params["layers"]
+def reference_dynamics(params, tc, y, e, layer_type: str = "concatsquash",
+                       nonlinearity: str = "softplus"):
+    """The unfused ODEnet with its analytic tangent: (f(y), e^T J_f(y) e)
+    (for concatsquash with softplus
+    caspr_tpu/ops/cnf_fused.py::_reference_dynamics)."""
+    acts = _acts(params, nonlinearity)
     zp, zt = y, e
-    for i, lp in enumerate(layers):
-        gate = torch.sigmoid(linear(lp["_hyper_gate"], tc))[:, None, :]
-        bias = linear(lp["_hyper_bias"], tc)[:, None, :]
-        zp = linear(lp["_layer"], zp) * gate + bias
-        zt = torch.matmul(zt, lp["_layer"]["weight"].T) * gate
-        if i < len(layers) - 1:
-            zt = zt * torch.sigmoid(zp)
-            zp = softplus(zp)
+    for i, lp in enumerate(params["layers"]):
+        terms = _layer_terms(lp, layer_type, tc)
+        zp = _primal_layer(terms, zp)
+        zt = torch.matmul(zt, terms[0].T)
+        if terms[2] is not None:
+            zt = zt * terms[2]
+        if i < len(acts):
+            f, df = acts[i]
+            zt = zt * df(zp)
+            zp = f(zp)
     return zp, (zt * e).sum(dim=-1)

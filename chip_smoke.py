@@ -158,7 +158,30 @@ Phases, each of which raises on failure:
      --parallel --multihost, two epochs at 5 x 5 x 1024 on nccl: losses
      finite, the training kernels launched, the checkpoints written, the
      mesh logged; its seconds per step by epoch beside phase 8's
-     one-process run's, and the phase's seconds.
+     one-process run's, and the phase's seconds;
+ 11. point parallelism on two gloo ranks sharing the card as (dp 1, sp 2):
+     phase 10's train step (adjoint and discrete), the test and train
+     command lines with --parallel --sp-size 2, a full-width reconstruct
+     point-sharded against one process, and the CNF kernels at a rank's
+     point counts (run_sp_path);
+ 12. the rest of the CNF (run_cnf_rest): (a) the reference-parity decode,
+     reconstruct(..., sample_div=True) of phase 3's input and base samples
+     with the demo weights: cnf_dynamics launched once per CNF evaluation
+     and cnf_primal never, its NFE and seconds beside the default
+     decode's from the same call, a second run identical, and phase 5's
+     reconstruct with it on the card and on the CPU (equal NFE, points
+     within 1e-3); (b) each layer type with softplus and each
+     nonlinearity with concatsquash (12 configs, cnf_dims (16, 32), the
+     gains of OTHER_CNF_GAIN): a decode of 2 x 512 points and a
+     likelihood forward of 2 x 2048 with injected noise, conditioned on
+     the demo model's latents of phase 5b's input, card against CPU
+     (equal NFE, 1e-3 x max(1, the CPU's largest magnitude)), no CNF
+     kernel launched; (c) the same 12 at (512, 512, 512), zdim 1600,
+     decoding 40 x 2048 points on the demo model's latents of phase 3's
+     input on the card (NFE, seconds, finite); (d) one adjoint step of a
+     flow-only NLL for swish and for concat at that width, card against
+     CPU with phase 7's bars (equal NFE, loss 1e-4 relative, every flow
+     leaf and the context within 1e-3 of its largest).
 
 Then it prints its own seconds (from its first line of output on), one
 JSON line listing every kernel and, last, the verdict line
@@ -2555,6 +2578,271 @@ def run_sp_path(torch, kernels, phase8, floor, card, one):
                       "phase_seconds": time.perf_counter() - begun}), flush=True)
 
 
+# phase 12: the rest of the CNF.  Each layer type with softplus and each
+# nonlinearity with concatsquash (the twelve configs that are not the
+# kernels' concatsquash + softplus); the JAX package reaches them through a
+# CNFConfig, the port also through CaSPRConfig's cnf_layer_type and
+# cnf_nonlinearity.
+OTHER_LAYER_TYPES = ("ignore", "concat", "concat_v2", "squash", "scale", "concatscale")
+OTHER_NONLINEARITIES = ("tanh", "relu", "elu", "square", "identity", "swish")
+OTHER_CNF = ([(lt, "softplus") for lt in OTHER_LAYER_TYPES]
+             + [("concatsquash", nl) for nl in OTHER_NONLINEARITIES])
+# (b)'s CNF widths: phase 5b's composition config
+OTHER_CNF_DIMS = (16, 32)
+# (b)'s gain on the CNF layers' weights.  With caspr_init's weights these
+# fields are close to linear at these widths: dopri5's error estimate sits
+# at float32 rounding and the step sequence follows the order of the sums
+# (the CPU's float32 and float64 runs of tanh, elu, identity, swish, squash
+# and scale take different steps at gains of 1 to 4).  Phase 5b's gain of
+# 6, where the float32 and float64 runs take the same steps, except where
+# the field blows up at 6: ignore (its decode's points reach 5e9) and
+# concat_v2 (3.4e3) take 3, where they agree.  relu takes none: its
+# divergence, a step of the pre-activation, jumps where a point crosses a
+# kink, and the rejected steps there follow rounding (at 3 the card's
+# forward took 344 evaluations to the CPU's 338, at 6 the CPU's float32
+# 1352 to its float64 1358); at 1 float32 and float64 agree (44).  square
+# takes none: it blows up from a gain of 1.25, and its float64 decode takes
+# 14 evaluations to float32's 20-26 at every gain from 0.25 to 1.2.
+OTHER_CNF_GAIN = {"ignore": 3.0, "concat_v2": 3.0, "relu": 1.0, "square": 1.0}
+# (d)'s configs: swish's learned beta, and concat's first layer, the widest
+# (512 x (3 + 1 + 1600))
+OTHER_CNF_STEPS = (("concatsquash", "swish"), ("concat", "softplus"))
+CNF_LEAVES = ("cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp")
+
+
+def other_cnf_params(torch, layer_type, nonlinearity, dims, device):
+    """caspr_init's draw (seed SEED) of a CaSPRConfig with these CNF
+    settings: its point_cnf (params, state) on ``device``."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, caspr_init
+    from caspr_tpu_torch.ops.odeint import flatten_tree
+
+    cfg = CaSPRConfig(cnf_dims=dims, cnf_layer_type=layer_type, cnf_nonlinearity=nonlinearity)
+    params, state = caspr_init(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+    move = lambda tree: (lambda lv: lv[1]([t.to(device) for t in lv[0]]))(flatten_tree(tree))
+    return cfg.cnf_config(), move(params["point_cnf"]), move(state["point_cnf"])
+
+
+def sample_div_decode(torch, kernels, model, params, state, card):
+    """Phase 12(a): the reference-parity decode at full width (phase 3's
+    input and base samples, a noise from SEED + 12), cnf_dynamics launched
+    once per CNF evaluation and cnf_primal never, beside the default decode
+    from the same call; then phase 5's reconstruct with it, card against
+    CPU."""
+    x, timestamps, gen = reconstruct_input(torch)
+    base = model.sample_base(gen, BT, POINTS).reshape(BATCH, FRAMES, POINTS, 3)
+    noise = torch.randn((BT, POINTS, 3), generator=torch.Generator(device="cuda").manual_seed(
+        SEED + 12), device="cuda")
+    runs = {}
+    for mode, kw in (("default", {}), ("sample_div", {"sample_div": True, "e": noise}),
+                     ("sample_div again", {"sample_div": True, "e": noise})):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start = time.perf_counter()
+        with torch.no_grad():
+            _, _, rec, _, nfe = model.reconstruct(params, state, x, None, num_points=POINTS,
+                                                  timestamps=timestamps, base_samples=base, **kw)
+        torch.cuda.synchronize()
+        runs[mode] = (rec, nfe, time.perf_counter() - start, dict(kernels.launches))
+    rec, nfe, _, counts = runs["sample_div"]
+    cnf = {k: counts[k] for k in CNF_LEAVES}
+    require_launched(counts, RECONSTRUCT_KERNELS[:-1], "sample-div reconstruct")
+    if cnf != {"cnf_primal": 0, "cnf_dynamics": int(nfe[1]), "cnf_dynamics_vjp": 0}:
+        raise AssertionError(f"sample-div reconstruct: CNF launches {cnf}, CNF NFE {nfe[1]}")
+    if tuple(rec.shape) != (BATCH, FRAMES, POINTS, 3) or not bool(torch.isfinite(rec).all()):
+        raise AssertionError(f"sample-div reconstruct output bad: shape {tuple(rec.shape)}")
+    if runs["sample_div again"][1] != nfe or not torch.equal(runs["sample_div again"][0], rec):
+        raise AssertionError("sample-div reconstruct: a second run differs")
+    print(json.dumps({
+        "sample_div": f"reconstruct B={BATCH} T={FRAMES} N={POINTS}, demo weights", "card": card,
+        "nfe": {m: runs[m][1] for m in ("default", "sample_div")},
+        "seconds": {m: runs[m][2] for m in runs},
+        "cnf_launches": cnf, "default_cnf_launches": {k: runs["default"][3][k] for k in CNF_LEAVES},
+        "max_abs_diff_from_default": float((rec - runs["default"][0]).abs().max())}), flush=True)
+
+    # phase 5's small reconstruct with the sample-div decode, card vs CPU
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.weights import load_demo
+
+    rng = np.random.default_rng(SEED)
+    xs = rng.random((1, 2, POINTS, 4), dtype=np.float32)
+    xs[..., 3] = np.array([0.0, 5.0], np.float32)[None, :, None]
+    small_base = rng.standard_normal((1, 2, 512, 3)).astype(np.float32)
+    small_noise = np.random.default_rng(SEED + 12).standard_normal((2, 512, 3)).astype(np.float32)
+    ts = np.array([0.0, 1.0], np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        small = CaSPRModel(CaSPRConfig(), device=dev)
+        p, st = load_demo(device=dev)
+        to = lambda a: torch.from_numpy(a).to(dev)
+        with torch.no_grad():
+            _, _, r, _, n = small.reconstruct(p, st, to(xs), None, num_points=512,
+                                              timestamps=to(ts), base_samples=to(small_base),
+                                              sample_div=True, e=to(small_noise))
+        out[dev] = (r.cpu(), n)
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    print(json.dumps({"cross_device": "sample-div reconstruct B=1 T=2 N=2048 -> 512 points",
+                      "nfe": [out["cuda"][1], out["cpu"][1]], "max_abs_err": err,
+                      "tolerance": 1e-3}), flush=True)
+    if out["cuda"][1] != out["cpu"][1] or not err <= 1e-3:
+        raise AssertionError("sample-div reconstruct, card vs CPU: see the line above")
+    return runs["sample_div"][3]["cnf_dynamics"]
+
+
+def other_cnf_cross_device(torch, kernels, ctx_small):
+    """Phase 12(b): each of the twelve configs at phase 5b's size, conditioned
+    on the demo encoder's latents of phase 5b's input: a decode of 512
+    points per latent and a likelihood forward of 2048 target points with
+    injected noise, card against CPU, no CNF kernel launched."""
+    from caspr_tpu_torch.models.cnf import flow_forward, flow_reverse
+
+    rng = np.random.default_rng(SEED + 7)
+    base = rng.standard_normal((2, 512, 3)).astype(np.float32)
+    target = rng.random((2, POINTS, 3), dtype=np.float32)
+    noise = rng.standard_normal((2, POINTS, 3)).astype(np.float32)
+    for layer_type, nonlinearity in OTHER_CNF:
+        gain = OTHER_CNF_GAIN.get(layer_type, OTHER_CNF_GAIN.get(nonlinearity, 6.0))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            ccfg, params, state = other_cnf_params(torch, layer_type, nonlinearity,
+                                                   OTHER_CNF_DIMS, dev)
+            for layer in params[1]["odenet"]["layers"]:
+                layer["_layer"]["weight"] *= gain
+            to = lambda a: torch.as_tensor(a).to(dev)
+            kernels.reset_launches()
+            with torch.no_grad():
+                rec, nfe = flow_reverse(params, state, ccfg, to(base), to(ctx_small))
+                y, lp, _, fnfe = flow_forward(params, state, ccfg, to(target), to(ctx_small),
+                                              to(np.zeros((2, POINTS, 1), np.float32)),
+                                              e=to(noise))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                cnf = {k: kernels.launches[k] for k in CNF_LEAVES}
+                if any(cnf.values()):
+                    raise AssertionError(f"{layer_type} + {nonlinearity}: CNF kernels {cnf}")
+            out[dev] = (rec.cpu(), nfe, torch.cat([y, lp], dim=-1).cpu(), fnfe)
+        (rec, nfe, fwd, fnfe), (crec, cnfe, cfwd, cfnfe) = out["cuda"], out["cpu"]
+        errs = {"points": float((rec - crec).abs().max()), "forward": float((fwd - cfwd).abs().max())}
+        scale = {"points": max(1.0, float(crec.abs().max())),
+                 "forward": max(1.0, float(cfwd.abs().max()))}
+        print(json.dumps({"other_cnf": f"{layer_type} + {nonlinearity}, dims {OTHER_CNF_DIMS}, "
+                                       f"caspr_init seed {SEED}, CNF gain {gain}: decode 2 x 512, "
+                                       f"forward 2 x 2048",
+                          "nfe": {"decode": [nfe, cnfe], "forward": [fnfe, cfnfe]},
+                          "max_abs_err": errs, "scale": scale,
+                          "tolerance": "1e-3 x max(1, the CPU's largest magnitude)"}), flush=True)
+        if nfe != cnfe or fnfe != cfnfe or any(errs[k] > 1e-3 * scale[k] for k in errs):
+            raise AssertionError(f"{layer_type} + {nonlinearity}, card vs CPU: see the line above")
+
+
+def other_cnf_full_width(torch, kernels, ctx_full, card):
+    """Phase 12(c): each of the twelve configs at CaSPRConfig's widths
+    (512, 512, 512), zdim 1600, decoding 2048 points for each of the demo
+    model's 40 latents of phase 3's input, on the card alone."""
+    from caspr_tpu_torch.models.cnf import flow_reverse
+
+    base = torch.randn((BT, POINTS, 3), generator=torch.Generator(device="cuda").manual_seed(
+        SEED + 13), device="cuda")
+    rows = []
+    for layer_type, nonlinearity in OTHER_CNF:
+        ccfg, params, state = other_cnf_params(torch, layer_type, nonlinearity, (512, 512, 512),
+                                               "cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start = time.perf_counter()
+        with torch.no_grad():
+            rec, nfe = flow_reverse(params, state, ccfg, base, ctx_full)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        cnf = {k: kernels.launches[k] for k in CNF_LEAVES}
+        finite = bool(torch.isfinite(rec).all())
+        rows.append({"config": f"{layer_type} + {nonlinearity}", "nfe": nfe, "seconds": seconds,
+                     "largest": float(rec.abs().max()), "finite": finite})
+        if not finite or any(cnf.values()) or tuple(rec.shape) != (BT, POINTS, 3):
+            raise AssertionError(f"{layer_type} + {nonlinearity} at full width: finite {finite}, "
+                                 f"CNF kernels {cnf}, shape {tuple(rec.shape)}")
+    print(json.dumps({"other_cnf_full_width": f"decode {BT} x {POINTS}, dims (512, 512, 512), "
+                                              f"zdim 1600, caspr_init seed {SEED}",
+                      "card": card, "runs": rows}), flush=True)
+
+
+def other_cnf_steps(torch, ctx_small):
+    """Phase 12(d): one adjoint step of a flow-only NLL (mean over points of
+    -(log N(y) - dlogp)), MovingBatchNorm statistics updated, for swish and
+    for concat at CaSPRConfig's widths: card against CPU, equal forward and
+    backward NFE, loss within 1e-4 relative, every flow leaf's gradient and
+    the context's within 1e-3 of its largest (phase 7's bars)."""
+    from caspr_tpu_torch.models.cnf import flow_forward
+    from caspr_tpu_torch.ops.odeint import NFESink, flatten_tree
+    from caspr_tpu_torch.ops.sampling import standard_normal_logprob
+
+    _, target, noise = train_step_input()
+    pts = target[0, :, :, :3]
+    for layer_type, nonlinearity in OTHER_CNF_STEPS:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            ccfg, params, state = other_cnf_params(torch, layer_type, nonlinearity,
+                                                   (512, 512, 512), dev)
+            leaves = flatten_tree(params)[0]
+            for leaf in leaves:
+                leaf.requires_grad_()
+            ctx = torch.as_tensor(ctx_small).to(dev).requires_grad_()
+            to = lambda a: torch.as_tensor(a).to(dev)
+            sink = NFESink()
+            start = time.perf_counter()
+            y, lp, new_state, nfe = flow_forward(params, state, ccfg, to(pts), ctx,
+                                                 to(np.zeros((2, pts.shape[1], 1), np.float32)),
+                                                 e=to(noise), training=True, nfe_sink=sink)
+            loss = (-(standard_normal_logprob(y).sum(-1) - lp[..., 0])).mean()
+            loss.backward()
+            grads = [leaf.grad.cpu() for leaf in leaves] + [ctx.grad.cpu()]
+            out[dev] = (loss.item(), nfe, sink.value, grads, time.perf_counter() - start)
+        paths = leaf_paths(params) + ["context"]
+        (loss, nfe, bwd, grads, sec), (closs, cnfe, cbwd, cgrads, csec) = out["cuda"], out["cpu"]
+        rel = {p: float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+               for p, a, b in zip(paths, grads, cgrads)}
+        loss_rel = abs(loss - closs) / abs(closs)
+        print(json.dumps({"other_cnf_step": f"{layer_type} + {nonlinearity}, dims (512, 512, 512),"
+                                            f" zdim 1600: flow-only NLL, 2 x 1024 points",
+                          "nfe": {"forward": [nfe, cnfe], "backward": [bwd, cbwd]},
+                          "loss": [loss, closs], "loss_rel_err": loss_rel,
+                          "leaves": len(rel), "rel_err_max": max(rel.values()),
+                          "worst": sorted(rel.items(), key=lambda kv: -kv[1])[:4],
+                          "seconds": {"card": sec, "cpu": csec},
+                          "tolerance": {"loss": 1e-4, "leaf": 1e-3}}), flush=True)
+        if (nfe != cnfe or bwd != cbwd or not loss_rel <= 1e-4
+                or not max(rel.values()) <= 1e-3):
+            raise AssertionError(f"{layer_type} + {nonlinearity} step, card vs CPU: see above")
+
+
+def run_cnf_rest(torch, kernels, card):
+    """Phase 12: the reference-parity decode and the other CNF configs."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.weights import load_demo
+
+    model = CaSPRModel(CaSPRConfig(), device="cuda")
+    params, state = load_demo(device=model.device)
+    launches = sample_div_decode(torch, kernels, model, params, state, card)
+    # the demo model's latents: phase 5b's input (1 x 2, decode times 0 and
+    # 1) and phase 3's (4 x 10)
+    rng = np.random.default_rng(SEED + 7)
+    x_small = rng.random((1, 2, POINTS, 4), dtype=np.float32)
+    x_small[..., 3] = np.array([0.0, 5.0], np.float32)[None, :, None]
+    x, timestamps, _ = reconstruct_input(torch)
+    with torch.no_grad():
+        latents = []
+        for xx, ts in ((torch.from_numpy(x_small).cuda(), torch.tensor([0.0, 1.0]).cuda()),
+                       (x, timestamps)):
+            z0, _ = model.encode(params, xx)
+            z, _ = model.aggregate_and_solve_latent(
+                params, z0, ts.reshape(1, -1).expand(xx.shape[0], -1), shared_times=True)
+            latents.append(z.reshape(-1, z.shape[-1]))
+    ctx_small = latents[0].cpu().numpy()
+    other_cnf_cross_device(torch, kernels, ctx_small)
+    other_cnf_full_width(torch, kernels, latents[1], card)
+    other_cnf_steps(torch, ctx_small)
+    return launches
+
+
 def phase_done(name: str, begun: float):
     print(json.dumps({"phase_done": name, "seconds_since_start": time.perf_counter() - begun}),
           flush=True)
@@ -2614,6 +2902,8 @@ def main() -> int:
         phase_done("10", begun)
         run_sp_path(torch, kernels, phase8, floor, card, one)
         phase_done("11", begun)
+    sample_div_launches = run_cnf_rest(torch, kernels, card)
+    phase_done("12", begun)
 
     listing = []
     for name, row in rows.items():
@@ -2626,6 +2916,8 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": row["library_ms"],
             **({"f32_bound_ms": row["f32_bound_ms"]} if "f32_bound_ms" in row else {}),
             **per_reconstruct(row, counts[name] if name == "cnf_primal" else None, bound_ms),
+            **({"launches_per_sample_div_reconstruct": sample_div_launches}
+               if name == "cnf_dynamics" else {}),
         })
     print(json.dumps({"seconds_since_start": time.perf_counter() - begun}), flush=True)
     print(card, flush=True)

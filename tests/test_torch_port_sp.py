@@ -7,10 +7,14 @@ the meshes and their groups, ``shard_batch_points`` and the command lines'
 loader shards; a ``(dp 2, sp 2)`` train step, with the continuous adjoint
 and with the discrete backward, on the batch of two of
 tests/test_torch_port_train_step.py (one row a dp rank, 24 of its 48 points
-a rank); and the shape-reconstruction and T-NOCS evaluations over a
+a rank); the shape-reconstruction and T-NOCS evaluations over a
 synthetic tree's test split of two sequences, one batch of two (one row a
 dp rank, 1024 of 2048 points a rank; tests/test_torch_port_parallel_evals.py
-holds a padded batch to the one-process run).  The command lines with
+holds a padded batch to the one-process run); and a reconstruct of that
+batch of two with the reference-parity decode (``sample_div=True``, one
+injected Hutchinson noise, each rank its rows and points of it), against
+the one-process reconstruct at equal NFE and 1e-4
+(tests/test_torch_port_sample_div.py's bars).  The command lines with
 --sp-size run on the card (chip_smoke.py phase 11).
 
 Each is held against the one-process port in this process with the bars of
@@ -29,6 +33,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -36,7 +41,9 @@ from caspr_tpu.parallel import make_mesh as jax_make_mesh
 from caspr_tpu.parallel import shard_batch_points as jax_shard_batch_points
 from caspr_tpu_torch.checks.ranks import run_ranks
 from caspr_tpu_torch.data import write_synthetic_tree
+from caspr_tpu_torch.models.caspr import CaSPRModel
 from caspr_tpu_torch.utils import config
+from caspr_tpu_torch.weights import params_from_jax
 from test_torch_port_parallel import (EVAL_BATCH, EVAL_BATCHES, _base_samples, _check_against,
                                       _config, check_against_jax_step, check_eval_artifacts,
                                       jax_mesh_train_step, one_process_eval_logs,
@@ -53,6 +60,12 @@ MESHES = {"dp2_sp2": (1, 2), "dcn2_dp1_sp2": (2, 2)}
 # a (B, T, N, C) leaf, a (B, T) leaf and a 0-d leaf for shard_batch_points
 ARRAY = {"x": np.arange(4 * 3 * 8 * 2).reshape(4, 3, 8, 2), "t": np.arange(12).reshape(4, 3),
          "s": np.float32(2)}
+# the sample-div reconstruct: the steps' input clouds (2 x 3 x 48), decoded
+# at three times from base samples and a noise of 48 points, 24 a sp rank
+_rng = np.random.default_rng(14)
+SAMPLE_DIV = {"timestamps": np.linspace(0.0, 1.0, 3, dtype=np.float32),
+              "base": _rng.standard_normal((2, 3, 48, 3)).astype(np.float32),
+              "e": _rng.standard_normal((2 * 3, 48, 3)).astype(np.float32), "sample_div": True}
 
 
 @pytest.fixture(scope="module")
@@ -73,13 +86,15 @@ def sp_ranks(jax_problem, tree, tmp_path_factory):
                                         e=jax_problem["e"], **case) for case in CASES.values()]},
         {"job": "evals", "data_cfg": tree, "batch_size": EVAL_BATCH, "out": evals_out,
          "base_samples": _base_samples(EVAL_BATCHES)},
+        dict(job="reconstruct", x=jax_problem["x"], **SAMPLE_DIV),
     ]
     results = run_ranks(4, {"job": "parts", "device": "cpu", "sp_size": 2,
                             "config": _config(jax_problem["cfg"]),
                             "weights": jax_problem["weights"], "parts": parts, "timeout": 300},
                         str(work / "ranks"), timeout=600)
     return dict(mesh=[r[0] for r in results], steps=[r[1] for r in results],
-                evals=[r[2] for r in results], evals_out=evals_out)
+                evals=[r[2] for r in results], evals_out=evals_out,
+                sample_div=[r[3] for r in results])
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +185,28 @@ def test_sp_collectives_counted(sp_ranks):
     assert "discrete_ctx" not in counts
     counts = discrete[0]["collectives"]
     assert counts["discrete_ctx"]["calls"] == 1 and "adjoint_ctx" not in counts
+
+
+def test_sp_sample_div_reconstruct_matches_one_process(sp_ranks, jax_problem):
+    """Each rank's rows and points of the sample-div decode against the
+    one-process reconstruct (rank r: dp r // 2, sp r % 2, sp innermost)."""
+    cfg = jax_problem["cfg"]
+    params, state = params_from_jax(jax_problem["weights"]["params"],
+                                    jax_problem["weights"]["state"], cfg, device="cpu")
+    x = jax_problem["x"]
+    with torch.no_grad():
+        _, _, want, _, nfe = CaSPRModel(cfg, device="cpu").reconstruct(
+            params, state, torch.from_numpy(x), None, num_points=x.shape[2],
+            timestamps=torch.from_numpy(SAMPLE_DIV["timestamps"]),
+            base_samples=torch.from_numpy(SAMPLE_DIV["base"]), sample_div=True,
+            e=torch.from_numpy(SAMPLE_DIV["e"]))
+    n = x.shape[2] // 2
+    for rank, got in enumerate(sp_ranks["sample_div"]):
+        dp, sp = divmod(rank, 2)
+        assert got["nfe"] == nfe, rank
+        np.testing.assert_allclose(got["points"], want[dp:dp + 1, :, sp * n:(sp + 1) * n].numpy(),
+                                   rtol=0, atol=1e-4)
+        assert got["collectives"], rank  # the error norms ran over the group
 
 
 @pytest.fixture(scope="module")
