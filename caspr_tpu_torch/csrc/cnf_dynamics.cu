@@ -35,6 +35,15 @@
 // once per 32 points (4 MB of hi and lo parts per block, 10.7 GB a launch
 // at the size above), as the CUDA-core kernel it replaced streamed 2 MB per
 // 16 points.
+//
+// The bfloat16 variant (caspr_cnf_dynamics_bf16; _fused_kernel with
+// matmul_dtype="bf16"): kBf16 rounds every product's operands to bfloat16
+// -- y, e and w_first, both streams through the hidden layers in one
+// tensor-core pass (cnf_tc.cuh: layer_product_bf16), the last layer's
+// activations and w_last -- and accumulates in float32; gates, biases,
+// softplus, its sigmoid and the divergence's sum (with e as given) stay
+// float32.  Its bound is the hidden layers' one pass at the bfloat16 rate,
+// 0.174 ms at 989 TFLOP/s at the size above.
 
 #include "cnf_tc.cuh"
 
@@ -47,20 +56,22 @@ constexpr int kPoints = kRows / 2;  // points per block
 // tile row of point p's primal stream; its tangent row is 8 further
 __device__ __forceinline__ int primal_row(int p) { return (p >> 3) * 16 + (p & 7); }
 
-template <int NCH>
+// w_prep: the hidden weights as cnf_tc.cuh's prep made them, TF32 hi and lo
+// parts (split_weights) or bfloat16 (round_weights, kBf16)
+template <int NCH, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
                     const float* __restrict__ gb, const float* __restrict__ w_first,
-                    const float* __restrict__ w_split, const float* __restrict__ w_last,
+                    const void* __restrict__ w_prep, const float* __restrict__ w_last,
                     float* __restrict__ dx, float* __restrict__ div,
                     int n, int h, int d, int num_hidden, int gb_rows) {
   constexpr int kHpad = 2 * kChunkN * NCH;
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[2 * kStages];
+  __shared__ __align__(8) uint64_t bars[2 * ring_stages<kBf16>()];
   __shared__ float ys[kPoints * kMaxDim];
   __shared__ float es[kPoints * kMaxDim];
-  const Smem sm = make_smem(smem, bars, kHpad);
-  start_ring(sm, w_split, kHpad, num_hidden);
+  const Smem sm = make_smem<kBf16>(smem, bars, kHpad);
+  start_ring<kBf16>(sm, w_prep, kHpad, num_hidden);
 
   const int tid = threadIdx.x;
   const int bt = blockIdx.y;
@@ -70,8 +81,8 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
   const float* g = gb + static_cast<size_t>(bt) * gb_rows * h;  // row l gate, L+l bias
   const size_t base = (static_cast<size_t>(bt) * n + n0) * d;
   float* tile = sm.tile;
-  for (int i = tid; i < kPoints * d; i += kThreads) {
-    ys[i] = i < rows * d ? y[base + i] : 0.f;
+  for (int i = tid; i < kPoints * d; i += kThreads) {  // es as given: the divergence reads it
+    ys[i] = i < rows * d ? operand<kBf16>(y[base + i]) : 0.f;
     es[i] = i < rows * d ? e[base + i] : 0.f;
   }
   consumer_sync();
@@ -84,7 +95,7 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
     }
     float w[kMaxDim];
 #pragma unroll
-    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? w_first[c * d + k] : 0.f;
+    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? operand<kBf16>(w_first[c * d + k]) : 0.f;
     const float gate = g[c], beff = g[num_layers * h + c];
 #pragma unroll 4  // independent rows: room for the softplus latencies to overlap
     for (int p = 0; p < kPoints; ++p) {
@@ -93,7 +104,7 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
       for (int k = 0; k < kMaxDim; ++k)
         if (k < d) {
           accp = fmaf(w[k], ys[p * d + k], accp);
-          acct = fmaf(w[k], es[p * d + k], acct);
+          acct = fmaf(w[k], operand<kBf16>(es[p * d + k]), acct);
         }
       const float pre = accp * gate + beff;
       const float ex = expf(-fabsf(pre));
@@ -111,7 +122,10 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
   const int n_wg = wg * kChunkN * NCH;
   float acc[NCH][32];
   for (int l = 0; l < num_hidden; ++l) {
-    layer_product<NCH>(acc, sm, w_split, kHpad, l, num_hidden, n_wg);
+    if constexpr (kBf16)
+      layer_product_bf16<NCH>(acc, sm, w_prep, kHpad, l, num_hidden, n_wg);
+    else
+      layer_product<NCH>(acc, sm, static_cast<const float*>(w_prep), kHpad, l, num_hidden, n_wg);
     // the epilogue in the accumulators, while the other warpgroup may still
     // be reading the tile; padded channels become 0.  Floats 4j + q are a
     // point's primal values, 4j + 2 + q its tangent's, of channel ch + q.
@@ -165,10 +179,10 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k) s[k] = 0.f;
     for (int c = lane; c < h; c += 32) {
-      const float a = tile[tile_at(r, c, kHpad)];
+      const float a = operand<kBf16>(tile[tile_at(r, c, kHpad)]);
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
-        if (k < d) s[k] = fmaf(__ldg(w_last + k * h + c), a, s[k]);
+        if (k < d) s[k] = fmaf(operand<kBf16>(__ldg(w_last + k * h + c)), a, s[k]);
     }
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k)
@@ -189,19 +203,48 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
   }
 }
 
-template <int NCH>
+template <int NCH, bool kBf16>
 cudaError_t launch(const float* y, const float* e, const float* gb, const float* w_first,
-                   const float* w_split, const float* w_last, float* dx, float* div, int bt,
+                   const void* w_prep, const float* w_last, float* dx, float* div, int bt,
                    int n, int h, int d, int num_hidden, int gb_rows, cudaStream_t stream) {
-  const size_t smem = smem_bytes(2 * kChunkN * NCH);
-  cudaError_t err = cudaFuncSetAttribute(cnf_dynamics_kernel<NCH>,
+  const size_t smem = smem_bytes<kBf16>(2 * kChunkN * NCH);
+  cudaError_t err = cudaFuncSetAttribute(cnf_dynamics_kernel<NCH, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kPoints - 1) / kPoints, bt);
-  cnf_dynamics_kernel<NCH><<<grid, kThreads, smem, stream>>>(
-      y, e, gb, w_first, w_split, w_last, dx, div, n, h, d, num_hidden, gb_rows);
+  cnf_dynamics_kernel<NCH, kBf16><<<grid, kThreads, smem, stream>>>(
+      y, e, gb, w_first, w_prep, w_last, dx, div, n, h, d, num_hidden, gb_rows);
   return cudaGetLastError();
+}
+
+template <bool kBf16>
+int dynamics(const float* y, const float* e, const float* gb, const float* w_first,
+             const float* w_hidden, const float* w_last, void* w_prep, float* dx, float* div,
+             int bt, int n, int h, int d, int num_hidden, int gb_rows, void* stream) {
+  if (h % 32 != 0 || h < 32 || h > kMaxHidden || d < 1 || d > kMaxDim || num_hidden < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bt == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      kBf16 ? round_weights(w_hidden, static_cast<__nv_bfloat16*>(w_prep), h, num_hidden, s)
+            : split_weights(w_hidden, static_cast<float*>(w_prep), h, num_hidden, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define CASPR_DYNAMICS_CASE(k)                                                                 \
+  case k:                                                                                      \
+    err = launch<k, kBf16>(y, e, gb, w_first, w_prep, w_last, dx, div, bt, n, h, d, num_hidden, \
+                           gb_rows, s);                                                        \
+    break;
+  switch (padded_width(h) / 128) {
+    CASPR_DYNAMICS_CASE(1)
+    CASPR_DYNAMICS_CASE(2)
+    CASPR_DYNAMICS_CASE(3)
+    default:
+      err = launch<4, kBf16>(y, e, gb, w_first, w_prep, w_last, dx, div, bt, n, h, d, num_hidden,
+                             gb_rows, s);
+  }
+#undef CASPR_DYNAMICS_CASE
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -214,25 +257,17 @@ extern "C" int caspr_cnf_dynamics(const float* y, const float* e, const float* g
                                   const float* w_last, float* w_split, float* dx, float* div,
                                   int bt, int n, int h, int d, int num_hidden, int gb_rows,
                                   void* stream) {
-  if (h % 32 != 0 || h < 32 || h > kMaxHidden || d < 1 || d > kMaxDim || num_hidden < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bt == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = split_weights(w_hidden, w_split, h, num_hidden, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-#define CASPR_DYNAMICS_CASE(k)                                                                    \
-  case k:                                                                                         \
-    err = launch<k>(y, e, gb, w_first, w_split, w_last, dx, div, bt, n, h, d, num_hidden, gb_rows, \
-                    s);                                                                           \
-    break;
-  switch (padded_width(h) / 128) {
-    CASPR_DYNAMICS_CASE(1)
-    CASPR_DYNAMICS_CASE(2)
-    CASPR_DYNAMICS_CASE(3)
-    default:
-      err = launch<4>(y, e, gb, w_first, w_split, w_last, dx, div, bt, n, h, d, num_hidden,
-                      gb_rows, s);
-  }
-#undef CASPR_DYNAMICS_CASE
-  return static_cast<int>(err);
+  return dynamics<false>(y, e, gb, w_first, w_hidden, w_last, w_split, dx, div, bt, n, h, d,
+                         num_hidden, gb_rows, stream);
+}
+
+// The bfloat16 variant: w_bf16 is scratch of num_hidden * H_pad^2 bfloat16
+// values for w_hidden rounded.
+extern "C" int caspr_cnf_dynamics_bf16(const float* y, const float* e, const float* gb,
+                                       const float* w_first, const float* w_hidden,
+                                       const float* w_last, void* w_bf16, float* dx, float* div,
+                                       int bt, int n, int h, int d, int num_hidden, int gb_rows,
+                                       void* stream) {
+  return dynamics<true>(y, e, gb, w_first, w_hidden, w_last, w_bf16, dx, div, bt, n, h, d,
+                        num_hidden, gb_rows, stream);
 }

@@ -27,6 +27,16 @@
 // block, 5.4 GB a launch at the size above; the old kernel read 2 MB per
 // 32 rows, 5.2 GB, and spent its time in FMAs).  No activation touches
 // device memory.
+//
+// The bfloat16 variant (caspr_cnf_primal_bf16; _fused_primal_kernel with
+// matmul_dtype="bf16"): kBf16 rounds every product's operands to bfloat16
+// -- y and w_first on the CUDA cores, the hidden layers in one tensor-core
+// pass (cnf_tc.cuh: layer_product_bf16), the last layer's activations and
+// w_last -- and accumulates in float32; gates, biases and softplus stay
+// float32.  Its bound is the hidden layers' one pass at the bfloat16 rate,
+// 0.087 ms at 989 TFLOP/s at the size above; the softplus epilogue beside
+// it (BT * N * (num_hidden + 1) * H = 126 M, an exp and a log1p each on the
+// special-function units) needs 0.060 ms.
 
 #include "cnf_tc.cuh"
 
@@ -34,18 +44,20 @@ namespace {
 
 using namespace caspr::cnf_tc;
 
-template <int NCH>
+// w_prep: the hidden weights as cnf_tc.cuh's prep made them, TF32 hi and lo
+// parts (split_weights) or bfloat16 (round_weights, kBf16)
+template <int NCH, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 cnf_primal_kernel(const float* __restrict__ y, const float* __restrict__ gb,
-                  const float* __restrict__ w_first, const float* __restrict__ w_split,
+                  const float* __restrict__ w_first, const void* __restrict__ w_prep,
                   const float* __restrict__ w_last, float* __restrict__ dx,
                   int n, int h, int d, int num_hidden, int gb_rows) {
   constexpr int kHpad = 2 * kChunkN * NCH;
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[2 * kStages];
+  __shared__ __align__(8) uint64_t bars[2 * ring_stages<kBf16>()];
   __shared__ float ys[kRows * kMaxDim];
-  const Smem sm = make_smem(smem, bars, kHpad);
-  start_ring(sm, w_split, kHpad, num_hidden);
+  const Smem sm = make_smem<kBf16>(smem, bars, kHpad);
+  start_ring<kBf16>(sm, w_prep, kHpad, num_hidden);
 
   const int tid = threadIdx.x;
   const int bt = blockIdx.y;
@@ -55,7 +67,8 @@ cnf_primal_kernel(const float* __restrict__ y, const float* __restrict__ gb,
   const float* g = gb + static_cast<size_t>(bt) * gb_rows * h;  // row l gate, L+l bias
   const float* yb = y + (static_cast<size_t>(bt) * n + n0) * d;
   float* tile = sm.tile;
-  for (int i = tid; i < kRows * d; i += kThreads) ys[i] = i < rows * d ? yb[i] : 0.f;
+  for (int i = tid; i < kRows * d; i += kThreads)
+    ys[i] = i < rows * d ? operand<kBf16>(yb[i]) : 0.f;
   consumer_sync();
 
   // first layer: D -> H, a thread per channel
@@ -66,7 +79,7 @@ cnf_primal_kernel(const float* __restrict__ y, const float* __restrict__ gb,
     }
     float w[kMaxDim];
 #pragma unroll
-    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? w_first[c * d + k] : 0.f;
+    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? operand<kBf16>(w_first[c * d + k]) : 0.f;
     const float gate = g[c], beff = g[num_layers * h + c];
 #pragma unroll 4  // independent rows: room for the softplus latencies to overlap
     for (int r = 0; r < kRows; ++r) {
@@ -86,7 +99,10 @@ cnf_primal_kernel(const float* __restrict__ y, const float* __restrict__ gb,
   const int n_wg = wg * kChunkN * NCH;  // this warpgroup's first output channel
   float acc[NCH][32];
   for (int l = 0; l < num_hidden; ++l) {
-    layer_product<NCH>(acc, sm, w_split, kHpad, l, num_hidden, n_wg);
+    if constexpr (kBf16)
+      layer_product_bf16<NCH>(acc, sm, w_prep, kHpad, l, num_hidden, n_wg);
+    else
+      layer_product<NCH>(acc, sm, static_cast<const float*>(w_prep), kHpad, l, num_hidden, n_wg);
     // the epilogue in the accumulators, while the other warpgroup may still
     // be reading the tile; padded channels become 0
     const float* gate = g + (1 + l) * h;
@@ -130,10 +146,10 @@ cnf_primal_kernel(const float* __restrict__ y, const float* __restrict__ gb,
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k) s[k] = 0.f;
     for (int c = lane; c < h; c += 32) {
-      const float a = tile[tile_at(r, c, kHpad)];
+      const float a = operand<kBf16>(tile[tile_at(r, c, kHpad)]);
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
-        if (k < d) s[k] = fmaf(__ldg(w_last + k * h + c), a, s[k]);
+        if (k < d) s[k] = fmaf(operand<kBf16>(__ldg(w_last + k * h + c)), a, s[k]);
     }
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k)
@@ -148,18 +164,48 @@ cnf_primal_kernel(const float* __restrict__ y, const float* __restrict__ gb,
   }
 }
 
-template <int NCH>
-cudaError_t launch(const float* y, const float* gb, const float* w_first, const float* w_split,
+template <int NCH, bool kBf16>
+cudaError_t launch(const float* y, const float* gb, const float* w_first, const void* w_prep,
                    const float* w_last, float* dx, int bt, int n, int h, int d, int num_hidden,
                    int gb_rows, cudaStream_t stream) {
-  const size_t smem = smem_bytes(2 * kChunkN * NCH);
-  cudaError_t err = cudaFuncSetAttribute(
-      cnf_primal_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const size_t smem = smem_bytes<kBf16>(2 * kChunkN * NCH);
+  cudaError_t err = cudaFuncSetAttribute(cnf_primal_kernel<NCH, kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kRows - 1) / kRows, bt);
-  cnf_primal_kernel<NCH><<<grid, kThreads, smem, stream>>>(
-      y, gb, w_first, w_split, w_last, dx, n, h, d, num_hidden, gb_rows);
+  cnf_primal_kernel<NCH, kBf16><<<grid, kThreads, smem, stream>>>(
+      y, gb, w_first, w_prep, w_last, dx, n, h, d, num_hidden, gb_rows);
   return cudaGetLastError();
+}
+
+template <bool kBf16>
+int primal(const float* y, const float* gb, const float* w_first, const float* w_hidden,
+           const float* w_last, void* w_prep, float* dx, int bt, int n, int h, int d,
+           int num_hidden, int gb_rows, void* stream) {
+  if (h % 32 != 0 || h < 32 || h > kMaxHidden || d < 1 || d > kMaxDim || num_hidden < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bt == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      kBf16 ? round_weights(w_hidden, static_cast<__nv_bfloat16*>(w_prep), h, num_hidden, s)
+            : split_weights(w_hidden, static_cast<float*>(w_prep), h, num_hidden, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define CASPR_PRIMAL_CASE(k)                                                                  \
+  case k:                                                                                     \
+    err = launch<k, kBf16>(y, gb, w_first, w_prep, w_last, dx, bt, n, h, d, num_hidden, gb_rows, \
+                           s);                                                                \
+    break;
+  switch (padded_width(h) / 128) {
+    CASPR_PRIMAL_CASE(1)
+    CASPR_PRIMAL_CASE(2)
+    CASPR_PRIMAL_CASE(3)
+    default:
+      err = launch<4, kBf16>(y, gb, w_first, w_prep, w_last, dx, bt, n, h, d, num_hidden, gb_rows,
+                             s);
+  }
+#undef CASPR_PRIMAL_CASE
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -171,23 +217,16 @@ extern "C" int caspr_cnf_primal(const float* y, const float* gb, const float* w_
                                 const float* w_hidden, const float* w_last, float* w_split,
                                 float* dx, int bt, int n, int h, int d, int num_hidden,
                                 int gb_rows, void* stream) {
-  if (h % 32 != 0 || h < 32 || h > kMaxHidden || d < 1 || d > kMaxDim || num_hidden < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bt == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = split_weights(w_hidden, w_split, h, num_hidden, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-#define CASPR_PRIMAL_CASE(k)                                                              \
-  case k:                                                                                 \
-    err = launch<k>(y, gb, w_first, w_split, w_last, dx, bt, n, h, d, num_hidden, gb_rows, s); \
-    break;
-  switch (padded_width(h) / 128) {
-    CASPR_PRIMAL_CASE(1)
-    CASPR_PRIMAL_CASE(2)
-    CASPR_PRIMAL_CASE(3)
-    default:
-      err = launch<4>(y, gb, w_first, w_split, w_last, dx, bt, n, h, d, num_hidden, gb_rows, s);
-  }
-#undef CASPR_PRIMAL_CASE
-  return static_cast<int>(err);
+  return primal<false>(y, gb, w_first, w_hidden, w_last, w_split, dx, bt, n, h, d, num_hidden,
+                       gb_rows, stream);
+}
+
+// The bfloat16 variant: w_bf16 is scratch of num_hidden * H_pad^2 bfloat16
+// values for w_hidden rounded.
+extern "C" int caspr_cnf_primal_bf16(const float* y, const float* gb, const float* w_first,
+                                     const float* w_hidden, const float* w_last, void* w_bf16,
+                                     float* dx, int bt, int n, int h, int d, int num_hidden,
+                                     int gb_rows, void* stream) {
+  return primal<true>(y, gb, w_first, w_hidden, w_last, w_bf16, dx, bt, n, h, d, num_hidden,
+                      gb_rows, stream);
 }

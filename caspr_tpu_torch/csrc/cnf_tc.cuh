@@ -33,9 +33,23 @@
 // Output channels are padded to H_pad = 128 * ceil(H / 128) (each
 // warpgroup owns a multiple of the 64-wide wgmma); padded channels have
 // zero weights and are written as 0, so they add nothing to the next layer.
+//
+// The bfloat16 mode (kBf16; the JAX package's CASPR_TPU_CNF_MATMUL=bf16,
+// caspr_tpu/ops/cnf_fused.py `mm`) rounds both operands of every product to
+// bfloat16 (nearest, ties to even) and accumulates in float32, in one
+// tensor-core pass: layer_product_bf16.  A stage is then a K-slice of 16
+// input channels of the weights rounded once per call by
+// round_weights_kernel (H_pad x 16 bfloat16, in the same core-matrix layout
+// and so the same descriptor as a TF32 part), half a TF32 stage, so the
+// ring holds four (the tile stays float32: the epilogues and the last layer
+// read it).  The A fragment is made from the float32 tile with
+// cvt.rn.bf16x2.f32.  The products of bfloat16 values are exact in float32,
+// and their rounding (2^-9 relative a factor) outweighs the accumulator's
+// truncation by far, so one accumulator runs over all of K.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -46,17 +60,31 @@ namespace cnf_tc {
 constexpr int kRows = 64;                  // tile rows: one wgmma M
 constexpr int kStages = 3;                 // weight-slice ring
 constexpr int kSliceK = 8;                 // K of one tf32 wgmma, and of a stage
+constexpr int kStagesBf16 = 4;             // the ring in the bfloat16 mode
+constexpr int kSliceKBf16 = 16;            // K of one bf16 wgmma, and of its stage
+constexpr int kAhead = 2;                  // slices a ring is loaded ahead
 constexpr int kChunkN = 64;                // N of one wgmma instruction
 constexpr int kThreads = 256;              // two warpgroups
 constexpr int kMaxDim = 8;                 // point dimension D
 constexpr int kMaxHidden = 512;
 
+template <bool kBf16>
+__host__ __device__ constexpr int ring_stages() { return kBf16 ? kStagesBf16 : kStages; }
+template <bool kBf16>
+__host__ __device__ constexpr int slice_k() { return kBf16 ? kSliceKBf16 : kSliceK; }
+
 __host__ __device__ inline int padded_width(int h) { return (h + 127) / 128 * 128; }
 // floats of one stage: the hi and the lo part of an (H_pad x 8) weight slice
 __host__ __device__ inline int slice_floats(int hpad) { return 2 * hpad * kSliceK; }
+// bytes of one stage: slice_floats floats, or H_pad x 16 bfloat16 values
+template <bool kBf16 = false>
+__host__ __device__ inline uint32_t stage_bytes(int hpad) {
+  return kBf16 ? hpad * kSliceKBf16 * 2 : slice_floats(hpad) * 4;
+}
+template <bool kBf16 = false>
 inline size_t smem_bytes(int hpad) {
-  return sizeof(float) * (static_cast<size_t>(kStages) * slice_floats(hpad) +
-                          static_cast<size_t>(kRows) * hpad);
+  return static_cast<size_t>(ring_stages<kBf16>()) * stage_bytes<kBf16>(hpad) +
+         sizeof(float) * static_cast<size_t>(kRows) * hpad;
 }
 
 __device__ __forceinline__ int tile_at(int r, int c, int hpad) {
@@ -71,6 +99,22 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+// An operand of a layer product: as it is, or rounded to bfloat16 (to
+// nearest, ties to even) in the bfloat16 mode.
+template <bool kBf16>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+// {lo, hi} rounded to bfloat16 and packed, lo in the low half (the lower
+// column of an A-fragment pair)
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 // ---------------------------------------------------------------- weights
@@ -98,6 +142,28 @@ static __global__ void split_weights_kernel(const float* __restrict__ w, float* 
                       (o / 8) * 64 + ((k % kSliceK) / 4) * 32 + (o % 8) * 4 + k % 4;
     out[at] = __uint_as_float(hi);
     out[at + part] = __uint_as_float(lo);
+  }
+}
+
+// w_hidden (L, H, H) in (out, in) layout -> bfloat16, per layer and K-slice
+// of 16 input channels one contiguous stage of H_pad x 16 values in core
+// matrices of 8 rows x 8 values (16 B a row): the byte layout of one TF32
+// part, so b_desc serves both.
+static __global__ void round_weights_kernel(const float* __restrict__ w,
+                                            __nv_bfloat16* __restrict__ out, int h, int hpad,
+                                            int num_hidden) {
+  const long long total = static_cast<long long>(num_hidden) * hpad * hpad;
+  const int ks = hpad / kSliceKBf16;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int k = static_cast<int>(i % hpad);
+    const long long rest = i / hpad;
+    const int o = static_cast<int>(rest % hpad);
+    const int l = static_cast<int>(rest / hpad);
+    const float v = (o < h && k < h) ? w[(static_cast<size_t>(l) * h + o) * h + k] : 0.f;
+    const size_t at = static_cast<size_t>(l * ks + k / kSliceKBf16) * hpad * kSliceKBf16 +
+                      (o / 8) * 128 + ((k % kSliceKBf16) / 8) * 64 + (o % 8) * 8 + k % 8;
+    out[at] = __float2bfloat16_rn(v);
   }
 }
 
@@ -177,6 +243,27 @@ __device__ __forceinline__ void mma_m64n64k8(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// d (64 x 64, this thread's 32 floats) (+)= a (64 x 16 bf16 from registers)
+// x b (16 x 64 bf16 from shared memory, K-major); float32 accumulation.
+// The A fragment of warp w (rows 16 w .. 16 w + 15): a[0] row g, columns
+// 2t, 2t + 1; a[1] row g + 8, the same columns; a[2], a[3] the same rows
+// at columns 2t + 8, 2t + 9 (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_m64n64k16_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -197,12 +284,13 @@ struct Smem {
   float* tile;
 };
 
+template <bool kBf16 = false>
 __device__ __forceinline__ Smem make_smem(unsigned char* dyn, uint64_t* bars, int hpad) {
   Smem sm;
   sm.stages = smem_addr(dyn);
   sm.full = smem_addr(bars);
-  sm.empty = smem_addr(bars + kStages);
-  sm.tile = reinterpret_cast<float*>(dyn + sizeof(float) * kStages * slice_floats(hpad));
+  sm.empty = smem_addr(bars + ring_stages<kBf16>());
+  sm.tile = reinterpret_cast<float*>(dyn + ring_stages<kBf16>() * stage_bytes<kBf16>(hpad));
   return sm;
 }
 
@@ -215,26 +303,31 @@ __device__ __forceinline__ int rotated_slice(int k, int ks) {
 }
 
 // Thread 0 loads ring slice s (slices run over the layers in order; within
-// a layer from the block's rotated start) into stage s % kStages, once all
-// 8 warps have released the slice that stage held before.
-__device__ __forceinline__ void load_slice(const Smem& sm, const float* __restrict__ w_split,
-                                           int hpad, int s) {
-  const int ks = hpad / kSliceK;
-  const int stage = s % kStages;
+// a layer from the block's rotated start) into stage s % stages, once all
+// 8 warps have released the slice that stage held before.  w: the hidden
+// weights as the mode's prep made them (TF32 parts, or bfloat16).
+template <bool kBf16 = false>
+__device__ __forceinline__ void load_slice(const Smem& sm, const void* __restrict__ w, int hpad,
+                                           int s) {
+  constexpr int kS = ring_stages<kBf16>();
+  const int ks = hpad / slice_k<kBf16>();
+  const int stage = s % kS;
   const int slice = (s / ks) * ks + rotated_slice(s % ks, ks);
-  const uint32_t bytes = slice_floats(hpad) * sizeof(float);
-  mbar_wait(sm.empty + 8 * stage, ((s / kStages) & 1) ^ 1);
+  const uint32_t bytes = stage_bytes<kBf16>(hpad);
+  mbar_wait(sm.empty + 8 * stage, ((s / kS) & 1) ^ 1);
   mbar_expect_tx(sm.full + 8 * stage, bytes);
-  bulk_load(sm.stages + stage * bytes, w_split + static_cast<size_t>(slice) * slice_floats(hpad),
-            bytes, sm.full + 8 * stage);
+  bulk_load(sm.stages + stage * bytes,
+            static_cast<const unsigned char*>(w) + static_cast<size_t>(slice) * bytes, bytes,
+            sm.full + 8 * stage);
 }
 
-// Barrier set-up (the kernel's one __syncthreads) and the first two slices
-// of the ring.
-__device__ __forceinline__ void start_ring(const Smem& sm, const float* __restrict__ w_split,
-                                           int hpad, int num_hidden) {
+// Barrier set-up (the kernel's one __syncthreads) and the first kAhead
+// slices of the ring.
+template <bool kBf16 = false>
+__device__ __forceinline__ void start_ring(const Smem& sm, const void* __restrict__ w, int hpad,
+                                           int num_hidden) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < ring_stages<kBf16>(); ++s) {
       mbar_init(sm.full + 8 * s, 1);              // thread 0's arrival with the bytes
       mbar_init(sm.empty + 8 * s, kThreads / 32);  // one per warp
     }
@@ -242,8 +335,8 @@ __device__ __forceinline__ void start_ring(const Smem& sm, const float* __restri
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    const int slices = num_hidden * (hpad / kSliceK);
-    for (int s = 0; s < kStages - 1 && s < slices; ++s) load_slice(sm, w_split, hpad, s);
+    const int slices = num_hidden * (hpad / slice_k<kBf16>());
+    for (int s = 0; s < kAhead && s < slices; ++s) load_slice<kBf16>(sm, w, hpad, s);
   }
 }
 
@@ -340,6 +433,82 @@ __device__ __forceinline__ void layer_product(float (&acc)[NCH][32], const Smem&
   }
 }
 
+// One K-slice of layer_product_bf16: step k of hidden layer `layer`, its A
+// fragment rounded into cur while the previous slice's products (from
+// prev) may still run.
+template <int NCH>
+__device__ __forceinline__ void bf16_slice(float (&acc)[NCH][32], uint32_t (&cur)[4],
+                                           uint32_t (&prev)[4], const Smem& sm,
+                                           const void* __restrict__ w_bf16, int hpad, int layer,
+                                           int k, int slices, int n0) {
+  constexpr int kS = kStagesBf16;
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * w + g;
+  const float* row0 = sm.tile + r0 * hpad;
+  const float* row1 = row0 + 8 * hpad;
+  const int sw = (r0 & 7) << 2;  // rows r0 and r0 + 8 share the swizzle
+  const int ks = hpad / kSliceKBf16;
+  const int s = layer * ks + k;
+  const int stage = s % kS;
+  mbar_wait(sm.full + 8 * stage, (s / kS) & 1);
+  __syncwarp();  // the wgmma instructions below are warp-aligned
+  const int kk = rotated_slice(k, ks);
+  // columns 2t, 2t + 1 (and + 8) stay adjacent under the swizzle, which
+  // moves bits 2-4
+  const int c0 = (kk * kSliceKBf16 + 2 * t) ^ sw, c1 = (kk * kSliceKBf16 + 2 * t + 8) ^ sw;
+  const float2 x00 = *reinterpret_cast<const float2*>(row0 + c0);
+  const float2 x10 = *reinterpret_cast<const float2*>(row1 + c0);
+  const float2 x01 = *reinterpret_cast<const float2*>(row0 + c1);
+  const float2 x11 = *reinterpret_cast<const float2*>(row1 + c1);
+  cur[0] = pack_bf16x2(x00.x, x00.y);
+  cur[1] = pack_bf16x2(x10.x, x10.y);
+  cur[2] = pack_bf16x2(x01.x, x01.y);
+  cur[3] = pack_bf16x2(x11.x, x11.y);
+  const uint32_t base = sm.stages + stage * stage_bytes<true>(hpad) + (n0 / 8) * 256;
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+    mma_m64n64k16_bf16(acc[c], cur, b_desc(base + c * (kChunkN / 8) * 256), k > 0);
+  wgmma_commit();
+  if (threadIdx.x == 0 && s + kAhead < slices) load_slice<true>(sm, w_bf16, hpad, s + kAhead);
+  __syncwarp();
+  if (k > 0) {  // the previous slice's products are done: release its stage
+    wgmma_wait<1>();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(prev[i])::"memory");
+    if (lane == 0) mbar_arrive(sm.empty + 8 * ((s - 1) % kS));
+  }
+}
+
+// The bfloat16 mode's layer product: acc as layer_product's, from the
+// stages round_weights_kernel made.  Per K-slice of 16 channels the A
+// fragment is rounded from the tile into registers (two sets, in turn) and
+// one m64n64k16 product per chunk of 64 channels accumulates into acc over
+// all of K; a slice's products stay in flight while the next slice's A is
+// made and issued, and its stage is released once they have completed
+// (wgmma.wait_group 1).  The ring is refilled kAhead slices ahead into the
+// stage two slices back, which every warp released a step earlier.
+template <int NCH>
+__device__ __forceinline__ void layer_product_bf16(float (&acc)[NCH][32], const Smem& sm,
+                                                   const void* __restrict__ w_bf16, int hpad,
+                                                   int layer, int num_hidden, int n0) {
+  const int ks = hpad / kSliceKBf16;  // even: hpad is a multiple of 128
+  const int slices = num_hidden * ks;
+  uint32_t a[2][4];
+  for (int k = 0; k < ks; k += 2) {
+    bf16_slice<NCH>(acc, a[0], a[1], sm, w_bf16, hpad, layer, k, slices, n0);
+    bf16_slice<NCH>(acc, a[1], a[0], sm, w_bf16, hpad, layer, k + 1, slices, n0);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fence_operand(acc[c][i]);
+  if ((threadIdx.x & 31) == 0)
+    mbar_arrive(sm.empty + 8 * ((layer * ks + ks - 1) % kStagesBf16));
+}
+
 // Launch split_weights_kernel: w_split holds num_hidden * H_pad * H_pad * 2
 // floats.
 inline cudaError_t split_weights(const float* w_hidden, float* w_split, int h, int num_hidden,
@@ -351,6 +520,20 @@ inline cudaError_t split_weights(const float* w_hidden, float* w_split, int h, i
   if (blocks > 132LL * 8) blocks = 132LL * 8;
   split_weights_kernel<<<static_cast<unsigned int>(blocks), 256, 0, stream>>>(
       w_hidden, w_split, h, hpad, num_hidden);
+  return cudaGetLastError();
+}
+
+// Launch round_weights_kernel: w_bf16 holds num_hidden * H_pad * H_pad
+// bfloat16 values.
+inline cudaError_t round_weights(const float* w_hidden, __nv_bfloat16* w_bf16, int h,
+                                 int num_hidden, cudaStream_t stream) {
+  const int hpad = padded_width(h);
+  const long long total = static_cast<long long>(num_hidden) * hpad * hpad;
+  if (total == 0) return cudaSuccess;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 132LL * 8) blocks = 132LL * 8;
+  round_weights_kernel<<<static_cast<unsigned int>(blocks), 256, 0, stream>>>(
+      w_hidden, w_bf16, h, hpad, num_hidden);
   return cudaGetLastError();
 }
 

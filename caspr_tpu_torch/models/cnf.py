@@ -34,6 +34,16 @@ CPU tensors); any other config runs the unfused composition
 autograd as its VJP in training, as the JAX package runs ``odenet_apply``
 where ``can_fuse`` is false.
 
+``CNFConfig.matmul_dtype`` is the fused kernels' arithmetic: "f32" (the
+default, the JAX package's choice on any backend but a TPU) or "bf16", every
+layer product's operands rounded to bfloat16 with float32 accumulation, the
+JAX package's CASPR_TPU_CNF_MATMUL=bf16 (its default on a TPU at the default
+--matmul-precision), which the port takes as this field and not from the
+environment.  It reaches ``cnf_primal`` and ``cnf_dynamics``; their VJP stays
+float32, as the JAX package's default backward differentiates the float32
+composition.  Where ``kernel_takes`` is false it is never read: the
+composition is float32, as the JAX package's ``odenet_apply`` is.
+
 Training (``training=True`` of the likelihood direction) solves each block
 through ``odeint_adjoint`` with the ODEnet's parameters (swish_beta among
 them), the context and t_end as its args (each evaluation of the
@@ -65,8 +75,8 @@ import numpy as np
 import torch
 
 from ..ops import cnf_dynamics, cnf_primal, odeint
-from ..ops.cnf_fused import (context_gb, kernel_takes, pack_weights, reference_dynamics,
-                              reference_primal)
+from ..ops.cnf_fused import (check_matmul_dtype, context_gb, kernel_takes, pack_weights,
+                              reference_dynamics, reference_primal)
 from ..ops.odeint import DISCRETE_STEPS, REPLICATED, ROWS, flatten_tree, nfe_add, odeint_train
 from ..parallel.mesh import all_gather_cat, global_draw, sum_grad
 
@@ -86,6 +96,10 @@ class CNFConfig:
     batch_norm: bool = True
     bn_eps: float = 1e-4
     bn_decay: float = 0.1
+    matmul_dtype: str = "f32"  # "f32" | "bf16": the fused kernels' products
+
+    def __post_init__(self):
+        check_matmul_dtype(self.matmul_dtype)
 
     def chain(self) -> Tuple[str, ...]:
         blocks = ("cnf",) * self.num_blocks
@@ -136,29 +150,31 @@ def flow_param_shapes(cfg: CNFConfig):
     return params, state
 
 
-def fused_concatsquash_primal(params, tc, y):
+def fused_concatsquash_primal(params, tc, y, matmul_dtype: str = "f32"):
     """The ODEnet through the fused kernel: gates and effective biases from
-    tc = [t, context] in plain PyTorch, the per-point layers in the kernel."""
-    return cnf_primal(y, context_gb(params, tc), *pack_weights(params))
+    tc = [t, context] in plain PyTorch, the per-point layers in the kernel,
+    its products in ``matmul_dtype``."""
+    return cnf_primal(y, context_gb(params, tc), *pack_weights(params), matmul_dtype)
 
 
-def fused_concatsquash_dynamics(params, tc, y, e):
+def fused_concatsquash_dynamics(params, tc, y, e, matmul_dtype: str = "f32"):
     """(f(y), e^T J_f(y) e) through the fused with-divergence kernel."""
-    return cnf_dynamics(y, e, context_gb(params, tc), *pack_weights(params))
+    return cnf_dynamics(y, e, context_gb(params, tc), *pack_weights(params), matmul_dtype)
 
 
 def odenet_primal(params, cfg: CNFConfig, tc, y):
-    """f(y): the fused kernel where the config fits it, else the composition."""
+    """f(y): the fused kernel in ``cfg.matmul_dtype`` where the config fits
+    it, else the float32 composition."""
     if kernel_takes(cfg):
-        return fused_concatsquash_primal(params, tc, y)
+        return fused_concatsquash_primal(params, tc, y, cfg.matmul_dtype)
     return reference_primal(params, tc, y, cfg.layer_type, cfg.nonlinearity)
 
 
 def odenet_dynamics(params, cfg: CNFConfig, tc, y, e):
-    """(f(y), e^T J_f(y) e): the fused kernel where the config fits it, else
-    the composition."""
+    """(f(y), e^T J_f(y) e): the fused kernel in ``cfg.matmul_dtype`` where
+    the config fits it, else the float32 composition."""
     if kernel_takes(cfg):
-        return fused_concatsquash_dynamics(params, tc, y, e)
+        return fused_concatsquash_dynamics(params, tc, y, e, cfg.matmul_dtype)
     return reference_dynamics(params, tc, y, e, cfg.layer_type, cfg.nonlinearity)
 
 

@@ -35,6 +35,15 @@ the points alone, ``ops.kernels.cnf_dynamics`` for the points and the
 Hutchinson tangent J e, giving e^T J e.  The JAX package has a kernel for
 that config alone (caspr_tpu/ops/cnf_fused.py::can_fuse), and so does the
 port: any other config runs the composition on either device.
+
+The fused kernels have two arithmetic modes, ``matmul_dtype`` "f32" (the
+default: every product at float32 accuracy) and "bf16", the JAX package's
+CASPR_TPU_CNF_MATMUL=bf16 (caspr_tpu/ops/cnf_fused.py ``mm``): both operands
+of every layer product -- the points and the Hutchinson noise into the first
+layer, the activations into the others, and every weight -- are rounded to
+bfloat16 (nearest, ties to even) and the product accumulates in float32; the
+gates, biases, softplus, its sigmoid and the divergence's sum stay float32.
+The composition has one mode, float32, as the JAX package's ``odenet_apply``.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ KERNEL_MAX_DIM = 8
 KERNEL_WIDTH_STEP = 32
 KERNEL_MAX_WIDTH = 512
 KERNEL_HIDDEN_LAYERS = (1, 6)
+MATMUL_DTYPES = ("f32", "bf16")
 
 
 def kernel_takes(cfg) -> bool:
@@ -73,6 +83,22 @@ def kernel_takes(cfg) -> bool:
         and dims[0] <= KERNEL_MAX_WIDTH
         and lo <= len(dims) - 1 <= hi
     )
+
+
+def check_matmul_dtype(matmul_dtype: str) -> str:
+    if matmul_dtype not in MATMUL_DTYPES:
+        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}, got {matmul_dtype!r}")
+    return matmul_dtype
+
+
+def _operand(matmul_dtype: str):
+    """What a layer product does to each operand: nothing in "f32", a
+    rounding to bfloat16 in "bf16" (a product of two bfloat16 values is exact
+    in float32, so the float32 product of the rounded operands is the
+    bfloat16 product with float32 accumulation)."""
+    if check_matmul_dtype(matmul_dtype) == "bf16":
+        return lambda t: t.to(torch.bfloat16).to(t.dtype)
+    return lambda t: t
 
 
 def softplus(x):
@@ -113,10 +139,11 @@ def pack_weights(params):
     return w_first, w_hidden.contiguous(), w_last
 
 
-def primal_packed(y, gb, w_first, w_hidden, w_last):
+def primal_packed(y, gb, w_first, w_hidden, w_last, matmul_dtype: str = "f32"):
     """The kernel's function in plain PyTorch: per layer
-    ``(z @ W^T) * gate + beff``, softplus on all but the last.
-    y: (BT, N, D) -> dx (BT, N, D)."""
+    ``(z @ W^T) * gate + beff``, softplus on all but the last, the products'
+    operands as ``matmul_dtype`` says.  y: (BT, N, D) -> dx (BT, N, D)."""
+    rnd = _operand(matmul_dtype)
     weights = [w_first, *w_hidden.unbind(0), w_last]
     num_layers = len(weights)
     z = y
@@ -124,7 +151,7 @@ def primal_packed(y, gb, w_first, w_hidden, w_last):
         d_out = w.shape[0]
         gate = gb[:, i, None, :d_out]
         beff = gb[:, num_layers + i, None, :d_out]
-        z = torch.matmul(z, w.T) * gate + beff
+        z = torch.matmul(rnd(z), rnd(w).T) * gate + beff
         if i < num_layers - 1:
             z = softplus(z)
     return z
@@ -215,12 +242,15 @@ def reference_primal(params, tc, y, layer_type: str = "concatsquash",
     return dx
 
 
-def dynamics_packed(y, e, gb, w_first, w_hidden, w_last):
+def dynamics_packed(y, e, gb, w_first, w_hidden, w_last, matmul_dtype: str = "f32"):
     """The with-divergence kernel's function in plain PyTorch.  Per layer
     ``m = z @ W^T`` for both streams, primal ``zp = m_p * gate + beff``,
     tangent ``zt = m_t * gate``; on all but the last layer ``zt *=
-    sigmoid(zp)`` (the pre-activation) and ``zp = softplus(zp)``.
-    y, e: (BT, N, D) -> (dx (BT, N, D), div (BT, N) = sum_d (J e)_d e_d)."""
+    sigmoid(zp)`` (the pre-activation) and ``zp = softplus(zp)``; the
+    products' operands as ``matmul_dtype`` says (the divergence's e stays
+    float32).  y, e: (BT, N, D) -> (dx (BT, N, D), div (BT, N) = sum_d (J
+    e)_d e_d)."""
+    rnd = _operand(matmul_dtype)
     weights = [w_first, *w_hidden.unbind(0), w_last]
     num_layers = len(weights)
     zp, zt = y, e
@@ -228,8 +258,9 @@ def dynamics_packed(y, e, gb, w_first, w_hidden, w_last):
         d_out = w.shape[0]
         gate = gb[:, i, None, :d_out]
         beff = gb[:, num_layers + i, None, :d_out]
-        zp = torch.matmul(zp, w.T) * gate + beff
-        zt = torch.matmul(zt, w.T) * gate
+        wt = rnd(w).T
+        zp = torch.matmul(rnd(zp), wt) * gate + beff
+        zt = torch.matmul(rnd(zt), wt) * gate
         if i < num_layers - 1:
             zt = zt * torch.sigmoid(zp)
             zp = softplus(zp)

@@ -9,9 +9,12 @@ training paths (sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
   three_nn           -> three_nn
   three_interpolate  -> three_interpolate
   cnf_primal         -> cnf_primal (the decode dynamics; tensor cores,
-                        3xTF32: csrc/cnf_tc.cuh)
+                        3xTF32: csrc/cnf_tc.cuh; with matmul_dtype="bf16"
+                        its one-pass bfloat16 variant, counted as
+                        cnf_primal_bf16)
   cnf_dynamics       -> cnf_dynamics (the likelihood dynamics, with the
-                        Hutchinson divergence; the same layer tile)
+                        Hutchinson divergence; the same layer tile, and
+                        its bfloat16 variant, counted as cnf_dynamics_bf16)
   cnf_dynamics_vjp   -> cnf_dynamics_vjp (its VJP: the adjoint's augmented
                         dynamics in training; the same layer tile, and a
                         3xTF32 split-K product for the weight gradients)
@@ -24,7 +27,8 @@ training paths (sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then takes one of two routes by the device of its inputs: a
 CPU tensor goes to the plain PyTorch version (``ops/pointops.py``,
-``ops/cnf_fused.py::primal_packed``, ``dynamics_packed`` and
+``ops/cnf_fused.py::primal_packed``, ``dynamics_packed`` (in the
+``matmul_dtype`` asked for) and
 ``dynamics_vjp_packed``,
 ``ops/emd_plain.py::emd_plain``, ``ops/sa_fused.py::sa_stack_plain``); a CUDA tensor launches the kernel on
 the current stream, raises if the launch fails, and adds one to
@@ -52,7 +56,7 @@ import torch
 
 from . import pointops
 from .cnf_fused import (KERNEL_HIDDEN_LAYERS, KERNEL_MAX_DIM, KERNEL_MAX_WIDTH, KERNEL_WIDTH_STEP,
-                        dynamics_packed, dynamics_vjp_packed, primal_packed)
+                        check_matmul_dtype, dynamics_packed, dynamics_vjp_packed, primal_packed)
 from .emd_plain import emd_plain
 from .sa_fused import MAX_K, MAX_WIDTH, NUM_GROUPS, sa_stack_plain
 
@@ -78,11 +82,14 @@ NVCC_FLAGS = (
 
 KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
            "cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp", "emd", "sa_fused")
+# the one-pass bfloat16 variants of the two forward CNF kernels (the same
+# sources, csrc/cnf_primal.cu and csrc/cnf_dynamics.cu), counted apart
+VARIANTS = ("cnf_primal_bf16", "cnf_dynamics_bf16")
 FPS_SHARED_POINTS = 8192  # N up to which the fps kernel holds a cloud in registers
 GATHER_MAX_FLOATS = 2**31 - 1  # R * C and N * C of one batch of the gather kernel
 # Launches of each kernel since the last reset_launches(); bumped only where
 # a kernel is launched on the card.
-launches = dict.fromkeys(KERNELS, 0)
+launches = dict.fromkeys(KERNELS + VARIANTS, 0)
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
@@ -92,7 +99,9 @@ _SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
     "caspr_three_nn": [_P, _P, _P, _P, _I, _I, _I, _P],
     "caspr_three_interpolate": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "caspr_cnf_primal": [_P] * 7 + [_I] * 6 + [_P],
+    "caspr_cnf_primal_bf16": [_P] * 7 + [_I] * 6 + [_P],
     "caspr_cnf_dynamics": [_P] * 9 + [_I] * 6 + [_P],
+    "caspr_cnf_dynamics_bf16": [_P] * 9 + [_I] * 6 + [_P],
     "caspr_cnf_dynamics_vjp": [_P] * 13 + [_I] * 6 + [_P],
     "caspr_approx_match_emd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "caspr_approx_match_emd_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -434,71 +443,95 @@ def _check_cnf_kernel_limits(name, h, d):
                          f"{KERNEL_MAX_WIDTH} and D <= {KERNEL_MAX_DIM}, got H={h}, D={d}")
 
 
-def _tf32_split_scratch(w_hidden):
-    """Scratch for the TF32 hi and lo parts of the hidden weights that the
-    tensor-core CNF kernels make at each call (csrc/cnf_tc.cuh): per layer
-    2 x H_pad x H_pad floats, H_pad = H rounded up to a multiple of 128."""
+def _weights_scratch(w_hidden, matmul_dtype):
+    """Scratch for the hidden weights as the tensor-core CNF kernels make
+    them at each call (csrc/cnf_tc.cuh), per layer H_pad x H_pad values,
+    H_pad = H rounded up to a multiple of 128: their TF32 hi and lo parts
+    (2 floats a weight) for "f32", their bfloat16 rounding for "bf16"."""
     num_hidden, h, _ = w_hidden.shape
     h_pad = -(-h // 128) * 128
+    if matmul_dtype == "bf16":
+        return torch.empty(num_hidden * h_pad * h_pad, dtype=torch.bfloat16,
+                           device=w_hidden.device)
     return torch.empty(2 * num_hidden * h_pad * h_pad, dtype=torch.float32, device=w_hidden.device)
 
 
-def cnf_primal(y, gb, w_first, w_hidden, w_last):
+def _cnf_route(kernel: str, matmul_dtype: str):
+    """(launch count, C entry) of a forward CNF kernel in a matmul mode."""
+    if matmul_dtype == "bf16":
+        return f"{kernel}_bf16", f"caspr_{kernel}_bf16"
+    return kernel, f"caspr_{kernel}"
+
+
+def cnf_primal(y, gb, w_first, w_hidden, w_last, matmul_dtype: str = "f32"):
     """Fused concatsquash stack.  y (BT, N, D); gb (BT, G, H) gates and
     effective biases (ops/cnf_fused.py::context_gb); w_first (H, D),
-    w_hidden (L-2, H, H), w_last (D, H) in (out, in) layout -> dx (BT, N, D)."""
+    w_hidden (L-2, H, H), w_last (D, H) in (out, in) layout -> dx (BT, N, D).
+    ``matmul_dtype``: "f32" (3xTF32 on the card) or "bf16" (every product's
+    operands rounded to bfloat16, one tensor-core pass; the JAX package's
+    CASPR_TPU_CNF_MATMUL=bf16)."""
+    check_matmul_dtype(matmul_dtype)
     bt, n, d, h, num_hidden = _check_cnf("cnf_primal", y, gb, w_first, w_hidden, w_last)
     if not _on_card(y, gb, w_first, w_hidden, w_last):
+        # the float32 call keeps the plain version's five-argument form,
+        # which tests/test_torch_port_tf32x3.py swaps for its TF32 model
+        if matmul_dtype == "bf16":
+            return primal_packed(y, gb, w_first, w_hidden, w_last, matmul_dtype="bf16")
         return primal_packed(y, gb, w_first, w_hidden, w_last)
     _check_cnf_kernel_limits("cnf_primal", h, d)
-    w_split = _tf32_split_scratch(w_hidden)
+    scratch = _weights_scratch(w_hidden, matmul_dtype)
     dx = torch.empty_like(y)
-    _launch("cnf_primal", "caspr_cnf_primal", y.device,
+    _launch(*_cnf_route("cnf_primal", matmul_dtype), y.device,
             y.data_ptr(), gb.data_ptr(), w_first.data_ptr(), w_hidden.data_ptr(),
-            w_last.data_ptr(), w_split.data_ptr(), dx.data_ptr(), bt, n, h, d, num_hidden,
+            w_last.data_ptr(), scratch.data_ptr(), dx.data_ptr(), bt, n, h, d, num_hidden,
             gb.shape[1])
     return dx
 
 
-def cnf_dynamics(y, e, gb, w_first, w_hidden, w_last):
+def cnf_dynamics(y, e, gb, w_first, w_hidden, w_last, matmul_dtype: str = "f32"):
     """Fused concatsquash stack with the Hutchinson tangent.  y, e (BT, N, D);
     the other arguments as ``cnf_primal`` -> (dx (BT, N, D), div (BT, N) =
     e^T J e).  Differentiable in y, gb and the weights on either device: the
-    backward is ``cnf_dynamics_vjp`` (e is a constant, as in the adjoint)."""
+    backward is ``cnf_dynamics_vjp``, float32 in either mode, as the JAX
+    package's default backward differentiates the float32 composition (e is
+    a constant, as in the adjoint)."""
+    check_matmul_dtype(matmul_dtype)
     _check_cnf("cnf_dynamics", y, gb, w_first, w_hidden, w_last)
     _check("e", e, torch.float32, 3)
     if e.shape != y.shape:
         raise ValueError(f"cnf_dynamics: e {tuple(e.shape)} and y {tuple(y.shape)} differ")
-    return _CNFDynamics.apply(y, e, gb, w_first, w_hidden, w_last)
+    return _CNFDynamics.apply(y, e, gb, w_first, w_hidden, w_last, matmul_dtype)
 
 
-def _cnf_dynamics_launch(y, e, gb, w_first, w_hidden, w_last):
+def _cnf_dynamics_launch(y, e, gb, w_first, w_hidden, w_last, matmul_dtype):
     bt, n, d, h, num_hidden = _check_cnf("cnf_dynamics", y, gb, w_first, w_hidden, w_last)
     if not _on_card(y, e, gb, w_first, w_hidden, w_last):
+        if matmul_dtype == "bf16":  # the float32 call as in cnf_primal
+            return dynamics_packed(y, e, gb, w_first, w_hidden, w_last, matmul_dtype="bf16")
         return dynamics_packed(y, e, gb, w_first, w_hidden, w_last)
     _check_cnf_kernel_limits("cnf_dynamics", h, d)
-    w_split = _tf32_split_scratch(w_hidden)
+    scratch = _weights_scratch(w_hidden, matmul_dtype)
     dx = torch.empty_like(y)
     div = torch.empty((bt, n), dtype=torch.float32, device=y.device)
-    _launch("cnf_dynamics", "caspr_cnf_dynamics", y.device,
+    _launch(*_cnf_route("cnf_dynamics", matmul_dtype), y.device,
             y.data_ptr(), e.data_ptr(), gb.data_ptr(), w_first.data_ptr(),
-            w_hidden.data_ptr(), w_last.data_ptr(), w_split.data_ptr(), dx.data_ptr(),
+            w_hidden.data_ptr(), w_last.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
             div.data_ptr(), bt, n, h, d, num_hidden, gb.shape[1])
     return dx, div
 
 
 class _CNFDynamics(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, e, gb, w_first, w_hidden, w_last):
+    def forward(ctx, y, e, gb, w_first, w_hidden, w_last, matmul_dtype):
         ctx.save_for_backward(y, e, gb, w_first, w_hidden, w_last)
-        return _cnf_dynamics_launch(y, e, gb, w_first, w_hidden, w_last)
+        return _cnf_dynamics_launch(y, e, gb, w_first, w_hidden, w_last, matmul_dtype)
 
     @staticmethod
     def backward(ctx, ct_dx, ct_div):
         y, e, gb, w_first, w_hidden, w_last = ctx.saved_tensors
         dy, dgb, dwf, dwh, dwl = cnf_dynamics_vjp(
             y, e, gb, w_first, w_hidden, w_last, ct_dx.contiguous(), ct_div.contiguous())
-        return dy, None, dgb, dwf, dwh, dwl
+        return dy, None, dgb, dwf, dwh, dwl, None
 
 
 def cnf_dynamics_vjp(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):

@@ -181,7 +181,26 @@ Phases, each of which raises on failure:
      input on the card (NFE, seconds, finite); (d) one adjoint step of a
      flow-only NLL for swish and for concat at that width, card against
      CPU with phase 7's bars (equal NFE, loss 1e-4 relative, every flow
-     leaf and the context within 1e-3 of its largest).
+     leaf and the context within 1e-3 of its largest);
+ 13. the CNF kernels' bfloat16 matmul mode (CaSPRConfig(cnf_matmul_dtype=
+     "bf16"), run_bf16): (a) cnf_primal_bf16 and cnf_dynamics_bf16 at phase
+     2's shapes against their bfloat16 plain versions (each output within
+     2e-3 of its largest magnitude, within 1.5x the plain version's
+     distance from float64, two launches bit-equal), timed with their
+     bound at the bfloat16 rate; (b) phase 3's reconstruct (its input and
+     base samples, the demo weights) in bfloat16 beside float32, f32, bf16,
+     bf16, f32, and the bfloat16 sample-div decode with phase 12's noise:
+     NFE, seconds, the CNF launches (cnf_primal_bf16 once per CNF
+     evaluation and no float32 CNF kernel; cnf_dynamics_bf16 alone in the
+     sample-div decode), each mode's two runs identical, the distance from
+     the float32 decode; (c) phase 5's reconstruct in bfloat16, card
+     against CPU (CNF NFE within 6, latent NFE equal, points within 5e-3
+     of their largest magnitude); (d) at 5 x 5 x 1024 one likelihood
+     evaluation (demo weights) and one adjoint train step (caspr_init seed
+     0, phase 6's first step) in bfloat16 beside float32 on the same
+     inputs: finite, the mode's cnf_dynamics kernel once per CNF
+     evaluation, the VJP through the float32 cnf_dynamics_vjp in both, NFE,
+     losses and seconds.
 
 Then it prints its own seconds (from its first line of output on), one
 JSON line listing every kernel and, last, the verdict line
@@ -206,11 +225,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet (dense): device memory rate, float32 rate
-# outside the tensor cores and TF32 rate on them.  A card below its 700 W
-# limit runs slower.
+# outside the tensor cores and TF32 and bfloat16 rates on them.  A card
+# below its 700 W limit runs slower.
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 # exp, sqrt and the like go to the special-function units: 16 results per SM
 # per clock against 128 fused multiply-adds (256 float32 operations).
 SPECIAL_PER_S = F32_FLOPS_PER_S / 2 / 8
@@ -244,6 +264,12 @@ KERNEL_INFO = {
     # _sa_call (sa_fused.py:163)
     "sa_fused": ("caspr_tpu_torch/csrc/sa_fused.cu",
                  "caspr_tpu/ops/sa_fused2.py:357"),
+    # the bfloat16 variants (matmul_dtype="bf16") of the two forward CNF
+    # kernels: the same sources and pallas_calls, run with matmul_dtype="bf16"
+    "cnf_primal_bf16": ("caspr_tpu_torch/csrc/cnf_primal.cu",
+                        "caspr_tpu/ops/cnf_fused.py:283"),
+    "cnf_dynamics_bf16": ("caspr_tpu_torch/csrc/cnf_dynamics.cu",
+                          "caspr_tpu/ops/cnf_fused.py:233"),
 }
 RECONSTRUCT_KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
                        "cnf_primal")
@@ -302,7 +328,7 @@ def build_facts(lib_path, build_dir):
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m:
-                args = [int(v) for v in re.findall(r"Li(\d+)E", current)]
+                args = [int(v) for v in re.findall(r"L[ib](\d+)E", current)]
                 facts.append({"kernel": name, "function": entry, "mangled": current,
                               "opcode": opcode, "template_args": args,
                               "stack_bytes": int(m.group(1)), "spill_stores": int(m.group(2)),
@@ -347,13 +373,15 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     return wall_ms(fn, reps)
 
 
-def bound(bytes_moved: float, ops: float, special: float = 0.0, tensor_ops: float = 0.0):
+def bound(bytes_moved: float, ops: float, special: float = 0.0, tensor_ops: float = 0.0,
+          bf16_ops: float = 0.0):
     """Least time on the card for the work: (ms, what bounds it).  The
     operations take the longest of the float32 operations over the float32
-    rate, the special-function evaluations over theirs and the TF32
-    tensor-core operations over theirs."""
+    rate, the special-function evaluations over theirs, the TF32
+    tensor-core operations over theirs and the bfloat16 ones over theirs."""
     t_bytes = bytes_moved / MEM_BYTES_PER_S
-    t_ops = max(ops / F32_FLOPS_PER_S, special / SPECIAL_PER_S, tensor_ops / TF32_FLOPS_PER_S)
+    t_ops = max(ops / F32_FLOPS_PER_S, special / SPECIAL_PER_S, tensor_ops / TF32_FLOPS_PER_S,
+                bf16_ops / BF16_FLOPS_PER_S)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -2843,6 +2871,274 @@ def run_cnf_rest(torch, kernels, card):
     return launches
 
 
+# Phase 13: the CNF kernels' bfloat16 matmul mode (CNFConfig.matmul_dtype;
+# the JAX package's CASPR_TPU_CNF_MATMUL=bf16)
+BF16_CFG = dict(cnf_matmul_dtype="bf16")
+BF16_LEAVES = ("cnf_primal_bf16", "cnf_dynamics_bf16")
+
+
+def cnf_bf16_case(torch, name, c, rows, hidden_layers, h):
+    """One bfloat16 variant against its bfloat16 plain version (``c``: run,
+    plain, exact (float64, no rounding), streams, bytes, shape, special)
+    over ``rows`` points of width ``h``: (a) each output within 2e-3 of its
+    largest magnitude of the plain version (a bfloat16 rounding of an
+    activation may flip by one unit where the sums' order differs), (b)
+    within 1.5x the plain version's distance from float64, (c) two launches
+    bit-equal.  Returns its row: errors, times and work (the hidden layers
+    as one bfloat16 tensor-core pass; softplus's special functions)."""
+    got, plain = c["run"](), c["plain"]()
+    if not all(torch.equal(a, b) for a, b in zip(got, c["run"]())):
+        raise AssertionError(f"{name}: two launches on the same input differ")
+    errs = [float((g - p).abs().max()) for g, p in zip(got, plain)]
+    rels = [err / float(p.abs().max()) for err, p in zip(errs, plain)]
+    dist = lambda a, x: float((a.double() - x).abs().max() / x.abs().max())
+    vs64 = [dist(g, x) for g, x in zip(got, c["exact"])]
+    plain_vs64 = [dist(p, x) for p, x in zip(plain, c["exact"])]
+    print(json.dumps({"bf16_kernel": name, "rel_err_vs_plain": rels, "rel_err_vs_float64": vs64,
+                      "plain_rel_err_vs_float64": plain_vs64}), flush=True)
+    if not max(rels) <= 2e-3:
+        raise AssertionError(f"{name}: relative err against the bf16 plain version {rels} > 2e-3")
+    if not all(k <= 1.5 * p for k, p in zip(vs64, plain_vs64)):
+        raise AssertionError(f"{name}: relative err against float64 {vs64} > 1.5 x the bf16 "
+                             f"plain version's {plain_vs64}")
+    rows_r = c["streams"] * rows
+    # the epilogue in float32: the gate's product and the bias's sum, and
+    # softplus's max and sum on every activation; the first and last layers
+    # on the CUDA cores
+    acts = rows * (hidden_layers + 1) * h
+    edge_ops = 2.0 * rows_r * (3 * h + h * 3) + 4.0 * acts * c["streams"]
+    return dict(
+        max_abs_err=max(errs),
+        tolerance="each output 2e-3 relative to its max magnitude of the bf16 plain version; "
+                  "within 1.5x the bf16 plain version's distance from float64; deterministic",
+        rel_err_vs_plain=rels, rel_err_vs_float64=vs64, plain_rel_err_vs_float64=plain_vs64,
+        ms=time_ms(torch, c["run"]), plain_ms=time_ms(torch, c["plain"]), library_ms=None,
+        work=(c["bytes"], edge_ops, c["special"] * acts, 0.0,
+              2.0 * rows_r * hidden_layers * h * h),
+        shape=c["shape"],
+    )
+
+
+def check_bf16_kernels(torch):
+    """Phase 13(a): the two bfloat16 variants against their bfloat16 plain
+    versions at phase 2's shapes (the trained decoder, 40 clouds of 2048
+    points, y and e)."""
+    from caspr_tpu_torch.ops import cnf_fused, kernels
+    from caspr_tpu_torch.weights import load_demo
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    params, _ = load_demo(device=dev)
+    odenet = params["point_cnf"][1]["odenet"]
+    tc = torch.cat([torch.full((BT, 1), 0.25, device=dev),
+                    torch.randn((BT, 1600), generator=gen, device=dev)], dim=1)
+    y = torch.randn((BT, POINTS, 3), generator=gen, device=dev)
+    e = torch.randn((BT, POINTS, 3), generator=gen, device=dev)
+    gb = cnf_fused.context_gb(odenet, tc)
+    wf, wh, wl = cnf_fused.pack_weights(odenet)
+    h = wf.shape[0]
+    w64 = [t.double() for t in (gb, wf, wh, wl)]
+    weights_bytes = (gb.numel() + wf.numel() + wh.numel() + wl.numel()) * 4.0
+    cases = {
+        # softplus: an exp and a log1p; with the tangent also the sigmoid's
+        # reciprocal
+        "cnf_primal_bf16": dict(
+            run=lambda: (kernels.cnf_primal(y, gb, wf, wh, wl, "bf16"),),
+            plain=lambda: (cnf_fused.primal_packed(y, gb, wf, wh, wl, "bf16"),),
+            exact=(cnf_fused.primal_packed(y.double(), *w64),), streams=1, special=2.0,
+            bytes=y.numel() * 2 * 4.0 + weights_bytes, shape=f"y ({BT}, {POINTS}, 3), H {h}"),
+        "cnf_dynamics_bf16": dict(
+            run=lambda: kernels.cnf_dynamics(y, e, gb, wf, wh, wl, "bf16"),
+            plain=lambda: cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl, "bf16"),
+            exact=cnf_fused.dynamics_packed(y.double(), e.double(), *w64), streams=2,
+            special=3.0, bytes=(y.numel() * 3 + BT * POINTS) * 4.0 + weights_bytes,
+            shape=f"y, e ({BT}, {POINTS}, 3), H {h}"),
+    }
+    rows = {name: cnf_bf16_case(torch, name, c, BT * POINTS, wh.shape[0], h)
+            for name, c in cases.items()}
+    for name, row in rows.items():
+        bound_ms, bound_by = bound(*row["work"])
+        print(json.dumps({"kernel": name, **{k: v for k, v in row.items() if k != "work"},
+                          "bound_ms": bound_ms, "bound_by": bound_by}), flush=True)
+    return rows
+
+
+def bf16_reconstructs(torch, kernels, card):
+    """Phase 13(b): the demo-weights reconstruct of phase 3's input and base
+    samples in bfloat16 beside float32 (f32, bf16, bf16, f32, so that each
+    mode has a run on either side of the other), and its sample-div decode
+    with phase 12's noise; the launch counts set to 0 before each run.
+    Returns the bf16 decode's cnf_primal_bf16 launches."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.weights import load_demo
+
+    params, state = load_demo(device="cuda")
+    models = {"f32": CaSPRModel(CaSPRConfig(), device="cuda"),
+              "bf16": CaSPRModel(CaSPRConfig(**BF16_CFG), device="cuda")}
+    x, timestamps, gen = reconstruct_input(torch)
+    base = models["f32"].sample_base(gen, BT, POINTS).reshape(BATCH, FRAMES, POINTS, 3)
+    noise = torch.randn((BT, POINTS, 3), generator=torch.Generator(device="cuda").manual_seed(
+        SEED + 12), device="cuda")
+    runs = {}
+    for mode, label, kw in (("f32", "f32", {}), ("bf16", "bf16", {}), ("bf16", "bf16 again", {}),
+                            ("f32", "f32 again", {}),
+                            ("bf16", "bf16 sample_div", {"sample_div": True, "e": noise})):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start = time.perf_counter()
+        with torch.no_grad():
+            _, _, rec, _, nfe = models[mode].reconstruct(params, state, x, None,
+                                                         num_points=POINTS, timestamps=timestamps,
+                                                         base_samples=base, **kw)
+        torch.cuda.synchronize()
+        runs[label] = (rec, nfe, time.perf_counter() - start,
+                       {k: kernels.launches[k] for k in CNF_LEAVES + BF16_LEAVES})
+    cnf_nfe = lambda label: int(runs[label][1][1])
+    want = {"f32": {"cnf_primal": cnf_nfe("f32")},
+            "bf16": {"cnf_primal_bf16": cnf_nfe("bf16")},
+            "bf16 sample_div": {"cnf_dynamics_bf16": cnf_nfe("bf16 sample_div")}}
+    for label, counts in want.items():
+        got = {k: v for k, v in runs[label][3].items() if v}
+        if got != counts:
+            raise AssertionError(f"{label} reconstruct: CNF launches {got}, expected {counts}")
+    for label, (rec, _, _, _) in runs.items():
+        if tuple(rec.shape) != (BATCH, FRAMES, POINTS, 3) or not bool(torch.isfinite(rec).all()):
+            raise AssertionError(f"{label} reconstruct output bad: shape {tuple(rec.shape)}")
+    for label in ("bf16", "f32"):
+        again = runs[f"{label} again"]
+        if again[1] != runs[label][1] or not torch.equal(again[0], runs[label][0]):
+            raise AssertionError(f"{label} reconstruct: a second run differs")
+    f32_rec = runs["f32"][0]
+    print(json.dumps({
+        "bf16_reconstruct": f"reconstruct B={BATCH} T={FRAMES} N={POINTS}, demo weights, phase "
+                            f"3's input and base samples", "card": card,
+        "nfe": {k: v[1] for k, v in runs.items()},
+        "seconds": {k: v[2] for k, v in runs.items()},
+        "cnf_launches": {k: v[3] for k, v in runs.items()},
+        "max_abs_diff_from_f32": {k: float((v[0] - f32_rec).abs().max()) for k, v in runs.items()
+                                  if k.startswith("bf16")},
+        "largest_f32": float(f32_rec.abs().max())}), flush=True)
+    return runs["bf16"][3]["cnf_primal_bf16"]
+
+
+def bf16_cross_device(torch):
+    """Phase 13(c): phase 5's reconstruct in bfloat16 on the card and on
+    the CPU (the plain version): CNF NFE within 6 (the margin the JAX
+    package's tests allow between its own two routes: the bfloat16
+    roundings of the card's and the CPU's sums may differ by a unit, and
+    dopri5 then takes other steps), equal latent-ODE NFE, points within
+    5e-3 of their largest magnitude."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
+    from caspr_tpu_torch.weights import load_demo
+
+    rng = np.random.default_rng(SEED)
+    x = rng.random((1, 2, POINTS, 4), dtype=np.float32)
+    x[..., 3] = np.array([0.0, 5.0], np.float32)[None, :, None]
+    base = rng.standard_normal((1, 2, 512, 3)).astype(np.float32)
+    ts = np.array([0.0, 1.0], np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = CaSPRModel(CaSPRConfig(**BF16_CFG), device=dev)
+        params, state = load_demo(device=dev)
+        to = lambda a: torch.from_numpy(a).to(dev)
+        with torch.no_grad():
+            _, _, rec, _, nfe = model.reconstruct(params, state, to(x), None, num_points=512,
+                                                  timestamps=to(ts), base_samples=to(base))
+        out[dev] = (rec.cpu(), nfe)
+    (card, card_nfe), (cpu, cpu_nfe) = out["cuda"], out["cpu"]
+    err = float((card - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    print(json.dumps({"cross_device": "bf16 reconstruct B=1 T=2 N=2048 -> 512 points",
+                      "nfe": [card_nfe, cpu_nfe], "max_abs_err": err, "largest": scale,
+                      "tolerance": "CNF NFE within 6, latent NFE equal, points 5e-3 x largest"}),
+          flush=True)
+    if (abs(card_nfe[1] - cpu_nfe[1]) > 6 or card_nfe[0] != cpu_nfe[0]
+            or not err <= 5e-3 * scale):
+        raise AssertionError("bf16 reconstruct, card vs CPU: see the line above")
+
+
+def bf16_likelihood_and_step(torch, kernels, card):
+    """Phase 13(d): at 5 x 5 x 1024, in float32 and in bfloat16 on the same
+    inputs, one likelihood evaluation (CaSPRModel.forward with the demo
+    weights, phase 6's first batch, a noise from SEED + 16) and one adjoint
+    train step (phase 6's first: caspr_init seed 0, its generator, its
+    batch): finite; the forward dynamics through the mode's kernel alone
+    (cnf_dynamics or cnf_dynamics_bf16, once per CNF evaluation), the
+    adjoint's VJP through the float32 cnf_dynamics_vjp in both.  Returns the
+    bfloat16 likelihood's cnf_dynamics_bf16 launches and the step's."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel, caspr_init
+    from caspr_tpu_torch.train import make_optimizer, make_train_step
+    from caspr_tpu_torch.weights import load_demo
+
+    dev = torch.device("cuda")
+    batch = TrainLoader(1, SEED + 4).batches[0]
+    to = lambda a: torch.from_numpy(a).to(dev)
+    demo_params, demo_state = load_demo(device=dev)
+    dynamics = {"f32": "cnf_dynamics", "bf16": "cnf_dynamics_bf16"}
+    out = {}
+    for mode, kernel in dynamics.items():
+        cfg = CaSPRConfig(cnf_matmul_dtype=mode)
+        model = CaSPRModel(cfg, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start = time.perf_counter()
+        with torch.no_grad():
+            res, _ = model.forward(demo_params, demo_state, to(batch["input"]),
+                                   to(batch["target"]),
+                                   torch.Generator(device=dev).manual_seed(SEED + 16))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = {k: kernels.launches[k] for k in CNF_LEAVES + BF16_LEAVES}
+        nll = res["nll"]
+        if counts != {**dict.fromkeys(CNF_LEAVES + BF16_LEAVES, 0), kernel: int(res["nfe"][1])}:
+            raise AssertionError(f"{mode} likelihood: CNF launches {counts}, CNF NFE "
+                                 f"{res['nfe'][1]}")
+        if not bool(torch.isfinite(nll).all()) or tuple(nll.shape) != (TRAIN_B, TRAIN_T, TRAIN_N):
+            raise AssertionError(f"{mode} likelihood: nll bad, shape {tuple(nll.shape)}")
+        likelihood = dict(nfe=res["nfe"], seconds=seconds, mean_nll=float(nll.mean()),
+                          cnf_launches=counts)
+
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params, state = caspr_init(gen, cfg, device=dev)
+        tx = make_optimizer(1e-4)
+        step = make_train_step(model, tx, 0.01, 100.0)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start = time.perf_counter()
+        _, _, _, m = step(params, tx.init(params), state, batch["input"], batch["target"], gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = {k: kernels.launches[k] for k in CNF_LEAVES + BF16_LEAVES}
+        want = {**dict.fromkeys(CNF_LEAVES + BF16_LEAVES, 0), kernel: int(m["nfe"][1]),
+                "cnf_dynamics_vjp": int(m["nfe"][1] - m["nfe_forward"][1] - 2)}
+        if counts != want:
+            raise AssertionError(f"{mode} train step: CNF launches {counts}, expected {want}")
+        if not np.isfinite(m["loss"]):
+            raise AssertionError(f"{mode} train step: loss not finite: {m['loss']}")
+        out[mode] = dict(likelihood=likelihood,
+                         train_step=dict(loss=m["loss"], cnf_loss=m["cnf_loss"], nfe=m["nfe"],
+                                         nfe_forward=m["nfe_forward"], seconds=seconds,
+                                         cnf_launches=counts))
+    print(json.dumps({"bf16_likelihood_and_step": f"B={TRAIN_B} T={TRAIN_T} N={TRAIN_N}: "
+                                                  f"CaSPRModel.forward with the demo weights; "
+                                                  f"one adjoint step from caspr_init seed 0",
+                      "card": card, **out}), flush=True)
+    bf16 = out["bf16"]
+    return (bf16["likelihood"]["cnf_launches"]["cnf_dynamics_bf16"],
+            bf16["train_step"]["cnf_launches"]["cnf_dynamics_bf16"])
+
+
+def run_bf16(torch, kernels, card):
+    """Phase 13: the bfloat16 matmul mode.  Returns (its kernel rows, the
+    launches of each variant on its main path, the train step's
+    cnf_dynamics_bf16 launches)."""
+    rows = check_bf16_kernels(torch)
+    primal = bf16_reconstructs(torch, kernels, card)
+    bf16_cross_device(torch)
+    dynamics, step = bf16_likelihood_and_step(torch, kernels, card)
+    return rows, {"cnf_primal_bf16": primal, "cnf_dynamics_bf16": dynamics}, step
+
+
 def phase_done(name: str, begun: float):
     print(json.dumps({"phase_done": name, "seconds_since_start": time.perf_counter() - begun}),
           flush=True)
@@ -2904,6 +3200,10 @@ def main() -> int:
         phase_done("11", begun)
     sample_div_launches = run_cnf_rest(torch, kernels, card)
     phase_done("12", begun)
+    bf16_rows, bf16_counts, bf16_step_launches = run_bf16(torch, kernels, card)
+    rows.update(bf16_rows)
+    counts.update(bf16_counts)
+    phase_done("13", begun)
 
     listing = []
     for name, row in rows.items():
@@ -2915,9 +3215,12 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": row["library_ms"],
             **({"f32_bound_ms": row["f32_bound_ms"]} if "f32_bound_ms" in row else {}),
-            **per_reconstruct(row, counts[name] if name == "cnf_primal" else None, bound_ms),
+            **per_reconstruct(row, counts[name] if name in ("cnf_primal", "cnf_primal_bf16")
+                              else None, bound_ms),
             **({"launches_per_sample_div_reconstruct": sample_div_launches}
                if name == "cnf_dynamics" else {}),
+            **({"launches_per_train_step": bf16_step_launches}
+               if name == "cnf_dynamics_bf16" else {}),
         })
     print(json.dumps({"seconds_since_start": time.perf_counter() - begun}), flush=True)
     print(card, flush=True)

@@ -325,6 +325,36 @@ def test_cnf_forward_kernels_against_float64_on_the_card(cuda, h, n):
             assert _rel(g, x) <= 4.0 * _rel(p, x), (name, _rel(g, x), _rel(p, x))
 
 
+@pytest.mark.parametrize("h, n", [(64, 100), (512, 77), (512, 256), (32, 77), (96, 77)])
+def test_cnf_bf16_kernels_against_their_plain_versions_on_the_card(cuda, h, n):
+    """The bfloat16 variants (matmul_dtype="bf16") held to their bfloat16
+    plain versions at chip_smoke.py's phase-13 bars: each output within
+    2e-3 of its largest magnitude (a bfloat16 rounding of an activation may
+    flip by one unit where the sums' order differs), within 1.5x the plain
+    version's distance from the float64 field without rounding, two launches
+    bit-equal; counted under their own names, the float32 kernels not."""
+    y, gb, wf, wh, wl = _cnf_inputs(cuda, bt=3, n=n, h=h, seed=2)
+    e = _noise(y)
+    args64 = [t.double() for t in (y, gb, wf, wh, wl)]
+    cases = [
+        ("cnf_primal_bf16", lambda: (kernels.cnf_primal(y, gb, wf, wh, wl, "bf16"),),
+         (cnf_fused.primal_packed(y, gb, wf, wh, wl, "bf16"),),
+         (cnf_fused.primal_packed(*args64),)),
+        ("cnf_dynamics_bf16", lambda: kernels.cnf_dynamics(y, e, gb, wf, wh, wl, "bf16"),
+         cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl, "bf16"),
+         cnf_fused.dynamics_packed(args64[0], e.double(), *args64[1:])),
+    ]
+    for name, run, plain, exact in cases:
+        kernels.reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in kernels.launches.items() if v} == {name: 1}
+        assert all(torch.equal(a, b) for a, b in zip(got, run())), name
+        for g, p, x in zip(got, plain, exact):
+            assert _rel(g, p.double()) <= 2e-3, (name, _rel(g, p.double()))
+            assert _rel(g, x) <= 1.5 * _rel(p, x), (name, _rel(g, x), _rel(p, x))
+
+
 @pytest.mark.parametrize("h", [32, 128, 512])
 @pytest.mark.parametrize("num_hidden, n", [(1, 77), (6, 45)])
 def test_cnf_dynamics_vjp_against_float64_on_the_card(cuda, h, num_hidden, n):
