@@ -67,6 +67,32 @@
 // A block's partial dW is 1 MB per 512-wide hidden layer, so the weight
 // gradients are not fused into the sweep.  The workspace's size comes from
 // caspr_cnf_dynamics_vjp_workspace.
+//
+// The bfloat16 variant (caspr_cnf_dynamics_vjp_bf16; _fused_bwd_call with
+// matmul_dtype="bf16", reached under CASPR_TPU_CNF_BWD=pallas): kBf16 rounds
+// both operands of every product to bfloat16 (nearest, ties to even) and
+// accumulates in float32, as that kernel's `mm` does -- the forward
+// recompute (y, e and w_first; the hidden layers in one tensor-core pass,
+// cnf_tc.cuh's layer_product_bf16, on weights rounded once a call; the last
+// layer's activations and w_last), the reverse products [cp; ct] = dm W_l
+// (dm rounded on its way from the tile into the product, the last layer's
+// and the first's on the CUDA cores too) and every dW = dm^T z -- while the
+// epilogues (dppre, dtpre, the sigmoid, the dgb sums) stay float32, in the
+// same places and orders as the float32 variant's.  The reverse product's B
+// operand is W_l^T pre-tiled K-major, as in the float32 variant (round_weights
+// on w_hidden_t), and not W_l read through the transposed-B mode that a bf16
+// wgmma has and a TF32 one lacks: so the ring, its stage layout, its
+// descriptor and layer_product_bf16 are the forward kernels' unchanged, at
+// the cost of rounding 0.5 MB more weights a call.  The hidden layers'
+// weight gradients are one m64n128k16 bf16 pass per 16 rows (the two
+// K-slices of a staged block in a fresh accumulator, added in float32)
+// instead of the hi/lo TF32 split; the first and last layers' on the CUDA
+// cores with both operands rounded.  Its bound: the three matrix passes once
+// at the bfloat16 rate, 0.16 ms at the size above; the design's own
+// workspace traffic (about 1 GB written, most of it read back once: some
+// 0.6 ms at 3.35 TB/s) weighs more.  z and dm are only ever read rounded, so
+// the workspace could hold them as bfloat16 at half the bytes; it holds
+// them as float32, laid out as the float32 variant's (carve is shared).
 
 #include <math.h>
 
@@ -160,7 +186,20 @@ inline long long carve(float* base, int bt, int tiles, int h, int d, int num_hid
 
 // ------------------------------------------------------------ tile kernel
 
-template <int NCH>
+// One hidden-layer product of the ring (cnf_tc.cuh): 3xTF32 on the split
+// weights, or one bfloat16 pass on the rounded ones.
+template <int NCH, bool kBf16, bool kOverlap>
+__device__ __forceinline__ void ring_product(float (&acc)[NCH][32], const Smem& sm,
+                                             const void* __restrict__ w_prep, int hpad,
+                                             int layer, int products, int n0) {
+  if constexpr (kBf16)
+    layer_product_bf16<NCH>(acc, sm, w_prep, hpad, layer, products, n0);
+  else
+    layer_product<NCH, kOverlap>(acc, sm, static_cast<const float*>(w_prep), hpad, layer,
+                                 products, n0);
+}
+
+template <int NCH, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 vjp_tile_kernel(const float* __restrict__ y, const float* __restrict__ e,
                 const float* __restrict__ gb, const float* __restrict__ w_first,
@@ -172,13 +211,14 @@ vjp_tile_kernel(const float* __restrict__ y, const float* __restrict__ e,
   // products' second part buffer (ptxas spilled with it).
   constexpr bool kOverlapParts = NCH < 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[2 * kStages];
+  __shared__ __align__(8) uint64_t bars[2 * ring_stages<kBf16>()];
   // the tile's 64 rows of D: first [y; e], later the last layer's dm
   __shared__ float rowbuf[kRows * kMaxDim];
   __shared__ float last_part[kThreads / 32][2][kMaxDim];
-  const float* __restrict__ w_split = ws.w_split;
-  const Smem sm = make_smem(smem, bars, kHpad);
-  start_ring(sm, w_split, kHpad, 2 * num_hidden);
+  // the ring's weights as the mode's prep made them: TF32 parts or bfloat16
+  const void* __restrict__ w_prep = ws.w_split;
+  const Smem sm = make_smem<kBf16>(smem, bars, kHpad);
+  start_ring<kBf16>(sm, w_prep, kHpad, 2 * num_hidden);
 
   const int tid = threadIdx.x;
   const int bt = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x;
@@ -211,7 +251,7 @@ vjp_tile_kernel(const float* __restrict__ y, const float* __restrict__ e,
     }
     float w[kMaxDim];
 #pragma unroll
-    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? w_first[c * d + k] : 0.f;
+    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? operand<kBf16>(w_first[c * d + k]) : 0.f;
     const float gate = g[c], beff = g[num_layers * h + c];
 #pragma unroll 4
     for (int p = 0; p < kPoints; ++p) {
@@ -220,8 +260,8 @@ vjp_tile_kernel(const float* __restrict__ y, const float* __restrict__ e,
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
         if (k < d) {
-          accp = fmaf(w[k], rowbuf[rp * kMaxDim + k], accp);
-          acct = fmaf(w[k], rowbuf[rt * kMaxDim + k], acct);
+          accp = fmaf(w[k], operand<kBf16>(rowbuf[rp * kMaxDim + k]), accp);
+          acct = fmaf(w[k], operand<kBf16>(rowbuf[rt * kMaxDim + k]), acct);
         }
       const float pre = accp * gate + beff;
       const float ex = expf(-fabsf(pre));
@@ -243,7 +283,7 @@ vjp_tile_kernel(const float* __restrict__ y, const float* __restrict__ e,
   const int n_wg = wg * kChunkN * NCH;
   float acc[NCH][32];
   for (int l = 0; l < num_hidden; ++l) {  // hidden layers: H -> H on the tensor cores
-    layer_product<NCH, kOverlapParts>(acc, sm, w_split, kHpad, l, products, n_wg);
+    ring_product<NCH, kBf16, kOverlapParts>(acc, sm, w_prep, kHpad, l, products, n_wg);
     const int layer = 1 + l;
     const float* gate = g + layer * h;
     const float* beff = g + (num_layers + layer) * h;
@@ -309,10 +349,10 @@ vjp_tile_kernel(const float* __restrict__ y, const float* __restrict__ e,
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k) s[k] = 0.f;
       for (int c = lane; c < h; c += 32) {
-        const float a = tile_s[tile_at(r, c, kHpad)];
+        const float a = operand<kBf16>(tile_s[tile_at(r, c, kHpad)]);
 #pragma unroll
         for (int k = 0; k < kMaxDim; ++k)
-          if (k < d) s[k] = fmaf(__ldg(w_last + k * h + c), a, s[k]);
+          if (k < d) s[k] = fmaf(operand<kBf16>(__ldg(w_last + k * h + c)), a, s[k]);
       }
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
@@ -370,9 +410,9 @@ vjp_tile_kernel(const float* __restrict__ y, const float* __restrict__ e,
 #pragma unroll
           for (int k = 0; k < kMaxDim; ++k)
             if (k < d) {
-              const float wk = __ldg(w_last + k * h + ch);
-              vp = fmaf(rowbuf[r0 * kMaxDim + k], wk, vp);
-              vt = fmaf(rowbuf[r1 * kMaxDim + k], wk, vt);
+              const float wk = operand<kBf16>(__ldg(w_last + k * h + ch));
+              vp = fmaf(operand<kBf16>(rowbuf[r0 * kMaxDim + k]), wk, vp);
+              vt = fmaf(operand<kBf16>(rowbuf[r1 * kMaxDim + k]), wk, vt);
             }
         acc[c][4 * j + q] = vp;
         acc[c][4 * j + 2 + q] = vt;
@@ -440,7 +480,8 @@ vjp_tile_kernel(const float* __restrict__ y, const float* __restrict__ e,
     consumer_sync();  // dm of layer li is in the tile
     if (li == 0) break;
     // [cp; ct] of layer li's input = dm W_li: ring product num_hidden + (L-2-li)
-    layer_product<NCH, kOverlapParts>(acc, sm, w_split, kHpad, products - li, products, n_wg);
+    ring_product<NCH, kBf16, kOverlapParts>(acc, sm, w_prep, kHpad, products - li, products,
+                                            n_wg);
   }
 
   // dy = dm_0 W_first on the primal rows; warp wid takes points 4 wid .. 4 wid + 3
@@ -451,10 +492,10 @@ vjp_tile_kernel(const float* __restrict__ y, const float* __restrict__ e,
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k) s[k] = 0.f;
     for (int c = lane; c < h; c += 32) {
-      const float a = tile_s[tile_at(r, c, kHpad)];
+      const float a = operand<kBf16>(tile_s[tile_at(r, c, kHpad)]);
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
-        if (k < d) s[k] = fmaf(__ldg(w_first + c * d + k), a, s[k]);
+        if (k < d) s[k] = fmaf(operand<kBf16>(__ldg(w_first + c * d + k)), a, s[k]);
     }
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k)
@@ -495,6 +536,32 @@ __device__ __forceinline__ void mma_m64n128k8(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// d (64 x 128, this thread's 64 floats) (+)= a (64 x 16 bf16 from registers)
+// x b (16 x 128 bf16 from shared memory, K-major); float32 accumulation
+__device__ __forceinline__ void mma_m64n128k16_bf16(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
 // The hidden layers' dW_l = sum_r dm_l[r]^T z_l[r] (H x H each), written to
 // slot out_off of each chunk's partials.
 struct TcJobs {
@@ -504,8 +571,9 @@ struct TcJobs {
 };
 
 // Shared memory of wgrad_tc_kernel: the B operand of one block of rows
-// (kWgSlices K-slices, hi and lo, 128 columns x 8 rows each in core matrices)
-// and kWgStages raw blocks of dm and z rows, filled by cp.async.
+// (kWgSlices K-slices, hi and lo, 128 columns x 8 rows each in core matrices;
+// in the bfloat16 mode two K-slices of 16 rows, 8 KB of the same space) and
+// kWgStages raw blocks of dm and z rows, filled by cp.async.
 inline size_t wgrad_smem_bytes() {
   return sizeof(float) * (static_cast<size_t>(kWgSlices) * 2 * kWgTile * kSliceK +
                           static_cast<size_t>(kWgStages) * 2 * kWgRows * kDmPitch);
@@ -523,7 +591,12 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
 // Blocks of 32 rows of dm and z stream in by cp.async, kWgStages - 1 ahead;
 // each block's z is transposed and split into the B buffer by the threads,
 // and the 4 K-slices' products alternate between two part buffers, so one
-// slice's float32 adds overlap the next slice's products.
+// slice's float32 adds overlap the next slice's products.  kBf16: z^T is
+// rounded into two K-slices of 16 rows (the core-matrix layout of
+// round_weights_kernel), dm's A fragments are rounded from the staged block,
+// and the block's two m64n128k16 products go into one fresh accumulator,
+// added to acc in float32 once they have completed.
+template <bool kBf16>
 __global__ void __launch_bounds__(kWgThreads, 1)
 wgrad_tc_kernel(TcJobs jobs, float* __restrict__ dw_part, long long part_stride, int h,
                 int rows, int chunk) {
@@ -572,55 +645,95 @@ wgrad_tc_kernel(TcJobs jobs, float* __restrict__ dw_part, long long part_stride,
     __syncthreads();  // block b is in; block b - 1's buffers are read
     load(b + kWgStages - 1);
     const float* st = raw + (b % kWgStages) * kStageFloats;
-    // z^T into the B buffer: a warp writes one core matrix a step (lane ->
-    // row 4 kq + lane % 4, column 8 ng + lane / 4: 32 banks either way)
+    if constexpr (kBf16) {
+      // z^T rounded into the B buffer, 4 KB a K-slice of 16 rows: a warp
+      // writes the 32 words of one (slice, 8 columns, 8 rows) core matrix a
+      // step, lane -> column 8 ng + lane / 4, rows 2 (lane % 4) and + 1 packed
+      uint32_t* zw = reinterpret_cast<uint32_t*>(zs);
 #pragma unroll
-    for (int it = 0; it < 16; ++it) {
-      const int cm = warp * 16 + it;
-      const int kq = cm >> 4, ng = cm & 15;
-      const float v = st[(kWgRows + 4 * kq + (lane & 3)) * kDmPitch + 8 * ng + (lane >> 2)];
-      const uint32_t hi = to_tf32(v);
-      const uint32_t lo = to_tf32(v - __uint_as_float(hi));
-      float* dst = zs + (kq >> 1) * 2 * kWgTile * kSliceK + ng * 64 + (kq & 1) * 32 + lane;
-      dst[0] = __uint_as_float(hi);
-      dst[kWgTile * kSliceK] = __uint_as_float(lo);
-    }
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the tensor cores read B
-    __syncthreads();
-#pragma unroll
-    for (int sl = 0; sl < kWgSlices; ++sl) {
-      // A = dm^T: rows o (16 w + g, + 8), columns the slice's rows t, t + 4
-      const float* a0 = st + (kSliceK * sl + t) * kDmPitch + 64 * wg + 16 * w + g;
-      const float* a1 = a0 + 4 * kDmPitch;
-      const float a[4] = {a0[0], a0[8], a1[0], a1[8]};
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        hi[i] = to_tf32(a[i]);
-        lo[i] = to_tf32(a[i] - __uint_as_float(hi[i]));
+      for (int it = 0; it < 8; ++it) {
+        const int cm = warp * 8 + it;
+        const int sl = cm >> 5, ng = (cm >> 1) & 15, kh = cm & 1;
+        const int r = 16 * sl + 8 * kh + 2 * (lane & 3);
+        const int c = 8 * ng + (lane >> 2);
+        zw[sl * 1024 + ng * 64 + kh * 32 + lane] =
+            pack_bf16x2(st[(kWgRows + r) * kDmPitch + c], st[(kWgRows + r + 1) * kDmPitch + c]);
       }
-      const float* bsl = zs + sl * 2 * kWgTile * kSliceK;
-      const uint64_t b_hi = b_desc(smem_addr(bsl));
-      const uint64_t b_lo = b_desc(smem_addr(bsl + kWgTile * kSliceK));
-      wgmma_fence();
-      mma_m64n128k8(part[sl & 1], lo, b_hi, 0);
-      mma_m64n128k8(part[sl & 1], hi, b_lo, 1);
-      mma_m64n128k8(part[sl & 1], hi, b_hi, 1);
-      wgmma_commit();
-      if (sl > 0) {
-        wgmma_wait<1>();
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the tensor cores read B
+      __syncthreads();
+      // A = dm^T rounded: rows o (16 w + g, + 8), columns (rows of the
+      // block) 2t, 2t + 1 and + 8 of each slice, two adjacent ones a register
+      uint32_t a[2][4];
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          fence_operand(part[(sl - 1) & 1][i]);
-          acc[i] += part[(sl - 1) & 1][i];
+      for (int sl = 0; sl < 2; ++sl) {
+        const float* a0 = st + (16 * sl + 2 * t) * kDmPitch + 64 * wg + 16 * w + g;
+        a[sl][0] = pack_bf16x2(a0[0], a0[kDmPitch]);
+        a[sl][1] = pack_bf16x2(a0[8], a0[kDmPitch + 8]);
+        a[sl][2] = pack_bf16x2(a0[8 * kDmPitch], a0[9 * kDmPitch]);
+        a[sl][3] = pack_bf16x2(a0[8 * kDmPitch + 8], a0[9 * kDmPitch + 8]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl)
+        mma_m64n128k16_bf16(part[0], a[sl], b_desc(smem_addr(zs + sl * 1024)), sl);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        fence_operand(part[0][i]);
+        acc[i] += part[0][i];
+      }
+    } else {
+      // z^T into the B buffer: a warp writes one core matrix a step (lane ->
+      // row 4 kq + lane % 4, column 8 ng + lane / 4: 32 banks either way)
+#pragma unroll
+      for (int it = 0; it < 16; ++it) {
+        const int cm = warp * 16 + it;
+        const int kq = cm >> 4, ng = cm & 15;
+        const float v = st[(kWgRows + 4 * kq + (lane & 3)) * kDmPitch + 8 * ng + (lane >> 2)];
+        const uint32_t hi = to_tf32(v);
+        const uint32_t lo = to_tf32(v - __uint_as_float(hi));
+        float* dst = zs + (kq >> 1) * 2 * kWgTile * kSliceK + ng * 64 + (kq & 1) * 32 + lane;
+        dst[0] = __uint_as_float(hi);
+        dst[kWgTile * kSliceK] = __uint_as_float(lo);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the tensor cores read B
+      __syncthreads();
+#pragma unroll
+      for (int sl = 0; sl < kWgSlices; ++sl) {
+        // A = dm^T: rows o (16 w + g, + 8), columns the slice's rows t, t + 4
+        const float* a0 = st + (kSliceK * sl + t) * kDmPitch + 64 * wg + 16 * w + g;
+        const float* a1 = a0 + 4 * kDmPitch;
+        const float a[4] = {a0[0], a0[8], a1[0], a1[8]};
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          hi[i] = to_tf32(a[i]);
+          lo[i] = to_tf32(a[i] - __uint_as_float(hi[i]));
+        }
+        const float* bsl = zs + sl * 2 * kWgTile * kSliceK;
+        const uint64_t b_hi = b_desc(smem_addr(bsl));
+        const uint64_t b_lo = b_desc(smem_addr(bsl + kWgTile * kSliceK));
+        wgmma_fence();
+        mma_m64n128k8(part[sl & 1], lo, b_hi, 0);
+        mma_m64n128k8(part[sl & 1], hi, b_lo, 1);
+        mma_m64n128k8(part[sl & 1], hi, b_hi, 1);
+        wgmma_commit();
+        if (sl > 0) {
+          wgmma_wait<1>();
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            fence_operand(part[(sl - 1) & 1][i]);
+            acc[i] += part[(sl - 1) & 1][i];
+          }
         }
       }
-    }
-    wgmma_wait<0>();
+      wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      fence_operand(part[(kWgSlices - 1) & 1][i]);
-      acc[i] += part[(kWgSlices - 1) & 1][i];
+      for (int i = 0; i < 64; ++i) {
+        fence_operand(part[(kWgSlices - 1) & 1][i]);
+        acc[i] += part[(kWgSlices - 1) & 1][i];
+      }
     }
   }
   asm volatile("cp.async.wait_group 0;" ::: "memory");
@@ -647,7 +760,7 @@ wgrad_tc_kernel(TcJobs jobs, float* __restrict__ dw_part, long long part_stride,
 // z_{L-1}[r][o].  A block takes 32 channels o (a warp's lanes) and its
 // chunk of rows in kThinLanes interleaved row lanes (the warps), whose sums
 // are added in lane order; the wide operand's rows are read coalesced, the
-// narrow one's broadcast.
+// narrow one's broadcast.  kBf16 rounds both operands.
 constexpr int kThinLanes = 8;
 
 struct ThinJobs {
@@ -656,6 +769,7 @@ struct ThinJobs {
   long long out_off[2];
 };
 
+template <bool kBf16>
 __global__ void __launch_bounds__(32 * kThinLanes)
 thin_grad_kernel(ThinJobs jobs, float* __restrict__ dw_part, long long part_stride, int h, int d,
                  int rows, int chunk) {
@@ -675,10 +789,11 @@ thin_grad_kernel(ThinJobs jobs, float* __restrict__ dw_part, long long part_stri
   if (o < h) {
 #pragma unroll 4
     for (int r = r_begin + lane_r; r < r_end; r += kThinLanes) {
-      const float v = wide[static_cast<size_t>(r) * h + o];
+      const float v = operand<kBf16>(wide[static_cast<size_t>(r) * h + o]);
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
-        if (k < d) acc[k] = fmaf(v, __ldg(narrow + static_cast<size_t>(r) * d + k), acc[k]);
+        if (k < d)
+          acc[k] = fmaf(v, operand<kBf16>(__ldg(narrow + static_cast<size_t>(r) * d + k)), acc[k]);
     }
   }
 #pragma unroll
@@ -726,40 +841,52 @@ __global__ void finalize_kernel(const float* __restrict__ dgb_part,
   }
 }
 
-template <int NCH>
+template <int NCH, bool kBf16>
 cudaError_t launch_tile(const float* y, const float* e, const float* gb, const float* w_first,
                         const float* w_last, const float* ct_dx, const float* ct_div, float* dy,
                         const Workspace& ws, int bt, int tiles, int n, int h, int d,
                         int num_hidden, int gb_rows, cudaStream_t stream) {
-  const size_t smem = smem_bytes(2 * kChunkN * NCH);
-  cudaError_t err = cudaFuncSetAttribute(vjp_tile_kernel<NCH>,
+  const size_t smem = smem_bytes<kBf16>(2 * kChunkN * NCH);
+  cudaError_t err = cudaFuncSetAttribute(vjp_tile_kernel<NCH, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  vjp_tile_kernel<NCH><<<dim3(tiles, bt), kThreads, smem, stream>>>(
+  vjp_tile_kernel<NCH, kBf16><<<dim3(tiles, bt), kThreads, smem, stream>>>(
       y, e, gb, w_first, w_last, ct_dx, ct_div, dy, ws, n, h, d, num_hidden, gb_rows);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Floats of workspace a call at these sizes needs.
-extern "C" long long caspr_cnf_dynamics_vjp_workspace(int bt, int n, int h, int d,
-                                                      int num_hidden) {
-  Workspace ws;
-  return carve(nullptr, bt, (n + kPoints - 1) / kPoints, h, d, num_hidden, &ws);
+// The ring's sequence: W_1 .. W_{L-2} for the forward, then W_{L-2}^T ..
+// W_1^T for the reverse, each split into its TF32 parts, or rounded to
+// bfloat16 (kBf16), in the workspace's w_split slot.
+template <bool kBf16>
+cudaError_t prepare_ring(const float* w_hidden, const float* w_hidden_t, float* w_split, int h,
+                         int num_hidden, cudaStream_t s) {
+  const int hpad = padded_width(h);
+  if constexpr (kBf16) {
+    __nv_bfloat16* w_bf16 = reinterpret_cast<__nv_bfloat16*>(w_split);
+    const size_t layer_values = static_cast<size_t>(hpad) * hpad;
+    cudaError_t err = round_weights(w_hidden, w_bf16, h, num_hidden, s);
+    for (int l = 0; l < num_hidden && err == cudaSuccess; ++l)
+      err = round_weights(w_hidden_t + static_cast<size_t>(l) * h * h,
+                          w_bf16 + (2 * num_hidden - 1 - l) * layer_values, h, 1, s);
+    return err;
+  } else {
+    const size_t layer_floats = 2 * static_cast<size_t>(hpad) * hpad;
+    cudaError_t err = split_weights(w_hidden, w_split, h, num_hidden, s);
+    for (int l = 0; l < num_hidden && err == cudaSuccess; ++l)
+      err = split_weights(w_hidden_t + static_cast<size_t>(l) * h * h,
+                          w_split + (2 * num_hidden - 1 - l) * layer_floats, h, 1, s);
+    return err;
+  }
 }
 
-// h must be a multiple of 32 in [32, kMaxHidden], d <= kMaxDim and
-// 1 <= num_hidden <= kMaxLayers - 2; the wrapper checks all three.  dw is
-// [w_first | w_hidden | w_last] as one contiguous buffer; w_hidden_t is
-// w_hidden with each layer transposed, (L-2, in, out).
-extern "C" int caspr_cnf_dynamics_vjp(const float* y, const float* e, const float* gb,
-                                      const float* w_first, const float* w_hidden_t,
-                                      const float* w_hidden, const float* w_last,
-                                      const float* ct_dx, const float* ct_div, float* dy,
-                                      float* dgb, float* dw, float* workspace, int bt, int n,
-                                      int h, int d, int num_hidden, int gb_rows, void* stream) {
+template <bool kBf16>
+int dynamics_vjp(const float* y, const float* e, const float* gb, const float* w_first,
+                 const float* w_hidden_t, const float* w_hidden, const float* w_last,
+                 const float* ct_dx, const float* ct_div, float* dy, float* dgb, float* dw,
+                 float* workspace, int bt, int n, int h, int d, int num_hidden, int gb_rows,
+                 void* stream) {
   const int num_layers = num_hidden + 2;
   if (h % 32 != 0 || h < 32 || h > kMaxHidden || d < 1 || d > kMaxDim || num_hidden < 1 ||
       num_layers > kMaxLayers || gb_rows < 2 * num_layers)
@@ -775,29 +902,21 @@ extern "C" int caspr_cnf_dynamics_vjp(const float* y, const float* e, const floa
   const int tiles = (n + kPoints - 1) / kPoints;
   Workspace ws;
   carve(workspace, bt, tiles, h, d, num_hidden, &ws);
-
-  // the ring's sequence: W_1 .. W_{L-2} for the forward, then W_{L-2}^T ..
-  // W_1^T for the reverse, each split into its TF32 parts
-  const int hpad = padded_width(h);
-  const size_t layer_floats = 2 * static_cast<size_t>(hpad) * hpad;
-  cudaError_t err = split_weights(w_hidden, ws.w_split, h, num_hidden, s);
-  for (int l = 0; l < num_hidden && err == cudaSuccess; ++l)
-    err = split_weights(w_hidden_t + static_cast<size_t>(l) * h * h,
-                        ws.w_split + (2 * num_hidden - 1 - l) * layer_floats, h, 1, s);
+  cudaError_t err = prepare_ring<kBf16>(w_hidden, w_hidden_t, ws.w_split, h, num_hidden, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-#define CASPR_VJP_CASE(k)                                                                      \
-  case k:                                                                                      \
-    err = launch_tile<k>(y, e, gb, w_first, w_last, ct_dx, ct_div, dy, ws, bt, tiles, n, h, d, \
-                         num_hidden, gb_rows, s);                                              \
+#define CASPR_VJP_CASE(k)                                                                  \
+  case k:                                                                                  \
+    err = launch_tile<k, kBf16>(y, e, gb, w_first, w_last, ct_dx, ct_div, dy, ws, bt, tiles, \
+                                n, h, d, num_hidden, gb_rows, s);                          \
     break;
-  switch (hpad / 128) {
+  switch (padded_width(h) / 128) {
     CASPR_VJP_CASE(1)
     CASPR_VJP_CASE(2)
     CASPR_VJP_CASE(3)
     default:
-      err = launch_tile<4>(y, e, gb, w_first, w_last, ct_dx, ct_div, dy, ws, bt, tiles, n, h, d,
-                           num_hidden, gb_rows, s);
+      err = launch_tile<4, kBf16>(y, e, gb, w_first, w_last, ct_dx, ct_div, dy, ws, bt, tiles,
+                                  n, h, d, num_hidden, gb_rows, s);
   }
 #undef CASPR_VJP_CASE
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -819,11 +938,11 @@ extern "C" int caspr_cnf_dynamics_vjp(const float* y, const float* e, const floa
     tc.out_off[l - 1] = out_off(l);
   }
   const int per_side = (h + kWgTile - 1) / kWgTile;
-  err = cudaFuncSetAttribute(wgrad_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(wgrad_tc_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(wgrad_smem_bytes()));
   if (err != cudaSuccess) return static_cast<int>(err);
-  wgrad_tc_kernel<<<dim3(num_hidden * per_side * per_side, splits), kWgThreads,
-                    wgrad_smem_bytes(), s>>>(tc, ws.dw_part, dw_total, h, rows, chunk);
+  wgrad_tc_kernel<kBf16><<<dim3(num_hidden * per_side * per_side, splits), kWgThreads,
+                           wgrad_smem_bytes(), s>>>(tc, ws.dw_part, dw_total, h, rows, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -834,7 +953,7 @@ extern "C" int caspr_cnf_dynamics_vjp(const float* y, const float* e, const floa
   thin.wide[1] = ws.zin + (num_layers - 2) * layer;  // z_{L-1} (R x H) against dm_last
   thin.narrow[1] = ws.dm_last;
   thin.out_off[1] = out_off(num_layers - 1);
-  thin_grad_kernel<<<dim3((h + 31) / 32, splits, 2), 32 * kThinLanes, 0, s>>>(
+  thin_grad_kernel<kBf16><<<dim3((h + 31) / 32, splits, 2), 32 * kThinLanes, 0, s>>>(
       thin, ws.dw_part, dw_total, h, d, rows, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -843,4 +962,39 @@ extern "C" int caspr_cnf_dynamics_vjp(const float* y, const float* e, const floa
       ws.dgb_part, ws.dw_part, dgb, dw, tiles, h, num_layers, gb_rows, splits, dgb_total,
       dw_total);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Floats of workspace a call at these sizes needs.
+extern "C" long long caspr_cnf_dynamics_vjp_workspace(int bt, int n, int h, int d,
+                                                      int num_hidden) {
+  Workspace ws;
+  return carve(nullptr, bt, (n + kPoints - 1) / kPoints, h, d, num_hidden, &ws);
+}
+
+// h must be a multiple of 32 in [32, kMaxHidden], d <= kMaxDim and
+// 1 <= num_hidden <= kMaxLayers - 2; the wrapper checks all three.  dw is
+// [w_first | w_hidden | w_last] as one contiguous buffer; w_hidden_t is
+// w_hidden with each layer transposed, (L-2, in, out).
+extern "C" int caspr_cnf_dynamics_vjp(const float* y, const float* e, const float* gb,
+                                      const float* w_first, const float* w_hidden_t,
+                                      const float* w_hidden, const float* w_last,
+                                      const float* ct_dx, const float* ct_div, float* dy,
+                                      float* dgb, float* dw, float* workspace, int bt, int n,
+                                      int h, int d, int num_hidden, int gb_rows, void* stream) {
+  return dynamics_vjp<false>(y, e, gb, w_first, w_hidden_t, w_hidden, w_last, ct_dx, ct_div, dy,
+                             dgb, dw, workspace, bt, n, h, d, num_hidden, gb_rows, stream);
+}
+
+// The bfloat16 variant: the same arguments and workspace.
+extern "C" int caspr_cnf_dynamics_vjp_bf16(const float* y, const float* e, const float* gb,
+                                           const float* w_first, const float* w_hidden_t,
+                                           const float* w_hidden, const float* w_last,
+                                           const float* ct_dx, const float* ct_div, float* dy,
+                                           float* dgb, float* dw, float* workspace, int bt,
+                                           int n, int h, int d, int num_hidden, int gb_rows,
+                                           void* stream) {
+  return dynamics_vjp<true>(y, e, gb, w_first, w_hidden_t, w_hidden, w_last, ct_dx, ct_div, dy,
+                            dgb, dw, workspace, bt, n, h, d, num_hidden, gb_rows, stream);
 }

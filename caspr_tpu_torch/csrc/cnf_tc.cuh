@@ -1,5 +1,5 @@
-// The tensor-core layer tile shared by the CNF forward kernels
-// (cnf_primal.cu, cnf_dynamics.cu).
+// The tensor-core layer tile shared by the CNF kernels (cnf_primal.cu,
+// cnf_dynamics.cu and the VJP's cnf_dynamics_vjp.cu).
 //
 // A block owns a tile of kRows = 64 activation rows and keeps it in shared
 // memory as float32, one row of H_pad floats per row (128 KB at H = 512).
@@ -45,7 +45,10 @@
 // read it).  The A fragment is made from the float32 tile with
 // cvt.rn.bf16x2.f32.  The products of bfloat16 values are exact in float32,
 // and their rounding (2^-9 relative a factor) outweighs the accumulator's
-// truncation by far, so one accumulator runs over all of K.
+// truncation by far, so one accumulator runs over all of K.  The VJP's
+// bfloat16 variant (cnf_dynamics_vjp.cu) runs its forward recompute and its
+// reverse products [cp; ct] = dm W through layer_product_bf16 too, on a ring
+// of the rounded W_l followed by the rounded W_l^T.
 
 #pragma once
 

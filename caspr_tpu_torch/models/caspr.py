@@ -62,9 +62,12 @@ class CaSPRConfig:
     # others through a CNFConfig
     cnf_layer_type: str = "concatsquash"
     cnf_nonlinearity: str = "softplus"
-    # the fused CNF kernels' products, "f32" or "bf16" (CNFConfig.matmul_dtype;
+    # the CNF ODEnet's products, "f32" or "bf16" (CNFConfig.matmul_dtype;
     # the JAX package's CASPR_TPU_CNF_MATMUL)
     cnf_matmul_dtype: str = "f32"
+    # its VJP's products, "f32" or "bf16" (with cnf_matmul_dtype "bf16";
+    # CNFConfig.bwd_matmul_dtype, the JAX package's CASPR_TPU_CNF_BWD=pallas)
+    cnf_bwd_matmul_dtype: str = "f32"
 
     def encoder_config(self) -> TPointNet2Config:
         return TPointNet2Config(
@@ -88,7 +91,8 @@ class CaSPRConfig:
     def cnf_config(self) -> CNFConfig:
         return CNFConfig(zdim=self.latent_feat_size, num_blocks=self.cnf_blocks,
                          dims=tuple(self.cnf_dims), layer_type=self.cnf_layer_type,
-                         nonlinearity=self.cnf_nonlinearity, matmul_dtype=self.cnf_matmul_dtype)
+                         nonlinearity=self.cnf_nonlinearity, matmul_dtype=self.cnf_matmul_dtype,
+                         bwd_matmul_dtype=self.cnf_bwd_matmul_dtype)
 
 
 def caspr_param_shapes(cfg: CaSPRConfig):

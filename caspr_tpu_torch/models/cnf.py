@@ -34,15 +34,24 @@ CPU tensors); any other config runs the unfused composition
 autograd as its VJP in training, as the JAX package runs ``odenet_apply``
 where ``can_fuse`` is false.
 
-``CNFConfig.matmul_dtype`` is the fused kernels' arithmetic: "f32" (the
+``CNFConfig.matmul_dtype`` is the ODEnet's arithmetic: "f32" (the
 default, the JAX package's choice on any backend but a TPU) or "bf16", every
 layer product's operands rounded to bfloat16 with float32 accumulation, the
 JAX package's CASPR_TPU_CNF_MATMUL=bf16 (its default on a TPU at the default
 --matmul-precision), which the port takes as this field and not from the
-environment.  It reaches ``cnf_primal`` and ``cnf_dynamics``; their VJP stays
-float32, as the JAX package's default backward differentiates the float32
-composition.  Where ``kernel_takes`` is false it is never read: the
-composition is float32, as the JAX package's ``odenet_apply`` is.
+environment.  It applies where the JAX package runs its kernels,
+``ops.cnf_fused.bf16_takes`` (its ``can_fuse``: widths a multiple of 128, two
+or three of them), and is read nowhere else (``matmul_mode``): there the
+ODEnet runs in float32, the fused kernels included.  Where both rules hold,
+bf16 reaches ``cnf_primal`` and ``cnf_dynamics``; where only ``bf16_takes``
+holds (widths of 640 and up) the composition runs with the kernels'
+roundings (``rounded_primal``, ``rounded_dynamics``).  The VJP is float32,
+as the JAX package's default backward differentiates the float32
+composition; ``CNFConfig.bwd_matmul_dtype="bf16"`` (only with
+``matmul_dtype="bf16"``) runs it with its products in bf16, the JAX
+package's CASPR_TPU_CNF_BWD=pallas in that mode: the ``cnf_dynamics_vjp``
+kernel's bf16 variant, or ``dynamics_vjp_packed(..., "bf16")`` past the
+kernels' widths.
 
 Training (``training=True`` of the likelihood direction) solves each block
 through ``odeint_adjoint`` with the ODEnet's parameters (swish_beta among
@@ -75,8 +84,9 @@ import numpy as np
 import torch
 
 from ..ops import cnf_dynamics, cnf_primal, odeint
-from ..ops.cnf_fused import (check_matmul_dtype, context_gb, kernel_takes, pack_weights,
-                              reference_dynamics, reference_primal)
+from ..ops.cnf_fused import (bf16_takes, check_matmul_dtype, context_gb, kernel_takes,
+                              pack_weights, reference_dynamics, reference_primal,
+                              rounded_dynamics, rounded_primal)
 from ..ops.odeint import DISCRETE_STEPS, REPLICATED, ROWS, flatten_tree, nfe_add, odeint_train
 from ..parallel.mesh import all_gather_cat, global_draw, sum_grad
 
@@ -96,10 +106,15 @@ class CNFConfig:
     batch_norm: bool = True
     bn_eps: float = 1e-4
     bn_decay: float = 0.1
-    matmul_dtype: str = "f32"  # "f32" | "bf16": the fused kernels' products
+    matmul_dtype: str = "f32"  # "f32" | "bf16": the ODEnet's products (bf16_takes)
+    bwd_matmul_dtype: str = "f32"  # "f32" | "bf16" (with matmul_dtype "bf16"): its VJP's
 
     def __post_init__(self):
         check_matmul_dtype(self.matmul_dtype)
+        check_matmul_dtype(self.bwd_matmul_dtype)
+        if self.bwd_matmul_dtype == "bf16" and self.matmul_dtype != "bf16":
+            raise ValueError("bwd_matmul_dtype='bf16' needs matmul_dtype='bf16': the VJP's "
+                             "bf16 products are those of the bf16 forward")
 
     def chain(self) -> Tuple[str, ...]:
         blocks = ("cnf",) * self.num_blocks
@@ -157,24 +172,43 @@ def fused_concatsquash_primal(params, tc, y, matmul_dtype: str = "f32"):
     return cnf_primal(y, context_gb(params, tc), *pack_weights(params), matmul_dtype)
 
 
-def fused_concatsquash_dynamics(params, tc, y, e, matmul_dtype: str = "f32"):
-    """(f(y), e^T J_f(y) e) through the fused with-divergence kernel."""
-    return cnf_dynamics(y, e, context_gb(params, tc), *pack_weights(params), matmul_dtype)
+def fused_concatsquash_dynamics(params, tc, y, e, matmul_dtype: str = "f32",
+                                bwd_matmul_dtype: str = "f32"):
+    """(f(y), e^T J_f(y) e) through the fused with-divergence kernel, its VJP
+    kernel's products in ``bwd_matmul_dtype``."""
+    return cnf_dynamics(y, e, context_gb(params, tc), *pack_weights(params), matmul_dtype,
+                        bwd_matmul_dtype)
+
+
+def matmul_mode(cfg: CNFConfig) -> Tuple[str, str]:
+    """(forward, backward) products of the ODEnet: the config's where
+    ``bf16_takes`` holds, else float32 (the JAX package's rule:
+    caspr_tpu/models/cnf.py::_dynamics_kernel_mode runs its kernels, and so
+    their bf16 mode, only where ``can_fuse`` holds)."""
+    if bf16_takes(cfg):
+        return cfg.matmul_dtype, cfg.bwd_matmul_dtype
+    return "f32", "f32"
 
 
 def odenet_primal(params, cfg: CNFConfig, tc, y):
-    """f(y): the fused kernel in ``cfg.matmul_dtype`` where the config fits
-    it, else the float32 composition."""
+    """f(y): the fused kernel where the config fits it, else the
+    composition, in ``matmul_mode``'s arithmetic."""
+    mode = matmul_mode(cfg)[0]
     if kernel_takes(cfg):
-        return fused_concatsquash_primal(params, tc, y, cfg.matmul_dtype)
+        return fused_concatsquash_primal(params, tc, y, mode)
+    if mode == "bf16":
+        return rounded_primal(y, context_gb(params, tc), *pack_weights(params))
     return reference_primal(params, tc, y, cfg.layer_type, cfg.nonlinearity)
 
 
 def odenet_dynamics(params, cfg: CNFConfig, tc, y, e):
-    """(f(y), e^T J_f(y) e): the fused kernel in ``cfg.matmul_dtype`` where
-    the config fits it, else the float32 composition."""
+    """(f(y), e^T J_f(y) e): the fused kernel where the config fits it, else
+    the composition, in ``matmul_mode``'s arithmetic."""
+    mode, bwd = matmul_mode(cfg)
     if kernel_takes(cfg):
-        return fused_concatsquash_dynamics(params, tc, y, e, cfg.matmul_dtype)
+        return fused_concatsquash_dynamics(params, tc, y, e, mode, bwd)
+    if mode == "bf16":
+        return rounded_dynamics(y, e, context_gb(params, tc), *pack_weights(params), bwd)
     return reference_dynamics(params, tc, y, e, cfg.layer_type, cfg.nonlinearity)
 
 

@@ -34,7 +34,8 @@ kernel that keeps every activation on chip: ``ops.kernels.cnf_primal`` for
 the points alone, ``ops.kernels.cnf_dynamics`` for the points and the
 Hutchinson tangent J e, giving e^T J e.  The JAX package has a kernel for
 that config alone (caspr_tpu/ops/cnf_fused.py::can_fuse), and so does the
-port: any other config runs the composition on either device.
+port, at its own widths: any other config runs the composition on either
+device.
 
 The fused kernels have two arithmetic modes, ``matmul_dtype`` "f32" (the
 default: every product at float32 accuracy) and "bf16", the JAX package's
@@ -43,7 +44,18 @@ of every layer product -- the points and the Hutchinson noise into the first
 layer, the activations into the others, and every weight -- are rounded to
 bfloat16 (nearest, ties to even) and the product accumulates in float32; the
 gates, biases, softplus, its sigmoid and the divergence's sum stay float32.
-The composition has one mode, float32, as the JAX package's ``odenet_apply``.
+The composition has one mode, float32, as the JAX package's
+``odenet_apply``, but for the bf16 configs past the kernels' widths below.
+
+Where bf16 applies is the JAX package's rule, ``bf16_takes`` (its
+``can_fuse``: widths a multiple of 128, two or three layers of them), not
+the kernels' reach: a config the kernels take but ``can_fuse`` does not
+runs the kernels in float32, and a config ``can_fuse`` takes but the kernels
+do not (widths of 640 and up) runs ``primal_packed`` / ``dynamics_packed``
+with their products rounded (``rounded_primal``, ``rounded_dynamics``).
+The VJP is float32 by default, the JAX package's default backward, and
+with ``bwd_matmul_dtype="bf16"`` the bf16 form of ``dynamics_vjp_packed``
+(its CASPR_TPU_CNF_BWD=pallas under CASPR_TPU_CNF_MATMUL=bf16).
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ KERNEL_WIDTH_STEP = 32
 KERNEL_MAX_WIDTH = 512
 KERNEL_HIDDEN_LAYERS = (1, 6)
 MATMUL_DTYPES = ("f32", "bf16")
+BF16_WIDTH_STEP = 128  # the JAX package's lane width (can_fuse)
 
 
 def kernel_takes(cfg) -> bool:
@@ -82,6 +95,23 @@ def kernel_takes(cfg) -> bool:
         and dims[0] % KERNEL_WIDTH_STEP == 0
         and dims[0] <= KERNEL_MAX_WIDTH
         and lo <= len(dims) - 1 <= hi
+    )
+
+
+def bf16_takes(cfg) -> bool:
+    """Whether the bf16 matmul mode applies to a CNF config: the port's copy
+    of caspr_tpu/ops/cnf_fused.py::can_fuse, the JAX package's rule for
+    running its kernels (and so their bf16 products).  Concatsquash layers
+    with softplus, D <= 8, two or three hidden widths (its 2L gate and bias
+    rows fill at most 8), all equal and a multiple of 128."""
+    dims = tuple(cfg.dims)
+    return (
+        cfg.layer_type == "concatsquash"
+        and cfg.nonlinearity == "softplus"
+        and cfg.input_dim <= KERNEL_MAX_DIM
+        and len(dims) in (2, 3)
+        and len(set(dims)) == 1
+        and dims[0] % BF16_WIDTH_STEP == 0
     )
 
 
@@ -267,11 +297,17 @@ def dynamics_packed(y, e, gb, w_first, w_hidden, w_last, matmul_dtype: str = "f3
     return zp, (zt * e).sum(dim=-1)
 
 
-def dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
+def dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div,
+                        matmul_dtype: str = "f32"):
     """The VJP of ``dynamics_packed`` with respect to y, gb and the
     weights, in plain PyTorch: the function of the cnf_dynamics_vjp kernel
     (caspr_tpu/ops/cnf_fused.py::_fused_bwd_kernel, in the stream-stacked
     form of ``_manual_dynamics_vjp``).  e is a constant: no d/de.
+    ``matmul_dtype="bf16"`` rounds both operands of its three products as
+    that kernel's ``mm`` does -- the forward recompute z W^T (so m, s and
+    t_pre are the bf16 forward's), the weight gradient dm^T z and the input
+    cotangent dm W -- and keeps the gates, sigmoids, dppre, dtpre and the
+    dgb sums float32.
 
     The forward is recomputed keeping each layer's input z_l and pre-gate
     product m_l = z_l @ W_l^T of both streams, stacked along the points
@@ -286,6 +322,7 @@ def dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
     Returns (dy (BT, N, D), dgb (BT, G, H) laid out as gb, dw_first (H, D),
     dw_hidden (L-2, H, H), dw_last (D, H)); dgb and the dW are summed over
     the points (and the dW over the clouds)."""
+    rnd = _operand(matmul_dtype)
     weights = [w_first, *w_hidden.unbind(0), w_last]
     num_layers = len(weights)
     n = y.shape[1]
@@ -293,7 +330,7 @@ def dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
     zs, ms = [], []
     for i, w in enumerate(weights):
         zs.append(z)
-        m = torch.matmul(z, w.T)
+        m = torch.matmul(rnd(z), rnd(w).T)
         ms.append(m)
         if i < num_layers - 1:
             d_out = w.shape[0]
@@ -317,11 +354,63 @@ def dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
             dtpre = ct * s
         dgb[:, num_layers + i, :d_out] = dppre.sum(dim=1)
         dgb[:, i, :d_out] = (dppre * m[:, :n] + dtpre * m[:, n:]).sum(dim=1)
-        dm = torch.cat([dppre, dtpre], dim=1) * gate
-        dws[i] = torch.matmul(dm.reshape(-1, d_out).T, zs[i].reshape(-1, w.shape[1]))
-        dz = torch.matmul(dm, w)
+        dm = rnd(torch.cat([dppre, dtpre], dim=1) * gate)
+        dws[i] = torch.matmul(dm.reshape(-1, d_out).T, rnd(zs[i]).reshape(-1, w.shape[1]))
+        dz = torch.matmul(dm, rnd(w))
         cp, ct = dz[:, :n], dz[:, n:]
     return cp, dgb, dws[0], torch.stack(dws[1:-1]), dws[-1]
+
+
+class _RoundedPrimal(torch.autograd.Function):
+    """``primal_packed`` with its products in bf16; its backward the float32
+    VJP at the inputs, as the JAX package's _fused_primal_bwd differentiates
+    the float32 composition (autograd through the rounding would round the
+    cotangents too)."""
+
+    @staticmethod
+    def forward(ctx, y, gb, w_first, w_hidden, w_last):
+        ctx.save_for_backward(y, gb, w_first, w_hidden, w_last)
+        return primal_packed(y, gb, w_first, w_hidden, w_last, "bf16")
+
+    @staticmethod
+    def backward(ctx, ct):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = primal_packed(*inputs)
+        return torch.autograd.grad(out, inputs, ct)
+
+
+class _RoundedDynamics(torch.autograd.Function):
+    """``dynamics_packed`` with its products in bf16; its backward
+    ``dynamics_vjp_packed`` in ``bwd_matmul_dtype`` (e is a constant)."""
+
+    @staticmethod
+    def forward(ctx, y, e, gb, w_first, w_hidden, w_last, bwd_matmul_dtype):
+        ctx.save_for_backward(y, e, gb, w_first, w_hidden, w_last)
+        ctx.bwd_matmul_dtype = bwd_matmul_dtype
+        return dynamics_packed(y, e, gb, w_first, w_hidden, w_last, "bf16")
+
+    @staticmethod
+    def backward(ctx, ct_dx, ct_div):
+        dy, dgb, dwf, dwh, dwl = dynamics_vjp_packed(*ctx.saved_tensors, ct_dx, ct_div,
+                                                     ctx.bwd_matmul_dtype)
+        return dy, None, dgb, dwf, dwh, dwl, None
+
+
+def rounded_primal(y, gb, w_first, w_hidden, w_last):
+    """The bf16 field of a config ``bf16_takes`` but the kernels do not
+    (widths of 640 and up), on either device: the JAX package runs its bf16
+    kernel there, the port the composition with the kernel's roundings.  No
+    kernel is launched."""
+    return _RoundedPrimal.apply(y, gb, w_first, w_hidden, w_last)
+
+
+def rounded_dynamics(y, e, gb, w_first, w_hidden, w_last, bwd_matmul_dtype: str = "f32"):
+    """``rounded_primal``'s counterpart with the divergence: (dx, div) with
+    the products in bf16, its VJP float32 or, with ``bwd_matmul_dtype="bf16"``,
+    ``dynamics_vjp_packed`` in bf16."""
+    check_matmul_dtype(bwd_matmul_dtype)
+    return _RoundedDynamics.apply(y, e, gb, w_first, w_hidden, w_last, bwd_matmul_dtype)
 
 
 def reference_dynamics(params, tc, y, e, layer_type: str = "concatsquash",

@@ -17,7 +17,9 @@ training paths (sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
                         its bfloat16 variant, counted as cnf_dynamics_bf16)
   cnf_dynamics_vjp   -> cnf_dynamics_vjp (its VJP: the adjoint's augmented
                         dynamics in training; the same layer tile, and a
-                        3xTF32 split-K product for the weight gradients)
+                        3xTF32 split-K product for the weight gradients;
+                        with matmul_dtype="bf16" its one-pass bfloat16
+                        variant, counted as cnf_dynamics_vjp_bf16)
   emd                -> approx_match_emd (the approxmatch EMD cost; a
                         thread-block cluster per cloud pair)
   sa_fused           -> sa_fused (one set-abstraction scale after the
@@ -27,9 +29,8 @@ training paths (sources and design notes in ``caspr_tpu_torch/csrc/*.cu``):
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then takes one of two routes by the device of its inputs: a
 CPU tensor goes to the plain PyTorch version (``ops/pointops.py``,
-``ops/cnf_fused.py::primal_packed``, ``dynamics_packed`` (in the
-``matmul_dtype`` asked for) and
-``dynamics_vjp_packed``,
+``ops/cnf_fused.py::primal_packed``, ``dynamics_packed`` and
+``dynamics_vjp_packed`` (in the ``matmul_dtype`` asked for),
 ``ops/emd_plain.py::emd_plain``, ``ops/sa_fused.py::sa_stack_plain``); a CUDA tensor launches the kernel on
 the current stream, raises if the launch fails, and adds one to
 ``launches[name]``.  There is no fallback from the card to the plain
@@ -82,9 +83,10 @@ NVCC_FLAGS = (
 
 KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
            "cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp", "emd", "sa_fused")
-# the one-pass bfloat16 variants of the two forward CNF kernels (the same
-# sources, csrc/cnf_primal.cu and csrc/cnf_dynamics.cu), counted apart
-VARIANTS = ("cnf_primal_bf16", "cnf_dynamics_bf16")
+# the one-pass bfloat16 variants of the three CNF kernels (the same
+# sources, csrc/cnf_primal.cu, cnf_dynamics.cu and cnf_dynamics_vjp.cu),
+# counted apart
+VARIANTS = ("cnf_primal_bf16", "cnf_dynamics_bf16", "cnf_dynamics_vjp_bf16")
 FPS_SHARED_POINTS = 8192  # N up to which the fps kernel holds a cloud in registers
 GATHER_MAX_FLOATS = 2**31 - 1  # R * C and N * C of one batch of the gather kernel
 # Launches of each kernel since the last reset_launches(); bumped only where
@@ -103,6 +105,7 @@ _SIGNATURES = {  # every entry takes the stream last and returns a cudaError_t
     "caspr_cnf_dynamics": [_P] * 9 + [_I] * 6 + [_P],
     "caspr_cnf_dynamics_bf16": [_P] * 9 + [_I] * 6 + [_P],
     "caspr_cnf_dynamics_vjp": [_P] * 13 + [_I] * 6 + [_P],
+    "caspr_cnf_dynamics_vjp_bf16": [_P] * 13 + [_I] * 6 + [_P],
     "caspr_approx_match_emd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "caspr_approx_match_emd_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "caspr_sa_fused": [_P] * 14 + [_I] * 7 + [_P],
@@ -457,7 +460,7 @@ def _weights_scratch(w_hidden, matmul_dtype):
 
 
 def _cnf_route(kernel: str, matmul_dtype: str):
-    """(launch count, C entry) of a forward CNF kernel in a matmul mode."""
+    """(launch count, C entry) of a CNF kernel in a matmul mode."""
     if matmul_dtype == "bf16":
         return f"{kernel}_bf16", f"caspr_{kernel}_bf16"
     return kernel, f"caspr_{kernel}"
@@ -488,19 +491,24 @@ def cnf_primal(y, gb, w_first, w_hidden, w_last, matmul_dtype: str = "f32"):
     return dx
 
 
-def cnf_dynamics(y, e, gb, w_first, w_hidden, w_last, matmul_dtype: str = "f32"):
+def cnf_dynamics(y, e, gb, w_first, w_hidden, w_last, matmul_dtype: str = "f32",
+                 bwd_matmul_dtype: str = "f32"):
     """Fused concatsquash stack with the Hutchinson tangent.  y, e (BT, N, D);
     the other arguments as ``cnf_primal`` -> (dx (BT, N, D), div (BT, N) =
     e^T J e).  Differentiable in y, gb and the weights on either device: the
-    backward is ``cnf_dynamics_vjp``, float32 in either mode, as the JAX
-    package's default backward differentiates the float32 composition (e is
-    a constant, as in the adjoint)."""
+    backward is ``cnf_dynamics_vjp`` in ``bwd_matmul_dtype``, float32 by
+    default in either forward mode, as the JAX package's default backward
+    differentiates the float32 composition, and "bf16" (with a bf16
+    forward) as its CASPR_TPU_CNF_BWD=pallas (e is a constant, as in the
+    adjoint)."""
     check_matmul_dtype(matmul_dtype)
+    check_matmul_dtype(bwd_matmul_dtype)
     _check_cnf("cnf_dynamics", y, gb, w_first, w_hidden, w_last)
     _check("e", e, torch.float32, 3)
     if e.shape != y.shape:
         raise ValueError(f"cnf_dynamics: e {tuple(e.shape)} and y {tuple(y.shape)} differ")
-    return _CNFDynamics.apply(y, e, gb, w_first, w_hidden, w_last, matmul_dtype)
+    return _CNFDynamics.apply(y, e, gb, w_first, w_hidden, w_last, matmul_dtype,
+                              bwd_matmul_dtype)
 
 
 def _cnf_dynamics_launch(y, e, gb, w_first, w_hidden, w_last, matmul_dtype):
@@ -522,24 +530,32 @@ def _cnf_dynamics_launch(y, e, gb, w_first, w_hidden, w_last, matmul_dtype):
 
 class _CNFDynamics(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, e, gb, w_first, w_hidden, w_last, matmul_dtype):
+    def forward(ctx, y, e, gb, w_first, w_hidden, w_last, matmul_dtype, bwd_matmul_dtype):
         ctx.save_for_backward(y, e, gb, w_first, w_hidden, w_last)
+        ctx.bwd_matmul_dtype = bwd_matmul_dtype
         return _cnf_dynamics_launch(y, e, gb, w_first, w_hidden, w_last, matmul_dtype)
 
     @staticmethod
     def backward(ctx, ct_dx, ct_div):
         y, e, gb, w_first, w_hidden, w_last = ctx.saved_tensors
         dy, dgb, dwf, dwh, dwl = cnf_dynamics_vjp(
-            y, e, gb, w_first, w_hidden, w_last, ct_dx.contiguous(), ct_div.contiguous())
-        return dy, None, dgb, dwf, dwh, dwl, None
+            y, e, gb, w_first, w_hidden, w_last, ct_dx.contiguous(), ct_div.contiguous(),
+            ctx.bwd_matmul_dtype)
+        return dy, None, dgb, dwf, dwh, dwl, None, None
 
 
-def cnf_dynamics_vjp(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
+def cnf_dynamics_vjp(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div,
+                     matmul_dtype: str = "f32"):
     """The VJP of ``cnf_dynamics`` with respect to y, gb and the weights,
     for cotangents ct_dx (BT, N, D) and ct_div (BT, N) -> (dy (BT, N, D),
     dgb (BT, G, H) laid out as gb, dw_first (H, D), dw_hidden (L-2, H, H),
     dw_last (D, H)); dgb is summed over each cloud's points, the dW over
-    every point.  Deterministic on the card: every sum has a fixed order."""
+    every point.  ``matmul_dtype``: "f32" (3xTF32 on the card) or "bf16"
+    (both operands of every product -- the forward recompute, the input
+    cotangents, the weight gradients -- rounded to bfloat16, one tensor-core
+    pass; the JAX package's _fused_bwd_call with matmul_dtype="bf16").
+    Deterministic on the card: every sum has a fixed order."""
+    check_matmul_dtype(matmul_dtype)
     bt, n, d, h, num_hidden = _check_cnf("cnf_dynamics_vjp", y, gb, w_first, w_hidden, w_last)
     for name, t in (("e", e), ("ct_dx", ct_dx)):
         _check(name, t, torch.float32, 3)
@@ -549,7 +565,8 @@ def cnf_dynamics_vjp(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
     if tuple(ct_div.shape) != (bt, n):
         raise ValueError(f"cnf_dynamics_vjp: ct_div {tuple(ct_div.shape)}, expected {(bt, n)}")
     if not _on_card(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
-        return dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div)
+        return dynamics_vjp_packed(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div,
+                                   matmul_dtype)
     _check_cnf_kernel_limits("cnf_dynamics_vjp", h, d)
     lo, hi = KERNEL_HIDDEN_LAYERS
     if not lo <= num_hidden <= hi:
@@ -561,7 +578,7 @@ def cnf_dynamics_vjp(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div):
     dw = torch.empty(2 * h * d + num_hidden * h * h, dtype=torch.float32, device=y.device)
     workspace = torch.empty(lib.caspr_cnf_dynamics_vjp_workspace(bt, n, h, d, num_hidden),
                             dtype=torch.float32, device=y.device)
-    _launch("cnf_dynamics_vjp", "caspr_cnf_dynamics_vjp", y.device,
+    _launch(*_cnf_route("cnf_dynamics_vjp", matmul_dtype), y.device,
             y.data_ptr(), e.data_ptr(), gb.data_ptr(), w_first.data_ptr(),
             w_hidden_t.data_ptr(), w_hidden.data_ptr(), w_last.data_ptr(), ct_dx.data_ptr(),
             ct_div.data_ptr(), dy.data_ptr(), dgb.data_ptr(), dw.data_ptr(),

@@ -184,10 +184,11 @@ Phases, each of which raises on failure:
      leaf and the context within 1e-3 of its largest);
  13. the CNF kernels' bfloat16 matmul mode (CaSPRConfig(cnf_matmul_dtype=
      "bf16"), run_bf16): (a) cnf_primal_bf16 and cnf_dynamics_bf16 at phase
-     2's shapes against their bfloat16 plain versions (each output within
-     2e-3 of its largest magnitude, within 1.5x the plain version's
-     distance from float64, two launches bit-equal), timed with their
-     bound at the bfloat16 rate; (b) phase 3's reconstruct (its input and
+     2's shapes, and cnf_dynamics_vjp_bf16 at row 10's (25 x 1024, the demo
+     decoder, random cotangents), against their bfloat16 plain versions
+     (each output within 2e-3 of its largest magnitude, within 1.5x the
+     plain version's distance from float64, two launches bit-equal), timed
+     with their bound at the bfloat16 rate; (b) phase 3's reconstruct (its input and
      base samples, the demo weights) in bfloat16 beside float32, f32, bf16,
      bf16, f32, and the bfloat16 sample-div decode with phase 12's noise:
      NFE, seconds, the CNF launches (cnf_primal_bf16 once per CNF
@@ -198,9 +199,20 @@ Phases, each of which raises on failure:
      of their largest magnitude); (d) at 5 x 5 x 1024 one likelihood
      evaluation (demo weights) and one adjoint train step (caspr_init seed
      0, phase 6's first step) in bfloat16 beside float32 on the same
-     inputs: finite, the mode's cnf_dynamics kernel once per CNF
-     evaluation, the VJP through the float32 cnf_dynamics_vjp in both, NFE,
-     losses and seconds.
+     inputs, and a third step with the VJP's products in bfloat16 too
+     (cnf_bwd_matmul_dtype="bf16"): finite, the mode's cnf_dynamics kernel
+     once per CNF evaluation, the VJP through the float32 cnf_dynamics_vjp
+     in the first two steps and cnf_dynamics_vjp_bf16 alone, once per
+     backward CNF evaluation, in the third; NFE, losses and seconds; (e)
+     the bfloat16 adjoint gradient (forward and VJP) of the demo CNF block,
+     a flow-only NLL of 2 x 256 points on the demo latents of phase 12,
+     card against CPU (forward and backward NFE within 6, the loss within
+     5e-3 of its magnitude, each leaf within 5e-3 of its largest; only the
+     two bfloat16 kernels launched); (f) where bf16 applies: a bf16 config
+     at (128,) x 5 (not the JAX package's can_fuse) launches the float32
+     kernels, at (1024, 1024) (past the kernels' widths) none, at
+     (512, 512, 512) the three bfloat16 variants, its fields within 2e-3 of
+     the CPU's.
 
 Then it prints its own seconds (from its first line of output on), one
 JSON line listing every kernel and, last, the verdict line
@@ -270,6 +282,9 @@ KERNEL_INFO = {
                         "caspr_tpu/ops/cnf_fused.py:283"),
     "cnf_dynamics_bf16": ("caspr_tpu_torch/csrc/cnf_dynamics.cu",
                           "caspr_tpu/ops/cnf_fused.py:233"),
+    # the VJP's bfloat16 variant (_fused_bwd_call with matmul_dtype="bf16")
+    "cnf_dynamics_vjp_bf16": ("caspr_tpu_torch/csrc/cnf_dynamics_vjp.cu",
+                              "caspr_tpu/ops/cnf_fused.py:485"),
 }
 RECONSTRUCT_KERNELS = ("fps", "ball_query", "gather", "three_nn", "three_interpolate",
                        "cnf_primal")
@@ -2843,7 +2858,9 @@ def other_cnf_steps(torch, ctx_small):
 
 
 def run_cnf_rest(torch, kernels, card):
-    """Phase 12: the reference-parity decode and the other CNF configs."""
+    """Phase 12: the reference-parity decode and the other CNF configs.
+    Returns the sample-div decode's cnf_dynamics launches and the demo
+    model's latents of phase 5b's input (2 x 1600, numpy)."""
     from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel
     from caspr_tpu_torch.weights import load_demo
 
@@ -2868,13 +2885,16 @@ def run_cnf_rest(torch, kernels, card):
     other_cnf_cross_device(torch, kernels, ctx_small)
     other_cnf_full_width(torch, kernels, latents[1], card)
     other_cnf_steps(torch, ctx_small)
-    return launches
+    return launches, ctx_small
 
 
 # Phase 13: the CNF kernels' bfloat16 matmul mode (CNFConfig.matmul_dtype;
 # the JAX package's CASPR_TPU_CNF_MATMUL=bf16)
 BF16_CFG = dict(cnf_matmul_dtype="bf16")
-BF16_LEAVES = ("cnf_primal_bf16", "cnf_dynamics_bf16")
+# and with the VJP's products in bfloat16 (CNFConfig.bwd_matmul_dtype; the
+# JAX package's CASPR_TPU_CNF_BWD=pallas in that mode)
+BF16_BWD_CFG = dict(BF16_CFG, cnf_bwd_matmul_dtype="bf16")
+BF16_LEAVES = ("cnf_primal_bf16", "cnf_dynamics_bf16", "cnf_dynamics_vjp_bf16")
 
 
 def cnf_bf16_case(torch, name, c, rows, hidden_layers, h):
@@ -2956,11 +2976,74 @@ def check_bf16_kernels(torch):
     }
     rows = {name: cnf_bf16_case(torch, name, c, BT * POINTS, wh.shape[0], h)
             for name, c in cases.items()}
+    rows["cnf_dynamics_vjp_bf16"] = vjp_bf16_case(torch, odenet, gen)
     for name, row in rows.items():
         bound_ms, bound_by = bound(*row["work"])
         print(json.dumps({"kernel": name, **{k: v for k, v in row.items() if k != "work"},
                           "bound_ms": bound_ms, "bound_by": bound_by}), flush=True)
     return rows
+
+
+def vjp_bf16_case(torch, odenet, gen):
+    """Phase 13(a), the VJP: cnf_dynamics_vjp(..., "bf16") at row 10's
+    shapes (the training path's 25 clouds of 1024 points, the demo decoder's
+    weights, random cotangents) against its bfloat16 plain version with
+    cnf_bf16_case's bars: each output within 2e-3 of its largest magnitude,
+    within 1.5x the plain version's distance from the float64 VJP without
+    rounding, two launches bit-equal.  Its work is row 10's: the three
+    matrix passes (forward recompute, input cotangents, weight gradients),
+    here one bfloat16 pass each at 989 TFLOP/s; softplus's and the
+    sigmoids' special functions beside."""
+    from caspr_tpu_torch.ops import cnf_fused, kernels
+
+    dev = torch.device("cuda")
+    bt, n = TRAIN_B * TRAIN_T, TRAIN_N
+    tc = torch.cat([torch.full((bt, 1), 0.25, device=dev),
+                    torch.randn((bt, 1600), generator=gen, device=dev)], dim=1)
+    wf, wh, wl = cnf_fused.pack_weights(odenet)
+    h = wf.shape[0]
+    draw = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    args = (draw(bt, n, 3), draw(bt, n, 3), cnf_fused.context_gb(odenet, tc), wf, wh, wl,
+            draw(bt, n, 3), draw(bt, n))
+    run = lambda: kernels.cnf_dynamics_vjp(*args, "bf16")
+    plain_fn = lambda: cnf_fused.dynamics_vjp_packed(*args, "bf16")
+    got, plain = run(), plain_fn()
+    if not all(torch.equal(a, b) for a, b in zip(got, run())):
+        raise AssertionError("cnf_dynamics_vjp_bf16: two launches on the same input differ")
+    exact = cnf_fused.dynamics_vjp_packed(*(a.double() for a in args))
+    names = ("dy", "dgb", "dw_first", "dw_hidden", "dw_last")
+    dist = lambda a, x: float((a.double() - x).abs().max() / x.abs().max())
+    rels = {k: dist(g, p.double()) for k, g, p in zip(names, got, plain)}
+    vs64 = {k: dist(g, x) for k, g, x in zip(names, got, exact)}
+    plain_vs64 = {k: dist(p, x) for k, p, x in zip(names, plain, exact)}
+    print(json.dumps({"bf16_kernel": "cnf_dynamics_vjp_bf16", "rel_err_vs_plain": rels,
+                      "rel_err_vs_float64": vs64, "plain_rel_err_vs_float64": plain_vs64}),
+          flush=True)
+    if not max(rels.values()) <= 2e-3:
+        raise AssertionError(f"cnf_dynamics_vjp_bf16: relative err against the bf16 plain "
+                             f"version {rels} > 2e-3")
+    if not all(vs64[k] <= 1.5 * plain_vs64[k] for k in names):
+        raise AssertionError(f"cnf_dynamics_vjp_bf16: relative err against float64 {vs64} > "
+                             f"1.5 x the bf16 plain version's {plain_vs64}")
+    rows_r = 2 * bt * n
+    hidden = wh.shape[0]
+    # the epilogues in float32 (gate products, bias sums, softplus, the
+    # sigmoid's chain rule: about 4 operations an activation each way) and
+    # the first and last layers on the CUDA cores, in all three passes;
+    # special functions: the recompute's exp, log1p and reciprocal, the
+    # reverse sweep's exp and reciprocal, per activation of the primal rows
+    acts = bt * n * (hidden + 1) * h
+    edge_ops = 3 * 2.0 * rows_r * (3 * h + h * 3) + 8.0 * acts * 2
+    vjp_bytes = (sum(a.numel() for a in args) + sum(g.numel() for g in got)) * 4.0
+    return dict(
+        max_abs_err=max(float((g - p).abs().max()) for g, p in zip(got, plain)),
+        tolerance="each output 2e-3 relative to its max magnitude of the bf16 plain version; "
+                  "within 1.5x the bf16 plain version's distance from float64; deterministic",
+        rel_err_vs_plain=rels, rel_err_vs_float64=vs64, plain_rel_err_vs_float64=plain_vs64,
+        ms=time_ms(torch, run), plain_ms=time_ms(torch, plain_fn), library_ms=None,
+        work=(vjp_bytes, edge_ops, 5.0 * acts, 0.0, 3 * 2.0 * rows_r * hidden * h * h),
+        shape=f"y, e, ct ({bt}, {n}, 3), H {h}: {rows_r} rows",
+    )
 
 
 def bf16_reconstructs(torch, kernels, card):
@@ -3058,14 +3141,18 @@ def bf16_cross_device(torch):
 
 
 def bf16_likelihood_and_step(torch, kernels, card):
-    """Phase 13(d): at 5 x 5 x 1024, in float32 and in bfloat16 on the same
-    inputs, one likelihood evaluation (CaSPRModel.forward with the demo
-    weights, phase 6's first batch, a noise from SEED + 16) and one adjoint
-    train step (phase 6's first: caspr_init seed 0, its generator, its
-    batch): finite; the forward dynamics through the mode's kernel alone
+    """Phase 13(d): at 5 x 5 x 1024, on the same inputs, one likelihood
+    evaluation (CaSPRModel.forward with the demo weights, phase 6's first
+    batch, a noise from SEED + 16) in float32 and in bfloat16, and one
+    adjoint train step (phase 6's first: caspr_init seed 0, its generator,
+    its batch) in float32, in bfloat16 and in bfloat16 with the VJP's
+    products in bfloat16 (cnf_bwd_matmul_dtype="bf16", this slice's path):
+    finite; the forward dynamics through the mode's kernel alone
     (cnf_dynamics or cnf_dynamics_bf16, once per CNF evaluation), the
-    adjoint's VJP through the float32 cnf_dynamics_vjp in both.  Returns the
-    bfloat16 likelihood's cnf_dynamics_bf16 launches and the step's."""
+    adjoint's VJP through cnf_dynamics_vjp in the first two steps and
+    cnf_dynamics_vjp_bf16 alone in the third, once per backward CNF
+    evaluation.  Returns the bfloat16 likelihood's cnf_dynamics_bf16
+    launches and, per bfloat16 variant, its launches in its train step."""
     from caspr_tpu_torch.models.caspr import CaSPRConfig, CaSPRModel, caspr_init
     from caspr_tpu_torch.train import make_optimizer, make_train_step
     from caspr_tpu_torch.weights import load_demo
@@ -3074,29 +3161,36 @@ def bf16_likelihood_and_step(torch, kernels, card):
     batch = TrainLoader(1, SEED + 4).batches[0]
     to = lambda a: torch.from_numpy(a).to(dev)
     demo_params, demo_state = load_demo(device=dev)
-    dynamics = {"f32": "cnf_dynamics", "bf16": "cnf_dynamics_bf16"}
+    leaves = CNF_LEAVES + BF16_LEAVES
+    # (config, forward kernel, VJP kernel, whether the likelihood runs)
+    modes = {"f32": (CaSPRConfig(), "cnf_dynamics", "cnf_dynamics_vjp", True),
+             "bf16": (CaSPRConfig(**BF16_CFG), "cnf_dynamics_bf16", "cnf_dynamics_vjp", True),
+             "bf16, bf16 VJP": (CaSPRConfig(**BF16_BWD_CFG), "cnf_dynamics_bf16",
+                                "cnf_dynamics_vjp_bf16", False)}
     out = {}
-    for mode, kernel in dynamics.items():
-        cfg = CaSPRConfig(cnf_matmul_dtype=mode)
+    for mode, (cfg, kernel, vjp, likelihood_too) in modes.items():
         model = CaSPRModel(cfg, device=dev)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        start = time.perf_counter()
-        with torch.no_grad():
-            res, _ = model.forward(demo_params, demo_state, to(batch["input"]),
-                                   to(batch["target"]),
-                                   torch.Generator(device=dev).manual_seed(SEED + 16))
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-        counts = {k: kernels.launches[k] for k in CNF_LEAVES + BF16_LEAVES}
-        nll = res["nll"]
-        if counts != {**dict.fromkeys(CNF_LEAVES + BF16_LEAVES, 0), kernel: int(res["nfe"][1])}:
-            raise AssertionError(f"{mode} likelihood: CNF launches {counts}, CNF NFE "
-                                 f"{res['nfe'][1]}")
-        if not bool(torch.isfinite(nll).all()) or tuple(nll.shape) != (TRAIN_B, TRAIN_T, TRAIN_N):
-            raise AssertionError(f"{mode} likelihood: nll bad, shape {tuple(nll.shape)}")
-        likelihood = dict(nfe=res["nfe"], seconds=seconds, mean_nll=float(nll.mean()),
-                          cnf_launches=counts)
+        out[mode] = {}
+        if likelihood_too:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            start = time.perf_counter()
+            with torch.no_grad():
+                res, _ = model.forward(demo_params, demo_state, to(batch["input"]),
+                                       to(batch["target"]),
+                                       torch.Generator(device=dev).manual_seed(SEED + 16))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            counts = {k: kernels.launches[k] for k in leaves}
+            nll = res["nll"]
+            if counts != {**dict.fromkeys(leaves, 0), kernel: int(res["nfe"][1])}:
+                raise AssertionError(f"{mode} likelihood: CNF launches {counts}, CNF NFE "
+                                     f"{res['nfe'][1]}")
+            if (not bool(torch.isfinite(nll).all())
+                    or tuple(nll.shape) != (TRAIN_B, TRAIN_T, TRAIN_N)):
+                raise AssertionError(f"{mode} likelihood: nll bad, shape {tuple(nll.shape)}")
+            out[mode]["likelihood"] = dict(nfe=res["nfe"], seconds=seconds,
+                                           mean_nll=float(nll.mean()), cnf_launches=counts)
 
         gen = torch.Generator(device=dev).manual_seed(SEED)
         params, state = caspr_init(gen, cfg, device=dev)
@@ -3108,35 +3202,148 @@ def bf16_likelihood_and_step(torch, kernels, card):
         _, _, _, m = step(params, tx.init(params), state, batch["input"], batch["target"], gen)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-        counts = {k: kernels.launches[k] for k in CNF_LEAVES + BF16_LEAVES}
-        want = {**dict.fromkeys(CNF_LEAVES + BF16_LEAVES, 0), kernel: int(m["nfe"][1]),
-                "cnf_dynamics_vjp": int(m["nfe"][1] - m["nfe_forward"][1] - 2)}
+        counts = {k: kernels.launches[k] for k in leaves}
+        want = {**dict.fromkeys(leaves, 0), kernel: int(m["nfe"][1]),
+                vjp: int(m["nfe"][1] - m["nfe_forward"][1] - 2)}
         if counts != want:
             raise AssertionError(f"{mode} train step: CNF launches {counts}, expected {want}")
         if not np.isfinite(m["loss"]):
             raise AssertionError(f"{mode} train step: loss not finite: {m['loss']}")
-        out[mode] = dict(likelihood=likelihood,
-                         train_step=dict(loss=m["loss"], cnf_loss=m["cnf_loss"], nfe=m["nfe"],
-                                         nfe_forward=m["nfe_forward"], seconds=seconds,
-                                         cnf_launches=counts))
+        out[mode]["train_step"] = dict(loss=m["loss"], cnf_loss=m["cnf_loss"], nfe=m["nfe"],
+                                       nfe_forward=m["nfe_forward"], seconds=seconds,
+                                       cnf_launches=counts)
     print(json.dumps({"bf16_likelihood_and_step": f"B={TRAIN_B} T={TRAIN_T} N={TRAIN_N}: "
                                                   f"CaSPRModel.forward with the demo weights; "
                                                   f"one adjoint step from caspr_init seed 0",
                       "card": card, **out}), flush=True)
-    bf16 = out["bf16"]
-    return (bf16["likelihood"]["cnf_launches"]["cnf_dynamics_bf16"],
-            bf16["train_step"]["cnf_launches"]["cnf_dynamics_bf16"])
+    steps = {mode: out[mode]["train_step"]["cnf_launches"] for mode in modes}
+    return (out["bf16"]["likelihood"]["cnf_launches"]["cnf_dynamics_bf16"],
+            {"cnf_dynamics_bf16": steps["bf16"]["cnf_dynamics_bf16"],
+             "cnf_dynamics_vjp_bf16": steps["bf16, bf16 VJP"]["cnf_dynamics_vjp_bf16"]})
 
 
-def run_bf16(torch, kernels, card):
+def bf16_block_gradient(torch, kernels, ctx_small):
+    """Phase 13(e): the bfloat16 adjoint gradient of one CNF block (the demo
+    decoder's, cnf_bwd_matmul_dtype="bf16") on the card and on the CPU (the
+    plain versions), on the same inputs: a flow-only NLL of 2 clouds of 256
+    points of phase 7's target, with its noise, conditioned on the demo
+    model's latents of phase 5b's input.  Forward and backward CNF NFE each
+    within 6 (the bfloat16 roundings of the two devices' sums may differ by
+    a unit, and the solvers then take other steps), the loss within 5e-3 of
+    its magnitude, each gradient leaf (the block's and the context's)
+    within 5e-3 of its largest; on the card the two bfloat16 kernels and no
+    float32 CNF kernel."""
+    from caspr_tpu_torch.models.caspr import CaSPRConfig
+    from caspr_tpu_torch.models.cnf import cnf_block_forward
+    from caspr_tpu_torch.ops.odeint import NFESink, flatten_tree
+    from caspr_tpu_torch.ops.sampling import standard_normal_logprob
+    from caspr_tpu_torch.weights import load_demo
+
+    ccfg = CaSPRConfig(**BF16_BWD_CFG).cnf_config()
+    _, target, noise = train_step_input()
+    pts, e = (np.ascontiguousarray(a) for a in (target[0, :, :256, :3], noise[:, :256]))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = load_demo(device=dev)[0]["point_cnf"][1]
+        leaves = flatten_tree(params)[0]
+        for leaf in leaves:
+            leaf.requires_grad_()
+        ctx = torch.as_tensor(ctx_small).to(dev).requires_grad_()
+        to = lambda a: torch.as_tensor(a).to(dev)
+        sink = NFESink()
+        kernels.reset_launches()
+        start = time.perf_counter()
+        y, lp, nfe = cnf_block_forward(params, ccfg, to(pts), ctx,
+                                       to(np.zeros((2, 256, 1), np.float32)), to(e),
+                                       training=True, nfe_sink=sink)
+        loss = (-(standard_normal_logprob(y).sum(-1) - lp[..., 0])).mean()
+        loss.backward()
+        grads = [leaf.grad.cpu() for leaf in leaves] + [ctx.grad.cpu()]
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        out[dev] = (loss.item(), nfe, sink.value, grads, time.perf_counter() - start, counts)
+    paths = leaf_paths(params) + ["context"]
+    (loss, nfe, bwd, grads, sec, counts), (closs, cnfe, cbwd, cgrads, csec, ccounts) = (
+        out["cuda"], out["cpu"])
+    rel = {p: float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+           for p, a, b in zip(paths, grads, cgrads)}
+    loss_rel = abs(loss - closs) / abs(closs)
+    print(json.dumps({"bf16_block_gradient": "demo CNF block, bf16 forward and VJP, flow-only "
+                                             "NLL, 2 x 256 points",
+                      "nfe": {"forward": [nfe, cnfe], "backward": [bwd, cbwd]},
+                      "loss": [loss, closs], "loss_rel_err": loss_rel, "leaves": len(rel),
+                      "rel_err_max": max(rel.values()),
+                      "worst": sorted(rel.items(), key=lambda kv: -kv[1])[:4],
+                      "card_launches": counts, "seconds": {"card": sec, "cpu": csec},
+                      "tolerance": {"nfe": 6, "loss": 5e-3, "leaf": 5e-3}}), flush=True)
+    if ccounts or set(counts) != {"cnf_dynamics_bf16", "cnf_dynamics_vjp_bf16"}:
+        raise AssertionError(f"bf16 block gradient: launches card {counts}, CPU {ccounts}")
+    if (abs(nfe - cnfe) > 6 or abs(bwd - cbwd) > 6 or not loss_rel <= 5e-3
+            or not max(rel.values()) <= 5e-3):
+        raise AssertionError("bf16 block gradient, card vs CPU: see the line above")
+
+
+# Phase 13(f): which CNF kernels a bf16 config launches, by its widths: the
+# JAX package's can_fuse decides where bf16 applies, the kernels' reach
+# whether they run (one field, one field with divergence and its VJP)
+BF16_REACH = (
+    ((128,) * 5, ("cnf_primal", "cnf_dynamics", "cnf_dynamics_vjp")),  # kernels, float32
+    ((1024, 1024), ()),  # the rounded composition
+    ((512, 512, 512), BF16_LEAVES),
+)
+
+
+def bf16_reach(torch, kernels, ctx_small):
+    """Phase 13(f): for each of BF16_REACH's widths, a bf16 config
+    (cnf_bwd_matmul_dtype="bf16" too; caspr_init's weights) runs the field,
+    the field with its divergence and the latter's VJP on the card: the
+    launches are the expected ones, once each, the three fields agree with
+    the CPU's within 2e-3 of their largest magnitudes, and the VJP's dy is
+    finite."""
+    import dataclasses
+
+    from caspr_tpu_torch.models.cnf import odenet_dynamics, odenet_primal
+
+    rng = np.random.default_rng(SEED + 13)
+    y, e = rng.standard_normal((2, 2, 512, 3)).astype(np.float32)
+    tc = np.concatenate([np.full((2, 1), 0.3, np.float32), ctx_small], axis=1)
+    report = {}
+    for dims, want in BF16_REACH:
+        fields = {}
+        for dev in ("cuda", "cpu"):
+            ccfg, params, _ = other_cnf_params(torch, "concatsquash", "softplus", dims, dev)
+            ccfg = dataclasses.replace(ccfg, matmul_dtype="bf16", bwd_matmul_dtype="bf16")
+            odenet = params[1]["odenet"]
+            points = torch.from_numpy(y).to(dev).requires_grad_()
+            to = lambda a: torch.from_numpy(a).to(dev)
+            kernels.reset_launches()
+            dx = odenet_primal(odenet, ccfg, to(tc), points.detach())
+            dx2, div = odenet_dynamics(odenet, ccfg, to(tc), points, to(e))
+            (dx2.sum() + div.sum()).backward()
+            fields[dev] = [t.detach().cpu() for t in (dx, dx2, div, points.grad)]
+            if dev == "cuda":
+                counts = {k: v for k, v in kernels.launches.items() if v}
+        rels = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(fields["cuda"][:3], fields["cpu"][:3])]
+        report[str(dims)] = dict(launches=counts, rel_err_vs_cpu=rels)
+        if counts != dict.fromkeys(want, 1):
+            raise AssertionError(f"bf16 config at {dims}: launches {counts}, expected {want}")
+        if not all(bool(torch.isfinite(t).all()) for t in fields["cuda"]) or max(rels) > 2e-3:
+            raise AssertionError(f"bf16 config at {dims}: card against CPU {rels}")
+    print(json.dumps({"bf16_reach": report}), flush=True)
+
+
+def run_bf16(torch, kernels, card, ctx_small):
     """Phase 13: the bfloat16 matmul mode.  Returns (its kernel rows, the
-    launches of each variant on its main path, the train step's
-    cnf_dynamics_bf16 launches)."""
+    launches of each variant on its main path, the train steps' launches of
+    the bfloat16 variants)."""
     rows = check_bf16_kernels(torch)
     primal = bf16_reconstructs(torch, kernels, card)
     bf16_cross_device(torch)
-    dynamics, step = bf16_likelihood_and_step(torch, kernels, card)
-    return rows, {"cnf_primal_bf16": primal, "cnf_dynamics_bf16": dynamics}, step
+    dynamics, steps = bf16_likelihood_and_step(torch, kernels, card)
+    bf16_block_gradient(torch, kernels, ctx_small)
+    bf16_reach(torch, kernels, ctx_small)
+    return rows, {"cnf_primal_bf16": primal, "cnf_dynamics_bf16": dynamics,
+                  "cnf_dynamics_vjp_bf16": steps["cnf_dynamics_vjp_bf16"]}, steps
 
 
 def phase_done(name: str, begun: float):
@@ -3198,9 +3405,9 @@ def main() -> int:
         phase_done("10", begun)
         run_sp_path(torch, kernels, phase8, floor, card, one)
         phase_done("11", begun)
-    sample_div_launches = run_cnf_rest(torch, kernels, card)
+    sample_div_launches, ctx_small = run_cnf_rest(torch, kernels, card)
     phase_done("12", begun)
-    bf16_rows, bf16_counts, bf16_step_launches = run_bf16(torch, kernels, card)
+    bf16_rows, bf16_counts, bf16_step_launches = run_bf16(torch, kernels, card, ctx_small)
     rows.update(bf16_rows)
     counts.update(bf16_counts)
     phase_done("13", begun)
@@ -3219,8 +3426,8 @@ def main() -> int:
                               else None, bound_ms),
             **({"launches_per_sample_div_reconstruct": sample_div_launches}
                if name == "cnf_dynamics" else {}),
-            **({"launches_per_train_step": bf16_step_launches}
-               if name == "cnf_dynamics_bf16" else {}),
+            **({"launches_per_train_step": bf16_step_launches[name]}
+               if name in bf16_step_launches else {}),
         })
     print(json.dumps({"seconds_since_start": time.perf_counter() - begun}), flush=True)
     print(card, flush=True)

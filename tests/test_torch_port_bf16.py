@@ -294,14 +294,16 @@ def test_cpu_wrappers_take_the_bf16_plain_versions():
 
 @pytest.mark.parametrize("dims", [(16, 32), (32,)], ids=lambda d: "-".join(map(str, d)))
 def test_bf16_is_not_read_where_the_kernels_do_not_take_the_config(dims, monkeypatch):
-    """Where kernel_takes is false the composition runs at float32 whatever
-    matmul_dtype says, as the JAX package's odenet_apply does where its
+    """Where kernel_takes is false, and bf16_takes (the JAX package's
+    can_fuse) too, the composition runs at float32 whatever matmul_dtype
+    says, as the JAX package's odenet_apply does where its
     _dynamics_kernel_mode is "xla": the same bits in both modes, and no
-    fused wrapper called."""
+    fused wrapper called (tests/test_torch_port_bf16_vjp.py covers the
+    configs where only one of the two holds)."""
     for name in ("fused_concatsquash_primal", "fused_concatsquash_dynamics"):
         monkeypatch.setattr(cnf, name, lambda *a: pytest.fail("a fused wrapper was called"))
     cfgs = [cnf.CNFConfig(dims=dims, zdim=8, matmul_dtype=m) for m in ("f32", "bf16")]
-    assert not cnf_fused.kernel_takes(cfgs[1])
+    assert not cnf_fused.kernel_takes(cfgs[1]) and not cnf_fused.bf16_takes(cfgs[1])
     rng = np.random.default_rng(2)
     jparams = jcnf.cnf_block_init(jax.random.PRNGKey(2), jcnf.CNFConfig(dims=dims, zdim=8))
     params = _to_torch(jax.tree_util.tree_map(np.asarray, jparams))

@@ -14,6 +14,11 @@ interpolation wrappers is plain PyTorch on both devices: on the card it is
 held to the CPU's within 1e-5 of each gradient's max magnitude (atomic
 scatter-adds sum in another order).
 
+The bfloat16 variants of the CNF kernels (matmul_dtype="bf16", the VJP's
+included) are held to their bfloat16 plain versions within 2e-3 of each
+output's max magnitude, and within 1.5x the plain version's distance from
+the float64 value without rounding (chip_smoke.py phase 13's bars).
+
 The fused SA kernel is held to its plain version within 1e-4 of each
 output's largest magnitude, in float32 (random balls) and against the plain
 version in float64 at model-like shapes (chip_smoke.py's bar: GroupNorm
@@ -38,6 +43,7 @@ plain version's own mean (or 2e-4 at the protocol's size, if that is more).
 import pytest
 import torch
 
+from caspr_tpu_torch.checks.vjp_bf16_agreement import model_like_vjp_inputs
 from caspr_tpu_torch.ops import cnf_fused, emd_plain, kernels, pointops, sa_fused
 
 
@@ -375,6 +381,33 @@ def test_cnf_dynamics_vjp_against_float64_on_the_card(cuda, h, num_hidden, n):
     exact = cnf_fused.dynamics_vjp_packed(*(a.double() for a in args))
     for name, gg, x in zip(("dy", "dgb", "dw_first", "dw_hidden", "dw_last"), got, exact):
         assert _rel(gg, x) <= 1e-4, (name, _rel(gg, x))
+
+
+@pytest.mark.parametrize("h", [128, 512])
+@pytest.mark.parametrize("num_hidden, n", [(2, 77), (1, 256), (2, 256)])
+def test_cnf_dynamics_vjp_bf16_against_its_plain_version_on_the_card(cuda, h, num_hidden, n):
+    """The VJP's bfloat16 variant (matmul_dtype="bf16") held to its bfloat16
+    plain version at chip_smoke.py's phase-13 bars: each output within 2e-3
+    of its largest magnitude (a bfloat16 rounding of an activation or of dm
+    may flip by one unit where the float32 sums' order differs), within 1.5x
+    the plain version's distance from the float64 VJP without rounding, two
+    launches bit-equal; counted under its own name, the float32 VJP not.
+    One and two hidden layers, the bf16 mode's reach (bf16_takes), and the
+    ODEnet drawn as the model draws it, its gates and biases from
+    context_gb: caspr_tpu_torch/checks/vjp_bf16_agreement.py prints how far
+    two correct bf16 VJPs lie apart for these and for other inputs."""
+    args = [t.to(cuda) for t in model_like_vjp_inputs(h, num_hidden, n, seed=h + num_hidden)]
+    kernels.reset_launches()
+    got = kernels.cnf_dynamics_vjp(*args, "bf16")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.launches.items() if v} == {"cnf_dynamics_vjp_bf16": 1}
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels.cnf_dynamics_vjp(*args, "bf16")))
+    plain = cnf_fused.dynamics_vjp_packed(*args, "bf16")
+    exact = cnf_fused.dynamics_vjp_packed(*(a.double() for a in args))
+    for name, gg, p, x in zip(("dy", "dgb", "dw_first", "dw_hidden", "dw_last"), got, plain,
+                              exact):
+        assert _rel(gg, p.double()) <= 2e-3, (name, _rel(gg, p.double()))
+        assert _rel(gg, x) <= 1.5 * _rel(p, x), (name, _rel(gg, x), _rel(p, x))
 
 
 @pytest.mark.parametrize("op", ["gather", "three_interpolate"])

@@ -298,6 +298,7 @@ def test_port_imports_no_jax():
         "import caspr_tpu_torch.viz, caspr_tpu_torch.cli.viz, caspr_tpu_torch.utils.profiling\n"
         "import caspr_tpu_torch.parallel, caspr_tpu_torch.parallel.mesh\n"
         "import caspr_tpu_torch.checks.ranks, caspr_tpu_torch.utils.transforms\n"
+        "import caspr_tpu_torch.checks.vjp_bf16_agreement\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'caspr_tpu'))\n"
         "assert 'caspr_tpu_torch' in sys.modules\n"
         "print('BAD', bad)\n"
