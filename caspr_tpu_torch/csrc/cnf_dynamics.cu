@@ -37,13 +37,18 @@
 // 16 points.
 //
 // The bfloat16 variant (caspr_cnf_dynamics_bf16; _fused_kernel with
-// matmul_dtype="bf16"): kBf16 rounds every product's operands to bfloat16
-// -- y, e and w_first, both streams through the hidden layers in one
-// tensor-core pass (cnf_tc.cuh: layer_product_bf16), the last layer's
-// activations and w_last -- and accumulates in float32; gates, biases,
-// softplus, its sigmoid and the divergence's sum (with e as given) stay
+// matmul_dtype="bf16") rounds every product's operands to bfloat16 -- y, e
+// and w_first, both streams through the hidden layers in one tensor-core
+// pass, the last layer's activations and w_last -- and accumulates in
+// float32; gates, biases and the divergence's sum (with e as given) stay
 // float32.  Its bound is the hidden layers' one pass at the bfloat16 rate,
-// 0.174 ms at 989 TFLOP/s at the size above.
+// 0.174 ms at 989 TFLOP/s at the size above; softplus and its sigmoid (an
+// exponential, a logarithm and a reciprocal per primal activation, 126 M
+// each) need 0.090 ms of the special-function units beside it.  Its kernel,
+// cnf_dynamics_bf16_kernel, runs on cnf_tc.cuh's bfloat16 tile as
+// cnf_primal_bf16_kernel does, with softplus_sigmoid_sfu in its epilogues;
+// the tangent rows are rounded to bfloat16 in the tile as the primal rows
+// are (every read of them rounded them before).
 
 #include "cnf_tc.cuh"
 
@@ -56,22 +61,22 @@ constexpr int kPoints = kRows / 2;  // points per block
 // tile row of point p's primal stream; its tangent row is 8 further
 __device__ __forceinline__ int primal_row(int p) { return (p >> 3) * 16 + (p & 7); }
 
-// w_prep: the hidden weights as cnf_tc.cuh's prep made them, TF32 hi and lo
-// parts (split_weights) or bfloat16 (round_weights, kBf16)
-template <int NCH, bool kBf16>
+// w_split: the hidden weights' TF32 hi and lo parts (cnf_tc.cuh:
+// split_weights)
+template <int NCH>
 __global__ void __launch_bounds__(kThreads, 1)
 cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
                     const float* __restrict__ gb, const float* __restrict__ w_first,
-                    const void* __restrict__ w_prep, const float* __restrict__ w_last,
+                    const float* __restrict__ w_split, const float* __restrict__ w_last,
                     float* __restrict__ dx, float* __restrict__ div,
                     int n, int h, int d, int num_hidden, int gb_rows) {
   constexpr int kHpad = 2 * kChunkN * NCH;
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[2 * ring_stages<kBf16>()];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];
   __shared__ float ys[kPoints * kMaxDim];
   __shared__ float es[kPoints * kMaxDim];
-  const Smem sm = make_smem<kBf16>(smem, bars, kHpad);
-  start_ring<kBf16>(sm, w_prep, kHpad, num_hidden);
+  const Smem sm = make_smem(smem, bars, kHpad);
+  start_ring(sm, w_split, kHpad, num_hidden);
 
   const int tid = threadIdx.x;
   const int bt = blockIdx.y;
@@ -82,7 +87,7 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
   const size_t base = (static_cast<size_t>(bt) * n + n0) * d;
   float* tile = sm.tile;
   for (int i = tid; i < kPoints * d; i += kThreads) {  // es as given: the divergence reads it
-    ys[i] = i < rows * d ? operand<kBf16>(y[base + i]) : 0.f;
+    ys[i] = i < rows * d ? y[base + i] : 0.f;
     es[i] = i < rows * d ? e[base + i] : 0.f;
   }
   consumer_sync();
@@ -95,7 +100,7 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
     }
     float w[kMaxDim];
 #pragma unroll
-    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? operand<kBf16>(w_first[c * d + k]) : 0.f;
+    for (int k = 0; k < kMaxDim; ++k) w[k] = k < d ? w_first[c * d + k] : 0.f;
     const float gate = g[c], beff = g[num_layers * h + c];
 #pragma unroll 4  // independent rows: room for the softplus latencies to overlap
     for (int p = 0; p < kPoints; ++p) {
@@ -104,7 +109,7 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
       for (int k = 0; k < kMaxDim; ++k)
         if (k < d) {
           accp = fmaf(w[k], ys[p * d + k], accp);
-          acct = fmaf(w[k], operand<kBf16>(es[p * d + k]), acct);
+          acct = fmaf(w[k], es[p * d + k], acct);
         }
       const float pre = accp * gate + beff;
       const float ex = expf(-fabsf(pre));
@@ -122,10 +127,7 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
   const int n_wg = wg * kChunkN * NCH;
   float acc[NCH][32];
   for (int l = 0; l < num_hidden; ++l) {
-    if constexpr (kBf16)
-      layer_product_bf16<NCH>(acc, sm, w_prep, kHpad, l, num_hidden, n_wg);
-    else
-      layer_product<NCH>(acc, sm, static_cast<const float*>(w_prep), kHpad, l, num_hidden, n_wg);
+    layer_product<NCH>(acc, sm, w_split, kHpad, l, num_hidden, n_wg);
     // the epilogue in the accumulators, while the other warpgroup may still
     // be reading the tile; padded channels become 0.  Floats 4j + q are a
     // point's primal values, 4j + 2 + q its tangent's, of channel ch + q.
@@ -179,10 +181,10 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k) s[k] = 0.f;
     for (int c = lane; c < h; c += 32) {
-      const float a = operand<kBf16>(tile[tile_at(r, c, kHpad)]);
+      const float a = tile[tile_at(r, c, kHpad)];
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
-        if (k < d) s[k] = fmaf(operand<kBf16>(__ldg(w_last + k * h + c)), a, s[k]);
+        if (k < d) s[k] = fmaf(__ldg(w_last + k * h + c), a, s[k]);
     }
 #pragma unroll
     for (int k = 0; k < kMaxDim; ++k)
@@ -203,18 +205,194 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
   }
 }
 
+// The hidden-layer epilogue of the bfloat16 variant, for two channels of a
+// point's primal row (a0, a1) and tangent row (a2, a3): zp = softplus(pre),
+// zt = m_t * gate * sigmoid(pre), pre = m_p * gate + beff, each rounded to
+// bfloat16; padded channels become 0.
+struct DynamicsEpi {
+  const float* gate;
+  const float* beff;
+  int h;
+  __device__ __forceinline__ void load(int ch, float2& ga, float2& be) const {
+    ga = be = make_float2(0.f, 0.f);
+    if (ch < h) {  // and ch + 1; h is even
+      ga = *reinterpret_cast<const float2*>(gate + ch);
+      be = *reinterpret_cast<const float2*>(beff + ch);
+    }
+  }
+  __device__ __forceinline__ uint2 operator()(float a0, float a1, float a2, float a3, float2 ga,
+                                              float2 be, int ch) const {
+    if (ch >= h) return make_uint2(0u, 0u);
+    float sp0, sig0, sp1, sig1;
+    softplus_sigmoid_sfu(a0 * ga.x + be.x, sp0, sig0);
+    softplus_sigmoid_sfu(a1 * ga.y + be.y, sp1, sig1);
+    return make_uint2(pack_bf16x2(sp0, sp1), pack_bf16x2(a2 * ga.x * sig0, a3 * ga.y * sig1));
+  }
+};
+
+// The bfloat16 variant's first layer, D -> H, into the tile: thread tid
+// takes the channel pairs 2 q, 2 q + 1, q = tid + 256 j, of the primal and
+// the tangent row of two points at a time (channels past h become 0).  kD
+// is d (3, the model's) or kMaxDim with d at run time.
+template <int NCH, int kD>
+__device__ __forceinline__ void first_layer_bf16(const TileSmem& sm, const float* ys,
+                                                 const float* es,
+                                                 const float* __restrict__ w_first,
+                                                 const float* g, int h, int d, int num_layers) {
+  constexpr int kPairs = kChunkN * NCH;  // H_pad / 2
+  constexpr int kPpt = (kPairs + kThreads - 1) / kThreads;
+  const int dd = kD == kMaxDim ? d : kD;  // ys's and es's row stride
+  float w[kPpt][2][kD], gate[kPpt][2], beff[kPpt][2];
+#pragma unroll
+  for (int j = 0; j < kPpt; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = 2 * (threadIdx.x + kThreads * j) + q;
+      const bool live = c < h;
+#pragma unroll
+      for (int k = 0; k < kD; ++k)
+        w[j][q][k] = live && k < d ? operand<true>(w_first[c * d + k]) : 0.f;
+      gate[j][q] = live ? g[c] : 0.f;
+      beff[j][q] = live ? g[num_layers * h + c] : 0.f;
+    }
+#pragma unroll 2  // independent points and channels: room for the latencies to overlap
+  for (int p = 0; p < kPoints; ++p) {
+#pragma unroll
+    for (int j = 0; j < kPpt; ++j) {
+      const int c = 2 * (threadIdx.x + kThreads * j);
+      if (c >= 2 * kPairs) continue;
+      float zp[2], zt[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float accp = 0.f, acct = 0.f;
+#pragma unroll
+        for (int k = 0; k < kD; ++k)
+          if (kD < kMaxDim || k < d) {
+            accp = fmaf(w[j][q][k], ys[p * dd + k], accp);
+            acct = fmaf(w[j][q][k], operand<true>(es[p * dd + k]), acct);
+          }
+        float sp, sig;
+        softplus_sigmoid_sfu(accp * gate[j][q] + beff[j][q], sp, sig);
+        const bool live = c + q < h;
+        zp[q] = live ? sp : 0.f;
+        zt[q] = live ? acct * gate[j][q] * sig : 0.f;
+      }
+      *reinterpret_cast<uint32_t*>(sm.tile + btile_at(primal_row(p), c)) = pack_bf16x2(zp[0], zp[1]);
+      *reinterpret_cast<uint32_t*>(sm.tile + btile_at(primal_row(p) + 8, c)) =
+          pack_bf16x2(zt[0], zt[1]);
+    }
+  }
+}
+
+// The bfloat16 variant's last layer, H -> D: warp wid takes rows 8 wid ..
+// 8 wid + 7, the primal rows of points 8 (wid / 2) .. 8 (wid / 2) + 7 for
+// even wid, their tangent rows for odd wid.
+template <int kD>
+__device__ __forceinline__ void last_layer_bf16(const TileSmem& sm, const float* g,
+                                                const float* es, float* dx, float* div,
+                                                size_t base, size_t point0, int rows, int h,
+                                                int d, int num_layers) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const bool tangent = wid & 1;
+  const float* gl = g + (num_layers - 1) * h;
+  const float* bl = g + (2 * num_layers - 1) * h;
+  float s[8][kD];
+  last_layer_sums<kD>(sm, 8 * wid, h, d, s);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int p = (wid >> 1) * 8 + i;
+    if (p >= rows) continue;
+    if (!tangent) {
+#pragma unroll
+      for (int k = 0; k < kD; ++k)
+        if (k == lane && k < d) dx[base + p * d + k] = s[i][k] * gl[k] + bl[k];
+    } else if (lane == 0) {
+      float acc_div = 0.f;
+#pragma unroll
+      for (int k = 0; k < kD; ++k)
+        if (k < d) acc_div += s[i][k] * gl[k] * es[p * d + k];
+      div[point0 + p] = acc_div;
+    }
+  }
+}
+
+// w_tiled: the hidden weights in bfloat16, as cnf_tc.cuh's tile_weights made
+// them
+template <int NCH>
+__global__ void __launch_bounds__(kThreads, 1)
+cnf_dynamics_bf16_kernel(const float* __restrict__ y, const float* __restrict__ e,
+                         const float* __restrict__ gb, const float* __restrict__ w_first,
+                         const void* __restrict__ w_tiled, const float* __restrict__ w_last,
+                         float* __restrict__ dx, float* __restrict__ div,
+                         int n, int h, int d, int num_hidden, int gb_rows) {
+  constexpr int kHpad = 2 * kChunkN * NCH;
+  constexpr int ks = kHpad / kSliceKBf16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[4 * kStagesT];
+  __shared__ float ys[kPoints * kMaxDim];
+  __shared__ float es[kPoints * kMaxDim];
+  const TileSmem sm = make_tile_smem(smem, bars, kHpad);
+  const int stages = num_hidden * NCH * (ks / kSubT);
+  start_tile_ring(sm, w_tiled, ks, stages);
+
+  const int tid = threadIdx.x;
+  const int bt = blockIdx.y;
+  const int n0 = blockIdx.x * kPoints;
+  const int rows = min(kPoints, n - n0);
+  const int num_layers = num_hidden + 2;
+  const float* g = gb + static_cast<size_t>(bt) * gb_rows * h;  // row l gate, L+l bias
+  const size_t base = (static_cast<size_t>(bt) * n + n0) * d;
+  for (int i = tid; i < kPoints * d; i += kThreads) {  // es as given: the divergence reads it
+    ys[i] = i < rows * d ? operand<true>(y[base + i]) : 0.f;
+    es[i] = i < rows * d ? e[base + i] : 0.f;
+  }
+  stage_w_last(sm, w_last, h, d, kHpad);
+  consumer_sync();
+
+  if (d == 3)
+    first_layer_bf16<NCH, 3>(sm, ys, es, w_first, g, h, d, num_layers);
+  else
+    first_layer_bf16<NCH, kMaxDim>(sm, ys, es, w_first, g, h, d, num_layers);
+  fence_async_smem();
+  consumer_sync();
+
+  // hidden layers: H -> H on the tensor cores, in place on the tile
+  const int n_wg = (tid >> 7) * kChunkN * NCH;
+  for (int l = 0; l < num_hidden; ++l) {
+    const DynamicsEpi epi{g + (1 + l) * h, g + (num_layers + 1 + l) * h, h};
+    layer_bf16<NCH>(sm, w_tiled, l, stages, n_wg, epi);
+  }
+
+  const size_t point0 = static_cast<size_t>(bt) * n + n0;
+  if (d == 3)
+    last_layer_bf16<3>(sm, g, es, dx, div, base, point0, rows, h, d, num_layers);
+  else
+    last_layer_bf16<kMaxDim>(sm, g, es, dx, div, base, point0, rows, h, d, num_layers);
+}
+
 template <int NCH, bool kBf16>
 cudaError_t launch(const float* y, const float* e, const float* gb, const float* w_first,
                    const void* w_prep, const float* w_last, float* dx, float* div, int bt,
                    int n, int h, int d, int num_hidden, int gb_rows, cudaStream_t stream) {
-  const size_t smem = smem_bytes<kBf16>(2 * kChunkN * NCH);
-  cudaError_t err = cudaFuncSetAttribute(cnf_dynamics_kernel<NCH, kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  constexpr int kHpad = 2 * kChunkN * NCH;
   const dim3 grid((n + kPoints - 1) / kPoints, bt);
-  cnf_dynamics_kernel<NCH, kBf16><<<grid, kThreads, smem, stream>>>(
-      y, e, gb, w_first, w_prep, w_last, dx, div, n, h, d, num_hidden, gb_rows);
+  cudaError_t err;
+  if constexpr (kBf16) {
+    const size_t smem = btile_smem_bytes(kHpad);
+    err = cudaFuncSetAttribute(cnf_dynamics_bf16_kernel<NCH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cnf_dynamics_bf16_kernel<NCH><<<grid, kThreads, smem, stream>>>(
+        y, e, gb, w_first, w_prep, w_last, dx, div, n, h, d, num_hidden, gb_rows);
+  } else {
+    const size_t smem = smem_bytes(kHpad);
+    err = cudaFuncSetAttribute(cnf_dynamics_kernel<NCH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cnf_dynamics_kernel<NCH><<<grid, kThreads, smem, stream>>>(
+        y, e, gb, w_first, static_cast<const float*>(w_prep), w_last, dx, div, n, h, d,
+        num_hidden, gb_rows);
+  }
   return cudaGetLastError();
 }
 
@@ -227,7 +405,7 @@ int dynamics(const float* y, const float* e, const float* gb, const float* w_fir
   if (bt == 0 || n == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      kBf16 ? round_weights(w_hidden, static_cast<__nv_bfloat16*>(w_prep), h, num_hidden, s)
+      kBf16 ? tile_weights(w_hidden, static_cast<__nv_bfloat16*>(w_prep), h, num_hidden, s)
             : split_weights(w_hidden, static_cast<float*>(w_prep), h, num_hidden, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 #define CASPR_DYNAMICS_CASE(k)                                                                 \
@@ -262,7 +440,7 @@ extern "C" int caspr_cnf_dynamics(const float* y, const float* e, const float* g
 }
 
 // The bfloat16 variant: w_bf16 is scratch of num_hidden * H_pad^2 bfloat16
-// values for w_hidden rounded.
+// values for w_hidden rounded and tiled.
 extern "C" int caspr_cnf_dynamics_bf16(const float* y, const float* e, const float* gb,
                                        const float* w_first, const float* w_hidden,
                                        const float* w_last, void* w_bf16, float* dx, float* div,

@@ -34,21 +34,67 @@
 // warpgroup owns a multiple of the 64-wide wgmma); padded channels have
 // zero weights and are written as 0, so they add nothing to the next layer.
 //
-// The bfloat16 mode (kBf16; the JAX package's CASPR_TPU_CNF_MATMUL=bf16,
+// The bfloat16 mode (the JAX package's CASPR_TPU_CNF_MATMUL=bf16,
 // caspr_tpu/ops/cnf_fused.py `mm`) rounds both operands of every product to
 // bfloat16 (nearest, ties to even) and accumulates in float32, in one
-// tensor-core pass: layer_product_bf16.  A stage is then a K-slice of 16
-// input channels of the weights rounded once per call by
-// round_weights_kernel (H_pad x 16 bfloat16, in the same core-matrix layout
-// and so the same descriptor as a TF32 part), half a TF32 stage, so the
-// ring holds four (the tile stays float32: the epilogues and the last layer
-// read it).  The A fragment is made from the float32 tile with
-// cvt.rn.bf16x2.f32.  The products of bfloat16 values are exact in float32,
-// and their rounding (2^-9 relative a factor) outweighs the accumulator's
-// truncation by far, so one accumulator runs over all of K.  The VJP's
-// bfloat16 variant (cnf_dynamics_vjp.cu) runs its forward recompute and its
-// reverse products [cp; ct] = dm W through layer_product_bf16 too, on a ring
-// of the rounded W_l followed by the rounded W_l^T.
+// tensor-core pass.  Its bound at the phase-2 shape (40 clouds x 2048
+// points, H 512, two hidden layers): the hidden layers' products at 989
+// TFLOP/s, 0.087 ms for cnf_primal's rows and 0.174 ms for cnf_dynamics's
+// twice as many; softplus's exponential and logarithm, 126 M of each
+// (cnf_primal), 0.060 ms on the special-function units.
+//
+// The forward kernels' bfloat16 variants (cnf_primal.cu, cnf_dynamics.cu)
+// run on a tile of their own (the second half of this file):
+//   - softplus (and the tangent's sigmoid) on the special-function units:
+//     ex2.approx, lg2.approx and rcp.approx (softplus_sfu,
+//     softplus_sigmoid_sfu), with log1p(u) from its series below u = 1/16,
+//     within 2^-16 relative of float64 (2^-17.9 measured) for every float32
+//     input whose softplus is a normal float32 (x >= -87.3; below, 0 where
+//     the exact value is under 2^-126).  Every consumer rounds the result
+//     to bfloat16 (2^-9), so the float32-exact expf and log1pf of the
+//     float32 mode buy nothing that survives; they were 42% of the kernel.
+//   - a bfloat16 layer tile: the first layer's and each hidden layer's
+//     epilogue round their outputs to bfloat16 once (cvt.rn, the same bits
+//     as rounding them on every read) and store them in wgmma's K-major
+//     core-matrix layout (8 rows x 16 B a core matrix, the 8 row groups of
+//     a K-chunk of 8 columns 128 B apart, K-chunks kTileLbo = 1040 B apart:
+//     the 16 B pad puts the last layer's lane-strided reads on distinct
+//     banks), so the products take A from shared memory by descriptor, with
+//     no fragment loads or conversions.  64 rows x 512 channels is 65 KB,
+//     half the float32 tile.  The layer runs in place: its outputs wait in
+//     registers as bfloat16 pairs (64 a thread at H 512) until both
+//     warpgroups are done reading the tile.
+//   - steps of 8 K-slices: a warpgroup takes its output channels one chunk
+//     of 64 at a time (32 accumulators), each chunk in steps of kSubT = 8
+//     K-slices of 16 (8 wgmmas, one commit group, one 16 KB stage): a
+//     step's barriers and issue cost the same whatever its products, so
+//     the steps are few (16 a warpgroup and layer at H 512).
+//     Each warpgroup streams its own half of the weights (tile_weights_kernel
+//     orders them by layer, warpgroup, chunk and K-slice) through a ring of
+//     its own with its own producer thread, so the two never wait for each
+//     other within a layer.
+//   - the last layer's weights rounded into shared memory once a block,
+//     and the last layer summing a warp's 8 rows side by side (each sum in
+//     the float32 kernel's order); the first and last layers specialised
+//     for D = 3, the model's point dimension.
+// Overlap of the epilogues with the products was built twice and measured
+// slower (layer_bf16 says how): the products are a third of a layer, and
+// the steps' issue path the rest.  The K-slices of a chunk are summed in the
+// tensor cores in the rotated order of layer_product_bf16, so with an exact
+// softplus the outputs are bit-equal to those of the float32-tile design
+// that rounded on every read (checks/cnf_tc_breakdown.py builds that
+// variant and compares them).
+//
+// The VJP's bfloat16 variant (cnf_dynamics_vjp.cu) keeps the float32 tile:
+// layer_product_bf16 rounds each A fragment from it with cvt.rn.bf16x2.f32
+// and runs one m64n64k16 product per chunk over all of K, from weights
+// rounded once per call by round_weights_kernel (H_pad x 16 bfloat16 a
+// stage, in the layout of one TF32 part, so b_desc serves both), on a ring
+// of four stages, for its forward recompute and its reverse products [cp;
+// ct] = dm W, of the rounded W_l followed by the rounded W_l^T.  The
+// products of bfloat16 values are exact in float32, and their rounding
+// (2^-9 relative a factor) outweighs the accumulator's truncation by far,
+// so one accumulator runs over all of K.
 
 #pragma once
 
@@ -538,6 +584,380 @@ inline cudaError_t round_weights(const float* w_hidden, __nv_bfloat16* w_bf16, i
   round_weights_kernel<<<static_cast<unsigned int>(blocks), 256, 0, stream>>>(
       w_hidden, w_bf16, h, hpad, num_hidden);
   return cudaGetLastError();
+}
+
+// ============================================ the bfloat16 forward tile
+
+constexpr int kStagesT = 4;  // stages of each warpgroup's ring
+constexpr int kAheadT = 3;   // stages a ring is loaded ahead
+// a tiled K-slice: 16 input channels x one warpgroup's 64 output channels
+// of a chunk
+constexpr int kSliceT = kChunkN * kSliceKBf16 * 2;
+constexpr int kSubT = 8;                  // K-slices a stage
+constexpr int kStageT = kSubT * kSliceT;  // 16 KB
+// bytes between the K-chunks (8 columns) of the tile: 8 core matrices of
+// 8 rows x 16 B, and a 16 B pad
+constexpr int kTileLbo = kRows / 8 * 128 + 16;
+
+__host__ __device__ inline int btile_bytes(int hpad) { return hpad / 8 * kTileLbo; }
+// the two rings, the tile and the last layer's weights (kMaxDim bfloat16
+// values a channel)
+inline size_t btile_smem_bytes(int hpad) {
+  return 2 * static_cast<size_t>(kStagesT) * kStageT + static_cast<size_t>(btile_bytes(hpad)) +
+         static_cast<size_t>(hpad) * kMaxDim * 2;
+}
+// byte offset of row r, column c in a bfloat16 tile
+__device__ __forceinline__ uint32_t btile_at(int r, int c) {
+  return (c >> 3) * kTileLbo + (r >> 3) * 128 + (r & 7) * 16 + (c & 7) * 2;
+}
+
+__device__ __forceinline__ float ex2_sfu(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ float lg2_sfu(float x) {
+  float r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ float rcp_sfu(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// log1p(u) for u = exp(-|x|) in [0, 1], with w = 1 + u: below 1/16 its
+// series to u^5 (the rest is under 2^-22 of it), else lg2(w) ln 2
+// (lg2.approx's absolute error, 2^-22, and w's rounding are under 2^-18 of
+// log1p(1/16))
+__device__ __forceinline__ float log1p_sfu(float u, float w) {
+  const float series =
+      u * fmaf(u, fmaf(u, fmaf(u, fmaf(u, 0.2f, -0.25f), 0.333333343f), -0.5f), 1.f);
+  return u < 0.0625f ? series : lg2_sfu(w) * 0.693147182f;
+}
+
+// softplus(x) = max(x, 0) + log1p(exp(-|x|)) on the special-function units
+// (exp(-|x|) = 2^(-|x| log2 e): its argument's rounding is 2^-17.2 relative
+// at |x| = 87.3, the most that matters)
+__device__ __forceinline__ float softplus_sfu(float x) {
+  const float u = ex2_sfu(fabsf(x) * -1.44269502f);
+  return fmaxf(x, 0.f) + log1p_sfu(u, 1.f + u);
+}
+
+// softplus(x) and sigmoid(x) = 1 / (1 + u) (x >= 0) or u / (1 + u), u =
+// exp(-|x|), sharing u and 1 + u
+__device__ __forceinline__ void softplus_sigmoid_sfu(float x, float& sp, float& sig) {
+  const float u = ex2_sfu(fabsf(x) * -1.44269502f);
+  const float w = 1.f + u;
+  const float r = rcp_sfu(w);
+  sig = x >= 0.f ? r : u * r;
+  sp = fmaxf(x, 0.f) + log1p_sfu(u, w);
+}
+
+// w_hidden (L, H, H) in (out, in) layout -> bfloat16, per layer, warpgroup
+// (its half of the output channels), chunk c of 64 of them and K-slice of
+// 16 one contiguous piece of kSliceT bytes: 64 x 16 values in the layout of
+// round_weights_kernel's stages (b_desc).  A warpgroup's chunk is thus its
+// K-slices one after another, which its ring streams.
+static __global__ void tile_weights_kernel(const float* __restrict__ w,
+                                           __nv_bfloat16* __restrict__ out, int h, int hpad,
+                                           int num_hidden) {
+  const long long total = static_cast<long long>(num_hidden) * hpad * hpad;
+  const int ks = hpad / kSliceKBf16, nch = hpad / (2 * kChunkN), half = hpad / 2;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int k = static_cast<int>(i % hpad);
+    const long long rest = i / hpad;
+    const int o = static_cast<int>(rest % hpad);
+    const int l = static_cast<int>(rest / hpad);
+    const float v = (o < h && k < h) ? w[(static_cast<size_t>(l) * h + o) * h + k] : 0.f;
+    const int wg = o / half, c = (o % half) / kChunkN, oc = o % kChunkN;
+    const int kl = k % kSliceKBf16;
+    const size_t at =
+        ((static_cast<size_t>(l * 2 + wg) * nch + c) * ks + k / kSliceKBf16) * (kSliceT / 2) +
+        (oc / 8) * 128 + (kl / 8) * 64 + (oc % 8) * 8 + kl % 8;
+    out[at] = __float2bfloat16_rn(v);
+  }
+}
+
+// Launch tile_weights_kernel: w_tiled holds num_hidden * H_pad * H_pad
+// bfloat16 values.
+inline cudaError_t tile_weights(const float* w_hidden, __nv_bfloat16* w_tiled, int h,
+                                int num_hidden, cudaStream_t stream) {
+  const int hpad = padded_width(h);
+  const long long total = static_cast<long long>(num_hidden) * hpad * hpad;
+  if (total == 0) return cudaSuccess;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 132LL * 8) blocks = 132LL * 8;
+  tile_weights_kernel<<<static_cast<unsigned int>(blocks), 256, 0, stream>>>(
+      w_hidden, w_tiled, h, hpad, num_hidden);
+  return cudaGetLastError();
+}
+
+// d (64 x 64, this thread's 32 floats) (+)= a (64 x 16 bf16) x b (16 x 64
+// bf16), both from shared memory, K-major; float32 accumulation
+__device__ __forceinline__ void mma_m64n64k16_bf16_ss(float (&d)[32], uint64_t a_desc,
+                                                      uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// the A operand: 64 rows x 16 columns of a bfloat16 tile from addr (the
+// K-slice's first column): K-chunks kTileLbo apart (LBO), row groups 128 B
+// apart (SBO)
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kTileLbo >> 4) << 16) | (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
+// the generic proxy's stores to a tile, made visible to the tensor cores
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Shared memory of a bfloat16 forward block: the two warpgroups' rings,
+// the tile, the last layer's weights.
+struct TileSmem {
+  uint32_t stages;  // shared address of warpgroup 0's stage 0; warpgroup 1's follow
+  uint32_t full;    // the "stage filled" barriers, kStagesT a warpgroup
+  uint32_t empty;   // the "stage released" barriers, kStagesT a warpgroup
+  unsigned char* tile;
+  __nv_bfloat16* w_last;  // [channel][kMaxDim], rounded
+};
+
+__device__ __forceinline__ TileSmem make_tile_smem(unsigned char* dyn, uint64_t* bars,
+                                                   int hpad) {
+  TileSmem sm;
+  sm.stages = smem_addr(dyn);
+  sm.full = smem_addr(bars);
+  sm.empty = smem_addr(bars + 2 * kStagesT);
+  sm.tile = dyn + 2 * kStagesT * kStageT;
+  sm.w_last = reinterpret_cast<__nv_bfloat16*>(sm.tile + btile_bytes(hpad));
+  return sm;
+}
+
+// One warpgroup's ring: its stages and barriers.
+struct Ring {
+  uint32_t stages, full, empty;
+};
+
+__device__ __forceinline__ Ring ring_of(const TileSmem& sm, int wg) {
+  return {sm.stages + wg * kStagesT * kStageT, sm.full + 8 * wg * kStagesT,
+          sm.empty + 8 * wg * kStagesT};
+}
+
+// Warpgroup wg's producer (its thread 0) loads stage s of its stream --
+// step s % spc of chunk (s / spc) % NCH of layer s / (spc NCH), spc = ks /
+// kSubT steps a chunk, NCH = ks / 8 chunks a layer -- into buffer s %
+// kStagesT of its ring, once its 4 warps have released the stage that
+// buffer held before.  Its kSubT K-slices follow the block's rotated order,
+// in one bulk copy or, where they wrap around the chunk's last slice, two.
+__device__ __forceinline__ void load_tslice(const Ring& rg, const void* __restrict__ w, int ks,
+                                            int wg, int s) {
+  const int stage = s % kStagesT;
+  const int spc = ks / kSubT, nch = ks / 8;
+  const int lc = s / spc;  // layer * nch + chunk
+  const int kk = rotated_slice((s % spc) * kSubT, ks);
+  const int head = min(kSubT, ks - kk);  // slices before the wrap
+  const unsigned char* src =
+      static_cast<const unsigned char*>(w) +
+      (static_cast<size_t>((lc / nch) * 2 + wg) * nch + lc % nch) * ks * kSliceT;
+  const uint32_t dst = rg.stages + stage * kStageT;
+  mbar_wait(rg.empty + 8 * stage, ((s / kStagesT) & 1) ^ 1);
+  mbar_expect_tx(rg.full + 8 * stage, kStageT);
+  bulk_load(dst, src + static_cast<size_t>(kk) * kSliceT, head * kSliceT, rg.full + 8 * stage);
+  if (head < kSubT) bulk_load(dst + head * kSliceT, src, (kSubT - head) * kSliceT, rg.full + 8 * stage);
+}
+
+// Barrier set-up (the kernel's one __syncthreads) and the first kAheadT
+// stages of each ring.
+__device__ __forceinline__ void start_tile_ring(const TileSmem& sm, const void* __restrict__ w,
+                                                int ks, int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2 * kStagesT; ++s) {
+      mbar_init(sm.full + 8 * s, 1);
+      mbar_init(sm.empty + 8 * s, kThreads / 64);  // the warpgroup's 4 warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if ((threadIdx.x & 127) == 0) {
+    const int wg = threadIdx.x >> 7;
+    const Ring rg = ring_of(sm, wg);
+    for (int s = 0; s < kAheadT && s < stages; ++s) load_tslice(rg, w, ks, wg, s);
+  }
+}
+
+// Epilogue unit j of a chunk: channels ch, ch + 1 (ch = ch0 + 8 j; ch0 =
+// 64 c + 2 t of this warpgroup's half) of rows r0 (floats 4 j, 4 j + 1) and
+// r0 + 8 (4 j + 2, 4 j + 3), as epi makes them from its gates ga and biases
+// be (two bfloat16 pairs), into o[2 j] and o[2 j + 1].  j is a constant
+// wherever the loops around a call are unrolled.
+template <class Epi>
+__device__ __forceinline__ void epilogue_unit(const float (&a)[32], float2 ga, float2 be, int j,
+                                              int ch0, uint32_t (&o)[16], const Epi& epi) {
+  const uint2 v = epi(a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3], ga, be, ch0 + 8 * j);
+  o[2 * j] = v.x;
+  o[2 * j + 1] = v.y;
+}
+
+// All 8 units of a chunk, their gates and biases read first.
+template <class Epi>
+__device__ __forceinline__ void epilogue_chunk(const float (&a)[32], int ch0, uint32_t (&o)[16],
+                                               const Epi& epi) {
+  float2 ga[8], be[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) epi.load(ch0 + 8 * j, ga[j], be[j]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) epilogue_unit(a, ga[j], be[j], j, ch0, o, epi);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(a[i]);
+}
+
+// Hidden layer `layer` of a bfloat16 forward kernel, in place on the tile:
+// tile = epi(tile x W^T) for this warpgroup's channels n_wg .. n_wg + 64 NCH
+// - 1, chunk by chunk (64 channels), each chunk in spc = NCH steps of kSubT
+// K-slices from the warpgroup's ring (stages (layer NCH + c) spc + m of its
+// stream): step m waits for its stage, issues its wgmmas (A from the tile,
+// B from the stage) as one group, releases the stage of step m - 1 once its
+// group is done, and the producer refills kAheadT stages ahead; after a
+// chunk's products its epilogue.  A step's barriers and issue cost the
+// same whatever its products, so it carries kSubT K-slices: 16 steps a
+// warpgroup and layer at H 512.  The two warpgroups' rings are
+// apart, so neither waits for the other within a layer.  The epilogue's
+// outputs wait in registers, bfloat16 pairs, until both warpgroups are done
+// reading the tile; then they overwrite it.
+//
+// No epilogue overlaps the products.  A warpgroup's wgmma issue stalls
+// while the tensor cores are busy, so only another warpgroup's products can
+// hide its epilogue: taking turns (a ping-pong, one warpgroup issuing a
+// chunk's products once the other has issued its previous chunk's, then
+// running that chunk's epilogue; checks/cnf_tc_breakdown.py's `pingpong`
+// variant) measured slower at the phase-2 shape (NVIDIA H100 80GB HBM3,
+// 700.00 W): 0.459 against 0.419 ms for cnf_primal's, 0.763 against 0.684
+// for cnf_dynamics's.  The products take a third of a layer and each step's
+// issue path the rest, and turns serialise the two warpgroups' issue.
+// (Interleaving the previous chunk's epilogue between a warpgroup's own
+// steps was slower too, and spilled at H 512.)
+template <int NCH, class Epi>
+__device__ __forceinline__ void layer_bf16(const TileSmem& sm, const void* __restrict__ w,
+                                           int layer, int stages, int n_wg, const Epi& epi) {
+  constexpr int ks = 8 * NCH;  // K-slices of 16: H_pad / 16
+  constexpr int spc = ks / kSubT;
+  constexpr int kUnits = kChunkN / 8;
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int t2 = 2 * (lane & 3);
+  const bool producer = (threadIdx.x & 127) == 0;
+  const uint32_t a_base = smem_addr(sm.tile);
+  const Ring rg = ring_of(sm, wg);
+  float acc[32];
+  uint32_t outp[NCH][16];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+    for (int m = 0; m < spc; ++m) {
+      const int s = (layer * NCH + c) * spc + m;
+      const int stage = s % kStagesT;
+      mbar_wait(rg.full + 8 * stage, (s / kStagesT) & 1);
+      __syncwarp();  // the wgmmas below are warp-aligned
+      const uint32_t b_base = rg.stages + stage * kStageT;
+      if (m == 0) wgmma_fence();  // acc was the last chunk's epilogue's
+#pragma unroll
+      for (int j = 0; j < kSubT; ++j) {
+        const int kk = rotated_slice(m * kSubT + j, ks);
+        mma_m64n64k16_bf16_ss(acc, a_desc(a_base + kk * 2 * kTileLbo),
+                              b_desc(b_base + j * kSliceT), m > 0 || j > 0);
+      }
+      wgmma_commit();
+      if (m > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(rg.empty + 8 * ((s - 1) % kStagesT));
+      }
+      if (producer && s + kAheadT < stages) load_tslice(rg, w, ks, wg, s + kAheadT);
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(rg.empty + 8 * (((layer * NCH + c) * spc + spc - 1) % kStagesT));
+    fence_all(acc);
+    epilogue_chunk(acc, n_wg + c * kChunkN + t2, outp[c], epi);
+  }
+  consumer_sync();  // both warpgroups' products are done with the tile
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      const int ch = n_wg + c * kChunkN + 8 * j + t2;
+      *reinterpret_cast<uint32_t*>(sm.tile + btile_at(r0, ch)) = outp[c][2 * j];
+      *reinterpret_cast<uint32_t*>(sm.tile + btile_at(r0 + 8, ch)) = outp[c][2 * j + 1];
+    }
+  fence_async_smem();
+  consumer_sync();  // the layer's output is in the tile
+}
+
+// The last layer's weights w_last (d, H), rounded to bfloat16, into
+// sm.w_last as [channel][kMaxDim] (0 past d and past H): one 16-byte load
+// gives a channel's weights.
+__device__ __forceinline__ void stage_w_last(const TileSmem& sm, const float* __restrict__ w_last,
+                                             int h, int d, int hpad) {
+  for (int i = threadIdx.x; i < hpad * kMaxDim; i += kThreads) {
+    const int c = i / kMaxDim, k = i % kMaxDim;
+    sm.w_last[i] = __float2bfloat16_rn(c < h && k < d ? w_last[k * h + c] : 0.f);
+  }
+}
+
+// The last layer's sums for the 8 rows r8 .. r8 + 7 of the tile: s[i][k] =
+// sum over channels c of w_last[k, c] z[r8 + i, c] for k < d (kD = d, or
+// kMaxDim with d at run time), lane c % 32 taking c = lane, lane + 32, ...
+// in turn and a butterfly over the lanes (the float32 kernel's order for
+// each sum; the 8 rows side by side).
+template <int kD>
+__device__ __forceinline__ void last_layer_sums(const TileSmem& sm, int r8, int h, int d,
+                                                float (&s)[8][kD]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int k = 0; k < kD; ++k) s[i][k] = 0.f;
+#pragma unroll 2
+  for (int c = lane; c < h; c += 32) {
+    const uint4 wv = *reinterpret_cast<const uint4*>(sm.w_last + c * kMaxDim);
+    const uint32_t wp[4] = {wv.x, wv.y, wv.z, wv.w};
+    float wk[kD];
+#pragma unroll
+    for (int k = 0; k < kD; ++k)
+      wk[k] = __uint_as_float(k & 1 ? wp[k / 2] & 0xFFFF0000u : wp[k / 2] << 16);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float a =
+          __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(sm.tile + btile_at(r8 + i, c)));
+#pragma unroll
+      for (int k = 0; k < kD; ++k)
+        if (kD < kMaxDim || k < d) s[i][k] = fmaf(wk[k], a, s[i][k]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int k = 0; k < kD; ++k) {
+      if (kD == kMaxDim && k >= d) continue;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s[i][k] += __shfl_xor_sync(0xffffffffu, s[i][k], off);
+    }
 }
 
 }  // namespace cnf_tc

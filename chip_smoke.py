@@ -188,7 +188,12 @@ Phases, each of which raises on failure:
      decoder, random cotangents), against their bfloat16 plain versions
      (each output within 2e-3 of its largest magnitude, within 1.5x the
      plain version's distance from float64, two launches bit-equal), timed
-     with their bound at the bfloat16 rate; (b) phase 3's reconstruct (its input and
+     with their bound at the bfloat16 rate; the two forward ones also at H
+     128, 256, 384 and 512 with one and two hidden layers, and with D = 5 at
+     H 256, on 8 clouds of 500 points (a ragged last tile) with the same
+     bars, and their softplus
+     and sigmoid (cnf_tc.cuh's special-function forms, built into a probe)
+     within 2^-16 relative of float64; (b) phase 3's reconstruct (its input and
      base samples, the demo weights) in bfloat16 beside float32, f32, bf16,
      bf16, f32, and the bfloat16 sample-div decode with phase 12's noise:
      NFE, seconds, the CNF launches (cnf_primal_bf16 once per CNF
@@ -305,8 +310,8 @@ def card_line() -> str:
 # per source: its kernels whose products run on the tensor cores, and the
 # SASS instruction of their products (wgmma: HGMMA; mma.sync: HMMA)
 TENSOR_CORE_KERNELS = {
-    "cnf_primal": (("cnf_primal_kernel",), "HGMMA"),
-    "cnf_dynamics": (("cnf_dynamics_kernel",), "HGMMA"),
+    "cnf_primal": (("cnf_primal_kernel", "cnf_primal_bf16_kernel"), "HGMMA"),
+    "cnf_dynamics": (("cnf_dynamics_kernel", "cnf_dynamics_bf16_kernel"), "HGMMA"),
     "cnf_dynamics_vjp": (("vjp_tile_kernel", "wgrad_tc_kernel"), "HGMMA"),
     "sa_fused": (("sa_fused_kernel",), "HMMA"),
 }
@@ -355,6 +360,10 @@ def build_facts(lib_path, build_dir):
                                  static_smem_bytes=int(smem.group(1)) if smem else 0)
         warnings = [w.strip() for w in log.splitlines() if "warning" in w.lower()]
         print(json.dumps({"ptxas": name, "warnings": warnings[:10]}), flush=True)
+        # ptxas serialises wgmma where it cannot prove the accumulators idle
+        # between issue and wait: the products would lose their overlap
+        if any("wgmma" in w for w in warnings):
+            raise AssertionError(f"{name}: ptxas serialised wgmma: {warnings}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}  # per function: {opcode: count}
     if os.path.exists(cuobjdump):
@@ -2977,11 +2986,99 @@ def check_bf16_kernels(torch):
     rows = {name: cnf_bf16_case(torch, name, c, BT * POINTS, wh.shape[0], h)
             for name, c in cases.items()}
     rows["cnf_dynamics_vjp_bf16"] = vjp_bf16_case(torch, odenet, gen)
+    check_bf16_widths(torch, gen)
+    check_sfu(torch)
     for name, row in rows.items():
         bound_ms, bound_by = bound(*row["work"])
         print(json.dumps({"kernel": name, **{k: v for k, v in row.items() if k != "work"},
                           "bound_ms": bound_ms, "bound_by": bound_by}), flush=True)
     return rows
+
+
+# Phase 13(a), more widely: every width and depth where both bf16_takes and
+# kernel_takes hold (H a multiple of 128 up to 512 here; one or two hidden
+# layers) with the model's D = 3, and one with D = 5 (the kernels' path for
+# a point dimension other than 3), on clouds of 500 points (a ragged last
+# tile of either kernel)
+BF16_SHAPES = tuple((h, hidden, 3) for h in (128, 256, 384, 512) for hidden in (1, 2)) + (
+    (256, 2, 5),)
+BF16_WIDTH_CLOUDS, BF16_WIDTH_POINTS = 8, 500
+
+
+def random_packed(torch, gen, bt, h, hidden, d=3):
+    """A concatsquash stack's packed arguments (ops/cnf_fused.py) with
+    caspr_init's scales: weights uniform within 1/sqrt(fan_in), gates in
+    (0, 1), effective biases of about 0.5; the last layer's gates and biases
+    on its d channels only."""
+    dev = torch.device("cuda")
+    uni = lambda shape, fan_in: (2 * torch.rand(shape, generator=gen, device=dev) - 1) / fan_in ** 0.5
+    layers = hidden + 2
+    gb = torch.zeros((bt, max(8, 2 * layers), h), device=dev)
+    gb[:, :layers] = torch.sigmoid(torch.randn((bt, layers, h), generator=gen, device=dev))
+    gb[:, layers:2 * layers] = 0.5 * torch.randn((bt, layers, h), generator=gen, device=dev)
+    gb[:, layers - 1, d:] = 0.0
+    gb[:, 2 * layers - 1, d:] = 0.0
+    return gb, uni((h, d), d), uni((hidden, h, h), h).contiguous(), uni((d, h), h)
+
+
+def check_bf16_widths(torch, gen):
+    """Phase 13(a) at BF16_SHAPES (H, hidden layers, D) on 8 clouds of 500
+    points: cnf_primal_bf16 and cnf_dynamics_bf16 against their bf16 plain
+    versions with cnf_bf16_case's bars (2e-3 of each output's largest, 1.5x
+    the plain version's distance from float64, two launches bit-equal)."""
+    from caspr_tpu_torch.ops import cnf_fused, kernels
+
+    dev = torch.device("cuda")
+    report = {}
+    for h, hidden, d in BF16_SHAPES:
+        gb, wf, wh, wl = random_packed(torch, gen, BF16_WIDTH_CLOUDS, h, hidden, d)
+        y, e = (torch.randn((BF16_WIDTH_CLOUDS, BF16_WIDTH_POINTS, d), generator=gen,
+                            device=dev) for _ in range(2))
+        w64 = [t.double() for t in (gb, wf, wh, wl)]
+        cases = {
+            "cnf_primal_bf16": (lambda: (kernels.cnf_primal(y, gb, wf, wh, wl, "bf16"),),
+                                (cnf_fused.primal_packed(y, gb, wf, wh, wl, "bf16"),),
+                                (cnf_fused.primal_packed(y.double(), *w64),)),
+            "cnf_dynamics_bf16": (lambda: kernels.cnf_dynamics(y, e, gb, wf, wh, wl, "bf16"),
+                                  cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl, "bf16"),
+                                  cnf_fused.dynamics_packed(y.double(), e.double(), *w64)),
+        }
+        for name, (run, plain, exact) in cases.items():
+            got = run()
+            if not all(torch.equal(a, b) for a, b in zip(got, run())):
+                raise AssertionError(f"{name} H {h} x {hidden}, D {d}: two launches differ")
+            dist = lambda a, x: float((a.double() - x).abs().max() / x.abs().max())
+            rels = [dist(g, p.double()) for g, p in zip(got, plain)]
+            vs64 = [dist(g, x) for g, x in zip(got, exact)]
+            plain_vs64 = [dist(p, x) for p, x in zip(plain, exact)]
+            report[f"{name} H{h}x{hidden} D{d}"] = {"rel_err_vs_plain": rels,
+                                                     "rel_err_vs_float64": vs64,
+                                                     "plain_rel_err_vs_float64": plain_vs64}
+            if not max(rels) <= 2e-3:
+                raise AssertionError(f"{name} H {h} x {hidden}, D {d}: relative err against the "
+                                     f"bf16 plain version {rels} > 2e-3")
+            if not all(k <= 1.5 * q for k, q in zip(vs64, plain_vs64)):
+                raise AssertionError(f"{name} H {h} x {hidden}, D {d}: relative err against float64 "
+                                     f"{vs64} > 1.5 x the bf16 plain version's {plain_vs64}")
+    print(json.dumps({"bf16_widths": f"{BF16_WIDTH_CLOUDS} clouds x {BF16_WIDTH_POINTS} points, "
+                      "random weights at caspr_init's scales", "tolerance": "2e-3 of each "
+                      "output's largest against the bf16 plain version; 1.5x its distance from "
+                      "float64; deterministic", "cases": report}), flush=True)
+
+
+def check_sfu(torch):
+    """Phase 13(a): softplus and sigmoid of the bf16 kernels (cnf_tc.cuh
+    softplus_sfu, softplus_sigmoid_sfu, built into a probe) within 2^-16
+    relative of float64 over 4.2 M float32 inputs from -100 to 100, wherever
+    softplus is a normal float32 (x >= -87.3)."""
+    from caspr_tpu_torch.checks import cnf_bf16_arithmetic as arith
+
+    x = arith.sfu_inputs(1 << 21)
+    errs = arith.sfu_probe(x.cuda())
+    print(json.dumps({"sfu": "softplus_sfu and softplus_sigmoid_sfu against float64",
+                      "inputs": int(x.numel()), "bar": arith.SFU_BAR, **errs}), flush=True)
+    if not max(errs["softplus_rel"], errs["sigmoid_rel"]) <= arith.SFU_BAR:
+        raise AssertionError(f"softplus / sigmoid on the special-function units: {errs}")
 
 
 def vjp_bf16_case(torch, odenet, gen):
