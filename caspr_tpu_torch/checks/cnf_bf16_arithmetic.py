@@ -30,8 +30,24 @@ runs on the special-function units.  This module models the three parts:
     SBO apart in M or N), so that the layout can be checked element by
     element without a compiler.
 
-Used by ``tests/test_torch_port_bf16_tile.py`` and ``chip_smoke.py``;
-nothing on the port's paths calls them.
+The bfloat16 VJP (``csrc/cnf_dynamics_vjp.cu``'s ``vjp_bf16_kernel`` and
+``wgrad_bf16_kernel``) runs on the same tile, and this module models it too:
+
+  - ``vjp_tile``: the VJP with each layer input z_l and each dm_l rounded to
+    bfloat16 once, where the tile kernel stores them (in the tile and, as
+    the tile's bytes, in the workspace), the pre-gate products m_l float32,
+    the forward's softplus and sigmoid from ``act`` and the reverse sweep's
+    sigmoid from ``sigmoid`` (exact, or ``sigmoid_sfu``: the sigmoid of
+    ``softplus_sigmoid_sfu``);
+  - ``workspace_at``, ``mn_operand_at``, ``gemm_stage_source`` and
+    ``m_slot``: where the tile kernel writes each element of z and dm in the
+    workspace, where the weight-gradient product's bulk copies and MN-major
+    descriptors read dm^T and z from, and the pre-gate products' fragment
+    order, each as the kernels compute them.
+
+Used by ``tests/test_torch_port_bf16_tile.py``,
+``tests/test_torch_port_bf16_vjp_tile.py`` and ``chip_smoke.py``; nothing on
+the port's paths calls them.
 
 Run as a module on the card, it builds a probe of cnf_tc.cuh's
 ``softplus_sfu`` and ``softplus_sigmoid_sfu`` (``sfu_probe``) and prints
@@ -189,6 +205,60 @@ def dynamics_tile(y, e, gb, w_first, w_hidden, w_last, act=exact_softplus_sigmoi
     return zp, (zt * e).sum(dim=-1)
 
 
+def sigmoid_sfu(x: torch.Tensor, ex2_err: float = 0.0, rcp_err: float = 0.0):
+    """cnf_tc.cuh's sigmoid_sfu: softplus_sigmoid_sfu's sigmoid."""
+    return softplus_sigmoid_sfu(x, ex2_err=ex2_err, rcp_err=rcp_err)[1]
+
+
+def vjp_tile(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div, act=exact_softplus_sigmoid,
+             sigmoid=torch.sigmoid):
+    """The bf16 VJP kernels' function (csrc/cnf_dynamics_vjp.cu, bfloat16
+    variant), in the stream-stacked form of ``dynamics_vjp_packed``: each
+    layer input z_l rounded once where the forward recompute stores it, m_l
+    = z_l W_l^T (float32 sums of rounded operands) kept as it is, each dm_l
+    rounded once where the reverse sweep stores it, and every product (dm
+    W_l, dm^T z_l) of the stored values and the rounded weights; ``act``
+    gives the forward's (softplus, sigmoid), ``sigmoid`` the reverse
+    sweep's.  Returns (dy, dgb, dw_first, dw_hidden, dw_last)."""
+    weights = [w_first, *w_hidden.unbind(0), w_last]
+    num_layers = len(weights)
+    n = y.shape[1]
+    z = round_bf16(torch.cat([y, e], dim=1))
+    zs, ms = [], []
+    for i, w in enumerate(weights):
+        zs.append(z)
+        m = torch.matmul(z, round_bf16(w).T)
+        ms.append(m)
+        if i < num_layers - 1:
+            d_out = w.shape[0]
+            pre_p = m[:, :n] * gb[:, i, None, :d_out] + gb[:, num_layers + i, None, :d_out]
+            pre_t = m[:, n:] * gb[:, i, None, :d_out]
+            sp, sig = act(pre_p)
+            z = round_bf16(torch.cat([sp, pre_t * sig], dim=1))
+    cp, ct = ct_dx, ct_div[..., None] * e
+    dgb = torch.zeros_like(gb)
+    dws = [None] * num_layers
+    for i in range(num_layers - 1, -1, -1):
+        w, m = weights[i], ms[i]
+        d_out = w.shape[0]
+        gate = gb[:, i, None, :d_out]
+        if i == num_layers - 1:
+            dppre, dtpre = cp, ct
+        else:
+            pre_p = m[:, :n] * gate + gb[:, num_layers + i, None, :d_out]
+            pre_t = m[:, n:] * gate
+            s = sigmoid(pre_p)
+            dppre = cp * s + ct * pre_t * s * (1.0 - s)
+            dtpre = ct * s
+        dgb[:, num_layers + i, :d_out] = dppre.sum(dim=1)
+        dgb[:, i, :d_out] = (dppre * m[:, :n] + dtpre * m[:, n:]).sum(dim=1)
+        dm = round_bf16(torch.cat([dppre, dtpre], dim=1) * gate)
+        dws[i] = torch.matmul(dm.reshape(-1, d_out).T, zs[i].reshape(-1, w.shape[1]))
+        dz = torch.matmul(dm, round_bf16(w))
+        cp, ct = dz[:, :n], dz[:, n:]
+    return cp, dgb, dws[0], torch.stack(dws[1:-1]), dws[-1]
+
+
 # ------------------------------------------------------------ the layout
 
 def btile_at(r, c):
@@ -260,6 +330,78 @@ def b_operand_at(n, k, j):
     operand of the stage's K-slice j: b_desc(stage + j * SLICE_BYTES), LBO
     128, SBO 256."""
     return j * SLICE_BYTES + _kmajor(n, k, 128, 256)
+
+
+def btile_bytes(hpad: int) -> int:
+    """Bytes of a bfloat16 tile, its K-chunk pads included."""
+    return hpad // 8 * TILE_LBO
+
+
+def workspace_at(block, r, c, hpad):
+    """Byte offset in the VJP workspace's z or dm array of a layer, of row r
+    (0..63) and channel c of tile block ``block``: the tile kernel copies its
+    tile there whole, one tile after the other."""
+    return block * btile_bytes(hpad) + btile_at(r, c)
+
+
+def mn_operand_at(mn, k, lbo=128, sbo=TILE_LBO):
+    """Byte offset of element (mn, k) of an MN-major operand without
+    swizzle: core matrices of 8 K-rows x 16 B (8 elements along M or N), LBO
+    apart along K, SBO apart along M or N (the canonical layout an
+    MN-major wgmma descriptor reads; the kernel's mn_desc)."""
+    return (mn // 8) * sbo + (k // 8) * lbo + (k % 8) * 16 + (mn % 8) * 2
+
+
+GEMM_TILE = 128                           # dW rows and columns of a block
+GEMM_OPERAND = GEMM_TILE // 8 * TILE_LBO  # bytes of one operand of a stage
+
+
+def gemm_stage_source(block, channel0, offset, hpad):
+    """The workspace byte that the weight-gradient product's bulk copy of
+    tile block ``block`` puts at ``offset`` of a stage's operand whose
+    channels start at ``channel0`` (o0 for dm, k0 for z)."""
+    if not 0 <= offset < GEMM_OPERAND:
+        raise ValueError(offset)
+    return block * btile_bytes(hpad) + (channel0 // 8) * TILE_LBO + offset
+
+
+def gemm_a_at(wg, half, kstep, m, k):
+    """Offset in a stage's A operand (dm) of element (m, k) of warpgroup
+    wg's product for K-step kstep of half ``half``: mn_desc(A + wg 8 LBO +
+    512 half + 256 kstep)."""
+    return wg * 8 * TILE_LBO + 512 * half + 256 * kstep + mn_operand_at(m, k)
+
+
+def gemm_b_at(half, kstep, n, k):
+    """Offset in a stage's B operand (z) of element (n, k) of the product
+    for K-step kstep of half ``half``: mn_desc(B + 512 half + 256 kstep)."""
+    return 512 * half + 256 * kstep + mn_operand_at(n, k)
+
+
+def m_slot(r, c):
+    """(float4 index, component) of m[row r, channel c] in a tile block's
+    slice of the pre-gate products: the slot of the thread whose
+    accumulator fragment holds it (warp w = r / 16 of its warpgroup, lane 4
+    (r % 8) + (c % 8) / 2), channel group c / 8 outermost; components a0, a1
+    (row r0, channels c, c + 1) and a2, a3 (row r0 + 8)."""
+    w, g, half = (r % 64) // 16, r % 8, (r % 16) // 8
+    lane = 4 * g + (c % 8) // 2
+    return ((c // 8) * 4 + w) * 32 + lane, 2 * half + c % 2
+
+
+def m_slot_first_layer(p, c):
+    """Where the first layer stores m of point p's primal row and channel
+    pair c (even): cnf_tc.cuh's first_layer_streams_bf16, (c / 8) 128 + (p /
+    8) 32 + (p % 8) 4 + (c % 8) / 2."""
+    return (c >> 3) * 128 + (p >> 3) * 32 + (p & 7) * 4 + ((c & 7) >> 1)
+
+
+def thin_wide_at(r, o, hpad):
+    """Where the first and last layers' weight-gradient kernel reads row r,
+    channel o of a tile array: warp r % 8's row group (r % 64) / 8 of tile
+    block r / 64."""
+    return ((r // 64) * btile_bytes(hpad) + (o >> 3) * TILE_LBO + (r % 8) * 16
+            + ((r % 64) // 8) * 128 + (o & 7) * 2)
 
 
 # ------------------------------------------------------- the card's probe

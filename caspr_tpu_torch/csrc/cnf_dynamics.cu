@@ -56,11 +56,6 @@ namespace {
 
 using namespace caspr::cnf_tc;
 
-constexpr int kPoints = kRows / 2;  // points per block
-
-// tile row of point p's primal stream; its tangent row is 8 further
-__device__ __forceinline__ int primal_row(int p) { return (p >> 3) * 16 + (p & 7); }
-
 // w_split: the hidden weights' TF32 hi and lo parts (cnf_tc.cuh:
 // split_weights)
 template <int NCH>
@@ -205,85 +200,6 @@ cnf_dynamics_kernel(const float* __restrict__ y, const float* __restrict__ e,
   }
 }
 
-// The hidden-layer epilogue of the bfloat16 variant, for two channels of a
-// point's primal row (a0, a1) and tangent row (a2, a3): zp = softplus(pre),
-// zt = m_t * gate * sigmoid(pre), pre = m_p * gate + beff, each rounded to
-// bfloat16; padded channels become 0.
-struct DynamicsEpi {
-  const float* gate;
-  const float* beff;
-  int h;
-  __device__ __forceinline__ void load(int ch, float2& ga, float2& be) const {
-    ga = be = make_float2(0.f, 0.f);
-    if (ch < h) {  // and ch + 1; h is even
-      ga = *reinterpret_cast<const float2*>(gate + ch);
-      be = *reinterpret_cast<const float2*>(beff + ch);
-    }
-  }
-  __device__ __forceinline__ uint2 operator()(float a0, float a1, float a2, float a3, float2 ga,
-                                              float2 be, int ch) const {
-    if (ch >= h) return make_uint2(0u, 0u);
-    float sp0, sig0, sp1, sig1;
-    softplus_sigmoid_sfu(a0 * ga.x + be.x, sp0, sig0);
-    softplus_sigmoid_sfu(a1 * ga.y + be.y, sp1, sig1);
-    return make_uint2(pack_bf16x2(sp0, sp1), pack_bf16x2(a2 * ga.x * sig0, a3 * ga.y * sig1));
-  }
-};
-
-// The bfloat16 variant's first layer, D -> H, into the tile: thread tid
-// takes the channel pairs 2 q, 2 q + 1, q = tid + 256 j, of the primal and
-// the tangent row of two points at a time (channels past h become 0).  kD
-// is d (3, the model's) or kMaxDim with d at run time.
-template <int NCH, int kD>
-__device__ __forceinline__ void first_layer_bf16(const TileSmem& sm, const float* ys,
-                                                 const float* es,
-                                                 const float* __restrict__ w_first,
-                                                 const float* g, int h, int d, int num_layers) {
-  constexpr int kPairs = kChunkN * NCH;  // H_pad / 2
-  constexpr int kPpt = (kPairs + kThreads - 1) / kThreads;
-  const int dd = kD == kMaxDim ? d : kD;  // ys's and es's row stride
-  float w[kPpt][2][kD], gate[kPpt][2], beff[kPpt][2];
-#pragma unroll
-  for (int j = 0; j < kPpt; ++j)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int c = 2 * (threadIdx.x + kThreads * j) + q;
-      const bool live = c < h;
-#pragma unroll
-      for (int k = 0; k < kD; ++k)
-        w[j][q][k] = live && k < d ? operand<true>(w_first[c * d + k]) : 0.f;
-      gate[j][q] = live ? g[c] : 0.f;
-      beff[j][q] = live ? g[num_layers * h + c] : 0.f;
-    }
-#pragma unroll 2  // independent points and channels: room for the latencies to overlap
-  for (int p = 0; p < kPoints; ++p) {
-#pragma unroll
-    for (int j = 0; j < kPpt; ++j) {
-      const int c = 2 * (threadIdx.x + kThreads * j);
-      if (c >= 2 * kPairs) continue;
-      float zp[2], zt[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float accp = 0.f, acct = 0.f;
-#pragma unroll
-        for (int k = 0; k < kD; ++k)
-          if (kD < kMaxDim || k < d) {
-            accp = fmaf(w[j][q][k], ys[p * dd + k], accp);
-            acct = fmaf(w[j][q][k], operand<true>(es[p * dd + k]), acct);
-          }
-        float sp, sig;
-        softplus_sigmoid_sfu(accp * gate[j][q] + beff[j][q], sp, sig);
-        const bool live = c + q < h;
-        zp[q] = live ? sp : 0.f;
-        zt[q] = live ? acct * gate[j][q] * sig : 0.f;
-      }
-      *reinterpret_cast<uint32_t*>(sm.tile + btile_at(primal_row(p), c)) = pack_bf16x2(zp[0], zp[1]);
-      *reinterpret_cast<uint32_t*>(sm.tile + btile_at(primal_row(p) + 8, c)) =
-          pack_bf16x2(zt[0], zt[1]);
-    }
-  }
-}
-
 // The bfloat16 variant's last layer, H -> D: warp wid takes rows 8 wid ..
 // 8 wid + 7, the primal rows of points 8 (wid / 2) .. 8 (wid / 2) + 7 for
 // even wid, their tangent rows for odd wid.
@@ -350,9 +266,9 @@ cnf_dynamics_bf16_kernel(const float* __restrict__ y, const float* __restrict__ 
   consumer_sync();
 
   if (d == 3)
-    first_layer_bf16<NCH, 3>(sm, ys, es, w_first, g, h, d, num_layers);
+    first_layer_streams_bf16<NCH, 3>(sm, ys, es, w_first, g, h, d, num_layers);
   else
-    first_layer_bf16<NCH, kMaxDim>(sm, ys, es, w_first, g, h, d, num_layers);
+    first_layer_streams_bf16<NCH, kMaxDim>(sm, ys, es, w_first, g, h, d, num_layers);
   fence_async_smem();
   consumer_sync();
 

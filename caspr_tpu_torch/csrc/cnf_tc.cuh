@@ -80,21 +80,18 @@
 // Overlap of the epilogues with the products was built twice and measured
 // slower (layer_bf16 says how): the products are a third of a layer, and
 // the steps' issue path the rest.  The K-slices of a chunk are summed in the
-// tensor cores in the rotated order of layer_product_bf16, so with an exact
-// softplus the outputs are bit-equal to those of the float32-tile design
-// that rounded on every read (checks/cnf_tc_breakdown.py builds that
-// variant and compares them).
+// tensor cores in a rotated order (rotated_slice), the one the float32-tile
+// design of the bfloat16 mode used first, so with an exact softplus the outputs are
+// bit-equal to that design's, which rounded on every read
+// (checks/cnf_tc_breakdown.py builds that variant and compares them).
 //
-// The VJP's bfloat16 variant (cnf_dynamics_vjp.cu) keeps the float32 tile:
-// layer_product_bf16 rounds each A fragment from it with cvt.rn.bf16x2.f32
-// and runs one m64n64k16 product per chunk over all of K, from weights
-// rounded once per call by round_weights_kernel (H_pad x 16 bfloat16 a
-// stage, in the layout of one TF32 part, so b_desc serves both), on a ring
-// of four stages, for its forward recompute and its reverse products [cp;
-// ct] = dm W, of the rounded W_l followed by the rounded W_l^T.  The
-// products of bfloat16 values are exact in float32, and their rounding
-// (2^-9 relative a factor) outweighs the accumulator's truncation by far,
-// so one accumulator runs over all of K.
+// The VJP's bfloat16 kernel (cnf_dynamics_vjp.cu) runs on the same tile and
+// rings: chunk_products and store_layer are layer_bf16's two halves, which
+// its own layer loop (vjp_layer) takes with its epilogues; the two-stream
+// pieces at the end of this file (primal_row, DynamicsEpi,
+// first_layer_streams_bf16) serve it and cnf_dynamics.cu.  It also copies
+// the tile to device memory after each layer (bulk_store) and prefetches
+// into L2 (prefetch_l2); sigmoid_sfu is its reverse sweep's sigmoid.
 
 #pragma once
 
@@ -109,30 +106,21 @@ namespace cnf_tc {
 constexpr int kRows = 64;                  // tile rows: one wgmma M
 constexpr int kStages = 3;                 // weight-slice ring
 constexpr int kSliceK = 8;                 // K of one tf32 wgmma, and of a stage
-constexpr int kStagesBf16 = 4;             // the ring in the bfloat16 mode
-constexpr int kSliceKBf16 = 16;            // K of one bf16 wgmma, and of its stage
+constexpr int kSliceKBf16 = 16;            // K of one bf16 wgmma
 constexpr int kAhead = 2;                  // slices a ring is loaded ahead
 constexpr int kChunkN = 64;                // N of one wgmma instruction
 constexpr int kThreads = 256;              // two warpgroups
 constexpr int kMaxDim = 8;                 // point dimension D
 constexpr int kMaxHidden = 512;
-
-template <bool kBf16>
-__host__ __device__ constexpr int ring_stages() { return kBf16 ? kStagesBf16 : kStages; }
-template <bool kBf16>
-__host__ __device__ constexpr int slice_k() { return kBf16 ? kSliceKBf16 : kSliceK; }
+constexpr int kPoints = kRows / 2;         // points of a two-stream tile (primal and tangent)
 
 __host__ __device__ inline int padded_width(int h) { return (h + 127) / 128 * 128; }
 // floats of one stage: the hi and the lo part of an (H_pad x 8) weight slice
 __host__ __device__ inline int slice_floats(int hpad) { return 2 * hpad * kSliceK; }
-// bytes of one stage: slice_floats floats, or H_pad x 16 bfloat16 values
-template <bool kBf16 = false>
-__host__ __device__ inline uint32_t stage_bytes(int hpad) {
-  return kBf16 ? hpad * kSliceKBf16 * 2 : slice_floats(hpad) * 4;
-}
-template <bool kBf16 = false>
+// bytes of one stage
+__host__ __device__ inline uint32_t stage_bytes(int hpad) { return slice_floats(hpad) * 4; }
 inline size_t smem_bytes(int hpad) {
-  return static_cast<size_t>(ring_stages<kBf16>()) * stage_bytes<kBf16>(hpad) +
+  return static_cast<size_t>(kStages) * stage_bytes(hpad) +
          sizeof(float) * static_cast<size_t>(kRows) * hpad;
 }
 
@@ -194,28 +182,6 @@ static __global__ void split_weights_kernel(const float* __restrict__ w, float* 
   }
 }
 
-// w_hidden (L, H, H) in (out, in) layout -> bfloat16, per layer and K-slice
-// of 16 input channels one contiguous stage of H_pad x 16 values in core
-// matrices of 8 rows x 8 values (16 B a row): the byte layout of one TF32
-// part, so b_desc serves both.
-static __global__ void round_weights_kernel(const float* __restrict__ w,
-                                            __nv_bfloat16* __restrict__ out, int h, int hpad,
-                                            int num_hidden) {
-  const long long total = static_cast<long long>(num_hidden) * hpad * hpad;
-  const int ks = hpad / kSliceKBf16;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int k = static_cast<int>(i % hpad);
-    const long long rest = i / hpad;
-    const int o = static_cast<int>(rest % hpad);
-    const int l = static_cast<int>(rest / hpad);
-    const float v = (o < h && k < h) ? w[(static_cast<size_t>(l) * h + o) * h + k] : 0.f;
-    const size_t at = static_cast<size_t>(l * ks + k / kSliceKBf16) * hpad * kSliceKBf16 +
-                      (o / 8) * 128 + ((k % kSliceKBf16) / 8) * 64 + (o % 8) * 8 + k % 8;
-    out[at] = __float2bfloat16_rn(v);
-  }
-}
-
 // ------------------------------------------------- barriers and bulk copy
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -256,6 +222,26 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
+// shared -> global, completion tracked by the issuing thread's bulk groups
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst), "r"(src),
+               "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// global -> L2, no completion to wait for
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src), "r"(bytes) : "memory");
+}
+// this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// and have completed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
 // all 256 threads (a named barrier: no other use of barrier 0 to mix with)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
@@ -292,27 +278,6 @@ __device__ __forceinline__ void mma_m64n64k8(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// d (64 x 64, this thread's 32 floats) (+)= a (64 x 16 bf16 from registers)
-// x b (16 x 64 bf16 from shared memory, K-major); float32 accumulation.
-// The A fragment of warp w (rows 16 w .. 16 w + 15): a[0] row g, columns
-// 2t, 2t + 1; a[1] row g + 8, the same columns; a[2], a[3] the same rows
-// at columns 2t + 8, 2t + 9 (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void mma_m64n64k16_bf16(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -333,13 +298,12 @@ struct Smem {
   float* tile;
 };
 
-template <bool kBf16 = false>
 __device__ __forceinline__ Smem make_smem(unsigned char* dyn, uint64_t* bars, int hpad) {
   Smem sm;
   sm.stages = smem_addr(dyn);
   sm.full = smem_addr(bars);
-  sm.empty = smem_addr(bars + ring_stages<kBf16>());
-  sm.tile = reinterpret_cast<float*>(dyn + ring_stages<kBf16>() * stage_bytes<kBf16>(hpad));
+  sm.empty = smem_addr(bars + kStages);
+  sm.tile = reinterpret_cast<float*>(dyn + kStages * stage_bytes(hpad));
   return sm;
 }
 
@@ -354,15 +318,14 @@ __device__ __forceinline__ int rotated_slice(int k, int ks) {
 // Thread 0 loads ring slice s (slices run over the layers in order; within
 // a layer from the block's rotated start) into stage s % stages, once all
 // 8 warps have released the slice that stage held before.  w: the hidden
-// weights as the mode's prep made them (TF32 parts, or bfloat16).
-template <bool kBf16 = false>
+// weights' TF32 parts.
 __device__ __forceinline__ void load_slice(const Smem& sm, const void* __restrict__ w, int hpad,
                                            int s) {
-  constexpr int kS = ring_stages<kBf16>();
-  const int ks = hpad / slice_k<kBf16>();
+  constexpr int kS = kStages;
+  const int ks = hpad / kSliceK;
   const int stage = s % kS;
   const int slice = (s / ks) * ks + rotated_slice(s % ks, ks);
-  const uint32_t bytes = stage_bytes<kBf16>(hpad);
+  const uint32_t bytes = stage_bytes(hpad);
   mbar_wait(sm.empty + 8 * stage, ((s / kS) & 1) ^ 1);
   mbar_expect_tx(sm.full + 8 * stage, bytes);
   bulk_load(sm.stages + stage * bytes,
@@ -372,11 +335,10 @@ __device__ __forceinline__ void load_slice(const Smem& sm, const void* __restric
 
 // Barrier set-up (the kernel's one __syncthreads) and the first kAhead
 // slices of the ring.
-template <bool kBf16 = false>
 __device__ __forceinline__ void start_ring(const Smem& sm, const void* __restrict__ w, int hpad,
                                            int num_hidden) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < ring_stages<kBf16>(); ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(sm.full + 8 * s, 1);              // thread 0's arrival with the bytes
       mbar_init(sm.empty + 8 * s, kThreads / 32);  // one per warp
     }
@@ -384,8 +346,8 @@ __device__ __forceinline__ void start_ring(const Smem& sm, const void* __restric
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    const int slices = num_hidden * (hpad / slice_k<kBf16>());
-    for (int s = 0; s < kAhead && s < slices; ++s) load_slice<kBf16>(sm, w, hpad, s);
+    const int slices = num_hidden * (hpad / kSliceK);
+    for (int s = 0; s < kAhead && s < slices; ++s) load_slice(sm, w, hpad, s);
   }
 }
 
@@ -482,82 +444,6 @@ __device__ __forceinline__ void layer_product(float (&acc)[NCH][32], const Smem&
   }
 }
 
-// One K-slice of layer_product_bf16: step k of hidden layer `layer`, its A
-// fragment rounded into cur while the previous slice's products (from
-// prev) may still run.
-template <int NCH>
-__device__ __forceinline__ void bf16_slice(float (&acc)[NCH][32], uint32_t (&cur)[4],
-                                           uint32_t (&prev)[4], const Smem& sm,
-                                           const void* __restrict__ w_bf16, int hpad, int layer,
-                                           int k, int slices, int n0) {
-  constexpr int kS = kStagesBf16;
-  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * w + g;
-  const float* row0 = sm.tile + r0 * hpad;
-  const float* row1 = row0 + 8 * hpad;
-  const int sw = (r0 & 7) << 2;  // rows r0 and r0 + 8 share the swizzle
-  const int ks = hpad / kSliceKBf16;
-  const int s = layer * ks + k;
-  const int stage = s % kS;
-  mbar_wait(sm.full + 8 * stage, (s / kS) & 1);
-  __syncwarp();  // the wgmma instructions below are warp-aligned
-  const int kk = rotated_slice(k, ks);
-  // columns 2t, 2t + 1 (and + 8) stay adjacent under the swizzle, which
-  // moves bits 2-4
-  const int c0 = (kk * kSliceKBf16 + 2 * t) ^ sw, c1 = (kk * kSliceKBf16 + 2 * t + 8) ^ sw;
-  const float2 x00 = *reinterpret_cast<const float2*>(row0 + c0);
-  const float2 x10 = *reinterpret_cast<const float2*>(row1 + c0);
-  const float2 x01 = *reinterpret_cast<const float2*>(row0 + c1);
-  const float2 x11 = *reinterpret_cast<const float2*>(row1 + c1);
-  cur[0] = pack_bf16x2(x00.x, x00.y);
-  cur[1] = pack_bf16x2(x10.x, x10.y);
-  cur[2] = pack_bf16x2(x01.x, x01.y);
-  cur[3] = pack_bf16x2(x11.x, x11.y);
-  const uint32_t base = sm.stages + stage * stage_bytes<true>(hpad) + (n0 / 8) * 256;
-  wgmma_fence();
-#pragma unroll
-  for (int c = 0; c < NCH; ++c)
-    mma_m64n64k16_bf16(acc[c], cur, b_desc(base + c * (kChunkN / 8) * 256), k > 0);
-  wgmma_commit();
-  if (threadIdx.x == 0 && s + kAhead < slices) load_slice<true>(sm, w_bf16, hpad, s + kAhead);
-  __syncwarp();
-  if (k > 0) {  // the previous slice's products are done: release its stage
-    wgmma_wait<1>();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(prev[i])::"memory");
-    if (lane == 0) mbar_arrive(sm.empty + 8 * ((s - 1) % kS));
-  }
-}
-
-// The bfloat16 mode's layer product: acc as layer_product's, from the
-// stages round_weights_kernel made.  Per K-slice of 16 channels the A
-// fragment is rounded from the tile into registers (two sets, in turn) and
-// one m64n64k16 product per chunk of 64 channels accumulates into acc over
-// all of K; a slice's products stay in flight while the next slice's A is
-// made and issued, and its stage is released once they have completed
-// (wgmma.wait_group 1).  The ring is refilled kAhead slices ahead into the
-// stage two slices back, which every warp released a step earlier.
-template <int NCH>
-__device__ __forceinline__ void layer_product_bf16(float (&acc)[NCH][32], const Smem& sm,
-                                                   const void* __restrict__ w_bf16, int hpad,
-                                                   int layer, int num_hidden, int n0) {
-  const int ks = hpad / kSliceKBf16;  // even: hpad is a multiple of 128
-  const int slices = num_hidden * ks;
-  uint32_t a[2][4];
-  for (int k = 0; k < ks; k += 2) {
-    bf16_slice<NCH>(acc, a[0], a[1], sm, w_bf16, hpad, layer, k, slices, n0);
-    bf16_slice<NCH>(acc, a[1], a[0], sm, w_bf16, hpad, layer, k + 1, slices, n0);
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int c = 0; c < NCH; ++c)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) fence_operand(acc[c][i]);
-  if ((threadIdx.x & 31) == 0)
-    mbar_arrive(sm.empty + 8 * ((layer * ks + ks - 1) % kStagesBf16));
-}
-
 // Launch split_weights_kernel: w_split holds num_hidden * H_pad * H_pad * 2
 // floats.
 inline cudaError_t split_weights(const float* w_hidden, float* w_split, int h, int num_hidden,
@@ -569,20 +455,6 @@ inline cudaError_t split_weights(const float* w_hidden, float* w_split, int h, i
   if (blocks > 132LL * 8) blocks = 132LL * 8;
   split_weights_kernel<<<static_cast<unsigned int>(blocks), 256, 0, stream>>>(
       w_hidden, w_split, h, hpad, num_hidden);
-  return cudaGetLastError();
-}
-
-// Launch round_weights_kernel: w_bf16 holds num_hidden * H_pad * H_pad
-// bfloat16 values.
-inline cudaError_t round_weights(const float* w_hidden, __nv_bfloat16* w_bf16, int h,
-                                 int num_hidden, cudaStream_t stream) {
-  const int hpad = padded_width(h);
-  const long long total = static_cast<long long>(num_hidden) * hpad * hpad;
-  if (total == 0) return cudaSuccess;
-  long long blocks = (total + 255) / 256;
-  if (blocks > 132LL * 8) blocks = 132LL * 8;
-  round_weights_kernel<<<static_cast<unsigned int>(blocks), 256, 0, stream>>>(
-      w_hidden, w_bf16, h, hpad, num_hidden);
   return cudaGetLastError();
 }
 
@@ -655,10 +527,18 @@ __device__ __forceinline__ void softplus_sigmoid_sfu(float x, float& sp, float& 
   sp = fmaxf(x, 0.f) + log1p_sfu(u, w);
 }
 
+// sigmoid(x) alone, as softplus_sigmoid_sfu forms it
+__device__ __forceinline__ float sigmoid_sfu(float x) {
+  const float u = ex2_sfu(fabsf(x) * -1.44269502f);
+  const float r = rcp_sfu(1.f + u);
+  return x >= 0.f ? r : u * r;
+}
+
 // w_hidden (L, H, H) in (out, in) layout -> bfloat16, per layer, warpgroup
 // (its half of the output channels), chunk c of 64 of them and K-slice of
 // 16 one contiguous piece of kSliceT bytes: 64 x 16 values in the layout of
-// round_weights_kernel's stages (b_desc).  A warpgroup's chunk is thus its
+// b_desc (8 rows x 16 B core matrices, K-halves 128 B apart, row groups 256 B
+// apart).  A warpgroup's chunk is thus its
 // K-slices one after another, which its ring streams.
 static __global__ void tile_weights_kernel(const float* __restrict__ w,
                                            __nv_bfloat16* __restrict__ out, int h, int hpad,
@@ -854,59 +734,105 @@ __device__ __forceinline__ void fence_all(float (&a)[N]) {
 // issue path the rest, and turns serialise the two warpgroups' issue.
 // (Interleaving the previous chunk's epilogue between a warpgroup's own
 // steps was slower too, and spilled at H 512.)
-template <int NCH, class Epi>
-__device__ __forceinline__ void layer_bf16(const TileSmem& sm, const void* __restrict__ w,
-                                           int layer, int stages, int n_wg, const Epi& epi) {
+// The products of chunk c of a layer: acc = tile x W^T for this
+// warpgroup's 64 channels of the chunk, in spc = NCH steps of kSubT
+// K-slices from its ring; on return the products are done and the chunk's
+// last stage is released.
+template <int NCH>
+__device__ __forceinline__ void chunk_products(float (&acc)[32], const Ring& rg,
+                                               const void* __restrict__ w, uint32_t a_base,
+                                               int layer, int c, int stages) {
   constexpr int ks = 8 * NCH;  // K-slices of 16: H_pad / 16
   constexpr int spc = ks / kSubT;
-  constexpr int kUnits = kChunkN / 8;
   const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7;
+  const bool producer = (threadIdx.x & 127) == 0;
+#pragma unroll
+  for (int m = 0; m < spc; ++m) {
+    const int s = (layer * NCH + c) * spc + m;
+    const int stage = s % kStagesT;
+    mbar_wait(rg.full + 8 * stage, (s / kStagesT) & 1);
+    __syncwarp();  // the wgmmas below are warp-aligned
+    const uint32_t b_base = rg.stages + stage * kStageT;
+    if (m == 0) wgmma_fence();  // acc was the last chunk's epilogue's
+#pragma unroll
+    for (int j = 0; j < kSubT; ++j) {
+      const int kk = rotated_slice(m * kSubT + j, ks);
+      mma_m64n64k16_bf16_ss(acc, a_desc(a_base + kk * 2 * kTileLbo),
+                            b_desc(b_base + j * kSliceT), m > 0 || j > 0);
+    }
+    wgmma_commit();
+    if (m > 0) {
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(rg.empty + 8 * ((s - 1) % kStagesT));
+    }
+    if (producer && s + kAheadT < stages) load_tslice(rg, w, ks, wg, s + kAheadT);
+  }
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(rg.empty + 8 * (((layer * NCH + c) * spc + spc - 1) % kStagesT));
+  fence_all(acc);
+}
+
+// A layer's outputs (bfloat16 pairs, as the epilogue units made them) into
+// the tile, once both warpgroups are done reading it; then visible to the
+// tensor cores and to bulk copies.
+template <int NCH>
+__device__ __forceinline__ void store_layer(const TileSmem& sm, const uint32_t (&outp)[NCH][16],
+                                            int n_wg) {
+  const int lane = threadIdx.x & 31;
   const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
   const int t2 = 2 * (lane & 3);
-  const bool producer = (threadIdx.x & 127) == 0;
-  const uint32_t a_base = smem_addr(sm.tile);
-  const Ring rg = ring_of(sm, wg);
-  float acc[32];
-  uint32_t outp[NCH][16];
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-#pragma unroll
-    for (int m = 0; m < spc; ++m) {
-      const int s = (layer * NCH + c) * spc + m;
-      const int stage = s % kStagesT;
-      mbar_wait(rg.full + 8 * stage, (s / kStagesT) & 1);
-      __syncwarp();  // the wgmmas below are warp-aligned
-      const uint32_t b_base = rg.stages + stage * kStageT;
-      if (m == 0) wgmma_fence();  // acc was the last chunk's epilogue's
-#pragma unroll
-      for (int j = 0; j < kSubT; ++j) {
-        const int kk = rotated_slice(m * kSubT + j, ks);
-        mma_m64n64k16_bf16_ss(acc, a_desc(a_base + kk * 2 * kTileLbo),
-                              b_desc(b_base + j * kSliceT), m > 0 || j > 0);
-      }
-      wgmma_commit();
-      if (m > 0) {
-        wgmma_wait<1>();
-        if (lane == 0) mbar_arrive(rg.empty + 8 * ((s - 1) % kStagesT));
-      }
-      if (producer && s + kAheadT < stages) load_tslice(rg, w, ks, wg, s + kAheadT);
-    }
-    wgmma_wait<0>();
-    if (lane == 0) mbar_arrive(rg.empty + 8 * (((layer * NCH + c) * spc + spc - 1) % kStagesT));
-    fence_all(acc);
-    epilogue_chunk(acc, n_wg + c * kChunkN + t2, outp[c], epi);
-  }
   consumer_sync();  // both warpgroups' products are done with the tile
 #pragma unroll
   for (int c = 0; c < NCH; ++c)
 #pragma unroll
-    for (int j = 0; j < kUnits; ++j) {
+    for (int j = 0; j < kChunkN / 8; ++j) {
       const int ch = n_wg + c * kChunkN + 8 * j + t2;
       *reinterpret_cast<uint32_t*>(sm.tile + btile_at(r0, ch)) = outp[c][2 * j];
       *reinterpret_cast<uint32_t*>(sm.tile + btile_at(r0 + 8, ch)) = outp[c][2 * j + 1];
     }
   fence_async_smem();
   consumer_sync();  // the layer's output is in the tile
+}
+
+// Hidden layer `layer` of a bfloat16 forward kernel, in place on the tile:
+// tile = epi(tile x W^T) for this warpgroup's channels n_wg .. n_wg + 64 NCH
+// - 1, chunk by chunk (64 channels), each chunk in spc = NCH steps of kSubT
+// K-slices from the warpgroup's ring (stages (layer NCH + c) spc + m of its
+// stream): step m waits for its stage, issues its wgmmas (A from the tile,
+// B from the stage) as one group, releases the stage of step m - 1 once its
+// group is done, and the producer refills kAheadT stages ahead; after a
+// chunk's products its epilogue.  A step's barriers and issue cost the
+// same whatever its products, so it carries kSubT K-slices: 16 steps a
+// warpgroup and layer at H 512.  The two warpgroups' rings are
+// apart, so neither waits for the other within a layer.  The epilogue's
+// outputs wait in registers, bfloat16 pairs, until both warpgroups are done
+// reading the tile; then they overwrite it.
+//
+// No epilogue overlaps the products.  A warpgroup's wgmma issue stalls
+// while the tensor cores are busy, so only another warpgroup's products can
+// hide its epilogue: taking turns (a ping-pong, one warpgroup issuing a
+// chunk's products once the other has issued its previous chunk's, then
+// running that chunk's epilogue; checks/cnf_tc_breakdown.py's `pingpong`
+// variant) measured slower at the phase-2 shape (NVIDIA H100 80GB HBM3,
+// 700.00 W): 0.459 against 0.419 ms for cnf_primal's, 0.763 against 0.684
+// for cnf_dynamics's.  The products take a third of a layer and each step's
+// issue path the rest, and turns serialise the two warpgroups' issue.
+// (Interleaving the previous chunk's epilogue between a warpgroup's own
+// steps was slower too, and spilled at H 512.)
+template <int NCH, class Epi>
+__device__ __forceinline__ void layer_bf16(const TileSmem& sm, const void* __restrict__ w,
+                                           int layer, int stages, int n_wg, const Epi& epi) {
+  const int t2 = 2 * (threadIdx.x & 3);
+  const uint32_t a_base = smem_addr(sm.tile);
+  const Ring rg = ring_of(sm, threadIdx.x >> 7);
+  float acc[32];
+  uint32_t outp[NCH][16];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    chunk_products<NCH>(acc, rg, w, a_base, layer, c, stages);
+    epilogue_chunk(acc, n_wg + c * kChunkN + t2, outp[c], epi);
+  }
+  store_layer<NCH>(sm, outp, n_wg);
 }
 
 // The last layer's weights w_last (d, H), rounded to bfloat16, into
@@ -920,17 +846,17 @@ __device__ __forceinline__ void stage_w_last(const TileSmem& sm, const float* __
   }
 }
 
-// The last layer's sums for the 8 rows r8 .. r8 + 7 of the tile: s[i][k] =
-// sum over channels c of w_last[k, c] z[r8 + i, c] for k < d (kD = d, or
-// kMaxDim with d at run time), lane c % 32 taking c = lane, lane + 32, ...
-// in turn and a butterfly over the lanes (the float32 kernel's order for
-// each sum; the 8 rows side by side).
-template <int kD>
-__device__ __forceinline__ void last_layer_sums(const TileSmem& sm, int r8, int h, int d,
-                                                float (&s)[8][kD]) {
+// Sums of kR rows side by side, rows[i] (i < kR) of the tile: s[i][k] = sum
+// over channels c of w[k, c] z[rows[i], c] for k < d (kD = d, or kMaxDim
+// with d at run time), w the weights staged in sm.w_last, lane c % 32
+// taking c = lane, lane + 32, ... in turn and a butterfly over the lanes
+// (the float32 kernels' order for each sum).
+template <int kD, int kR>
+__device__ __forceinline__ void row_sums(const TileSmem& sm, const int (&rows)[kR], int h, int d,
+                                         float (&s)[kR][kD]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int k = 0; k < kD; ++k) s[i][k] = 0.f;
 #pragma unroll 2
@@ -942,22 +868,132 @@ __device__ __forceinline__ void last_layer_sums(const TileSmem& sm, int r8, int 
     for (int k = 0; k < kD; ++k)
       wk[k] = __uint_as_float(k & 1 ? wp[k / 2] & 0xFFFF0000u : wp[k / 2] << 16);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < kR; ++i) {
       const float a =
-          __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(sm.tile + btile_at(r8 + i, c)));
+          __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(sm.tile + btile_at(rows[i], c)));
 #pragma unroll
       for (int k = 0; k < kD; ++k)
         if (kD < kMaxDim || k < d) s[i][k] = fmaf(wk[k], a, s[i][k]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int k = 0; k < kD; ++k) {
       if (kD == kMaxDim && k >= d) continue;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) s[i][k] += __shfl_xor_sync(0xffffffffu, s[i][k], off);
     }
+}
+
+// The last layer's sums for the 8 rows r8 .. r8 + 7 of the tile (w_last).
+template <int kD>
+__device__ __forceinline__ void last_layer_sums(const TileSmem& sm, int r8, int h, int d,
+                                                float (&s)[8][kD]) {
+  int rows[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) rows[i] = r8 + i;
+  row_sums<kD, 8>(sm, rows, h, d, s);
+}
+
+// ------------------------------------ the two-stream tile (y and its tangent)
+//
+// cnf_dynamics.cu and the VJP's bfloat16 kernel split a tile's 64 rows
+// between the two streams of 32 points: in the 16-row slab of warp w, rows
+// 0-7 are the primal rows of points 8w .. 8w + 7 and rows 8-15 their
+// tangent rows, so a thread's accumulator rows g and g + 8 hold a point's
+// primal and tangent values of the same channels.
+
+// tile row of point p's primal stream; its tangent row is 8 further
+__device__ __forceinline__ int primal_row(int p) { return (p >> 3) * 16 + (p & 7); }
+
+// The hidden-layer epilogue of the bfloat16 dynamics, for two channels of a
+// point's primal row (a0, a1) and tangent row (a2, a3): zp = softplus(pre),
+// zt = m_t * gate * sigmoid(pre), pre = m_p * gate + beff, each rounded to
+// bfloat16; padded channels become 0.
+struct DynamicsEpi {
+  const float* gate;
+  const float* beff;
+  int h;
+  __device__ __forceinline__ void load(int ch, float2& ga, float2& be) const {
+    ga = be = make_float2(0.f, 0.f);
+    if (ch < h) {  // and ch + 1; h is even
+      ga = *reinterpret_cast<const float2*>(gate + ch);
+      be = *reinterpret_cast<const float2*>(beff + ch);
+    }
+  }
+  __device__ __forceinline__ uint2 operator()(float a0, float a1, float a2, float a3, float2 ga,
+                                              float2 be, int ch) const {
+    if (ch >= h) return make_uint2(0u, 0u);
+    float sp0, sig0, sp1, sig1;
+    softplus_sigmoid_sfu(a0 * ga.x + be.x, sp0, sig0);
+    softplus_sigmoid_sfu(a1 * ga.y + be.y, sp1, sig1);
+    return make_uint2(pack_bf16x2(sp0, sp1), pack_bf16x2(a2 * ga.x * sig0, a3 * ga.y * sig1));
+  }
+};
+
+// The first layer of the bfloat16 dynamics, D -> H, into the tile: thread
+// tid takes the channel pairs 2 q, 2 q + 1, q = tid + 256 j, of the primal
+// and the tangent row of two points at a time (channels past h become 0).
+// ys: y rounded, es: e as given (rounded here), point-major with row stride
+// d.  kD is d (3, the model's) or kMaxDim with d at run time.  With m, also
+// the pre-gate products (w_first y, w_first e) of each point and channel
+// pair, as a float4 at m[(c / 8) 128 + (p / 8) 32 + (p % 8) 4 + (c % 8) /
+// 2]: the slot of the thread whose accumulator fragment holds them
+// (cnf_dynamics_vjp.cu).
+template <int NCH, int kD>
+__device__ __forceinline__ void first_layer_streams_bf16(const TileSmem& sm, const float* ys,
+                                                         const float* es,
+                                                         const float* __restrict__ w_first,
+                                                         const float* g, int h, int d,
+                                                         int num_layers, float4* m = nullptr) {
+  constexpr int kPairs = kChunkN * NCH;  // H_pad / 2
+  constexpr int kPpt = (kPairs + kThreads - 1) / kThreads;
+  const int dd = kD == kMaxDim ? d : kD;  // ys's and es's row stride
+  float w[kPpt][2][kD], gate[kPpt][2], beff[kPpt][2];
+#pragma unroll
+  for (int j = 0; j < kPpt; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = 2 * (threadIdx.x + kThreads * j) + q;
+      const bool live = c < h;
+#pragma unroll
+      for (int k = 0; k < kD; ++k)
+        w[j][q][k] = live && k < d ? operand<true>(w_first[c * d + k]) : 0.f;
+      gate[j][q] = live ? g[c] : 0.f;
+      beff[j][q] = live ? g[num_layers * h + c] : 0.f;
+    }
+#pragma unroll 2  // independent points and channels: room for the latencies to overlap
+  for (int p = 0; p < kPoints; ++p) {
+#pragma unroll
+    for (int j = 0; j < kPpt; ++j) {
+      const int c = 2 * (threadIdx.x + kThreads * j);
+      if (c >= 2 * kPairs) continue;
+      float zp[2], zt[2], mp[2], mt[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float accp = 0.f, acct = 0.f;
+#pragma unroll
+        for (int k = 0; k < kD; ++k)
+          if (kD < kMaxDim || k < d) {
+            accp = fmaf(w[j][q][k], ys[p * dd + k], accp);
+            acct = fmaf(w[j][q][k], operand<true>(es[p * dd + k]), acct);
+          }
+        float sp, sig;
+        softplus_sigmoid_sfu(accp * gate[j][q] + beff[j][q], sp, sig);
+        const bool live = c + q < h;
+        zp[q] = live ? sp : 0.f;
+        zt[q] = live ? acct * gate[j][q] * sig : 0.f;
+        mp[q] = accp;
+        mt[q] = acct;
+      }
+      *reinterpret_cast<uint32_t*>(sm.tile + btile_at(primal_row(p), c)) = pack_bf16x2(zp[0], zp[1]);
+      *reinterpret_cast<uint32_t*>(sm.tile + btile_at(primal_row(p) + 8, c)) =
+          pack_bf16x2(zt[0], zt[1]);
+      if (m) m[(c >> 3) * 128 + (p >> 3) * 32 + (p & 7) * 4 + ((c & 7) >> 1)] =
+          make_float4(mp[0], mp[1], mt[0], mt[1]);
+    }
+  }
 }
 
 }  // namespace cnf_tc

@@ -182,9 +182,11 @@ def _library():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            fn = lib.caspr_cnf_dynamics_vjp_workspace
-            fn.argtypes = [_I] * 5
-            fn.restype = _LL
+            for name in ("caspr_cnf_dynamics_vjp_workspace",
+                         "caspr_cnf_dynamics_vjp_bf16_workspace"):
+                fn = getattr(lib, name)
+                fn.argtypes = [_I] * 5
+                fn.restype = _LL
             for name, count in (("caspr_emd_cluster_size", 3), ("caspr_three_nn_split", 2),
                                 ("caspr_sa_fused_instance", 4)):
                 fn = getattr(lib, name)
@@ -576,8 +578,7 @@ def cnf_dynamics_vjp(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div,
     dy = torch.empty_like(y)
     dgb = torch.empty_like(gb)
     dw = torch.empty(2 * h * d + num_hidden * h * h, dtype=torch.float32, device=y.device)
-    workspace = torch.empty(lib.caspr_cnf_dynamics_vjp_workspace(bt, n, h, d, num_hidden),
-                            dtype=torch.float32, device=y.device)
+    workspace = vjp_workspace(lib, matmul_dtype, bt, n, h, d, num_hidden, y.device)
     _launch(*_cnf_route("cnf_dynamics_vjp", matmul_dtype), y.device,
             y.data_ptr(), e.data_ptr(), gb.data_ptr(), w_first.data_ptr(),
             w_hidden_t.data_ptr(), w_hidden.data_ptr(), w_last.data_ptr(), ct_dx.data_ptr(),
@@ -587,6 +588,16 @@ def cnf_dynamics_vjp(y, e, gb, w_first, w_hidden, w_last, ct_dx, ct_div,
     dw_hidden = dw[h * d: h * d + num_hidden * h * h].view(num_hidden, h, h)
     dw_last = dw[h * d + num_hidden * h * h:].view(d, h)
     return dy, dgb, dw_first, dw_hidden, dw_last
+
+
+def vjp_workspace(lib, matmul_dtype, bt, n, h, d, num_hidden, device):
+    """The VJP kernel's workspace: floats for the float32 variant, bytes
+    (its bfloat16 tiles beside float32 sums) for the bfloat16 one."""
+    if matmul_dtype == "bf16":
+        return torch.empty(lib.caspr_cnf_dynamics_vjp_bf16_workspace(bt, n, h, d, num_hidden),
+                           dtype=torch.uint8, device=device)
+    return torch.empty(lib.caspr_cnf_dynamics_vjp_workspace(bt, n, h, d, num_hidden),
+                       dtype=torch.float32, device=device)
 
 
 def _check_emd(xyz1, xyz2, dtype):

@@ -188,10 +188,10 @@ Phases, each of which raises on failure:
      decoder, random cotangents), against their bfloat16 plain versions
      (each output within 2e-3 of its largest magnitude, within 1.5x the
      plain version's distance from float64, two launches bit-equal), timed
-     with their bound at the bfloat16 rate; the two forward ones also at H
-     128, 256, 384 and 512 with one and two hidden layers, and with D = 5 at
-     H 256, on 8 clouds of 500 points (a ragged last tile) with the same
-     bars, and their softplus
+     with their bound at the bfloat16 rate, the VJP's kernels also each
+     alone; all three also at H 128, 256, 384 and 512 with one and two
+     hidden layers, and with D = 5 at H 256, on 8 clouds of 500 points (a
+     ragged last tile) with the same bars, and the forward ones' softplus
      and sigmoid (cnf_tc.cuh's special-function forms, built into a probe)
      within 2^-16 relative of float64; (b) phase 3's reconstruct (its input and
      base samples, the demo weights) in bfloat16 beside float32, f32, bf16,
@@ -312,7 +312,8 @@ def card_line() -> str:
 TENSOR_CORE_KERNELS = {
     "cnf_primal": (("cnf_primal_kernel", "cnf_primal_bf16_kernel"), "HGMMA"),
     "cnf_dynamics": (("cnf_dynamics_kernel", "cnf_dynamics_bf16_kernel"), "HGMMA"),
-    "cnf_dynamics_vjp": (("vjp_tile_kernel", "wgrad_tc_kernel"), "HGMMA"),
+    "cnf_dynamics_vjp": (("vjp_tile_kernel", "wgrad_tc_kernel", "vjp_bf16_kernel",
+                          "wgrad_bf16_kernel"), "HGMMA"),
     "sa_fused": (("sa_fused_kernel",), "HMMA"),
 }
 # the times of the kernels the last three versions redesigned, from their
@@ -2999,7 +3000,7 @@ def check_bf16_kernels(torch):
 # kernel_takes hold (H a multiple of 128 up to 512 here; one or two hidden
 # layers) with the model's D = 3, and one with D = 5 (the kernels' path for
 # a point dimension other than 3), on clouds of 500 points (a ragged last
-# tile of either kernel)
+# tile of each kernel)
 BF16_SHAPES = tuple((h, hidden, 3) for h in (128, 256, 384, 512) for hidden in (1, 2)) + (
     (256, 2, 5),)
 BF16_WIDTH_CLOUDS, BF16_WIDTH_POINTS = 8, 500
@@ -3023,9 +3024,10 @@ def random_packed(torch, gen, bt, h, hidden, d=3):
 
 def check_bf16_widths(torch, gen):
     """Phase 13(a) at BF16_SHAPES (H, hidden layers, D) on 8 clouds of 500
-    points: cnf_primal_bf16 and cnf_dynamics_bf16 against their bf16 plain
-    versions with cnf_bf16_case's bars (2e-3 of each output's largest, 1.5x
-    the plain version's distance from float64, two launches bit-equal)."""
+    points: cnf_primal_bf16, cnf_dynamics_bf16 and cnf_dynamics_vjp_bf16
+    (random cotangents) against their bf16 plain versions with
+    cnf_bf16_case's bars (2e-3 of each output's largest, 1.5x the plain
+    version's distance from float64, two launches bit-equal)."""
     from caspr_tpu_torch.ops import cnf_fused, kernels
 
     dev = torch.device("cuda")
@@ -3035,6 +3037,9 @@ def check_bf16_widths(torch, gen):
         y, e = (torch.randn((BF16_WIDTH_CLOUDS, BF16_WIDTH_POINTS, d), generator=gen,
                             device=dev) for _ in range(2))
         w64 = [t.double() for t in (gb, wf, wh, wl)]
+        vjp_args = (y, e, gb, wf, wh, wl,
+                    torch.randn((BF16_WIDTH_CLOUDS, BF16_WIDTH_POINTS, d), generator=gen, device=dev),
+                    torch.randn((BF16_WIDTH_CLOUDS, BF16_WIDTH_POINTS), generator=gen, device=dev))
         cases = {
             "cnf_primal_bf16": (lambda: (kernels.cnf_primal(y, gb, wf, wh, wl, "bf16"),),
                                 (cnf_fused.primal_packed(y, gb, wf, wh, wl, "bf16"),),
@@ -3042,6 +3047,10 @@ def check_bf16_widths(torch, gen):
             "cnf_dynamics_bf16": (lambda: kernels.cnf_dynamics(y, e, gb, wf, wh, wl, "bf16"),
                                   cnf_fused.dynamics_packed(y, e, gb, wf, wh, wl, "bf16"),
                                   cnf_fused.dynamics_packed(y.double(), e.double(), *w64)),
+            "cnf_dynamics_vjp_bf16": (
+                lambda: kernels.cnf_dynamics_vjp(*vjp_args, "bf16"),
+                cnf_fused.dynamics_vjp_packed(*vjp_args, "bf16"),
+                cnf_fused.dynamics_vjp_packed(*(a.double() for a in vjp_args))),
         }
         for name, (run, plain, exact) in cases.items():
             got = run()
@@ -3090,7 +3099,9 @@ def vjp_bf16_case(torch, odenet, gen):
     rounding, two launches bit-equal.  Its work is row 10's: the three
     matrix passes (forward recompute, input cotangents, weight gradients),
     here one bfloat16 pass each at 989 TFLOP/s; softplus's and the
-    sigmoids' special functions beside."""
+    sigmoids' special functions beside.  Each of its kernels is also timed
+    alone (checks/cnf_tc_breakdown.py's vjp_launches)."""
+    from caspr_tpu_torch.checks import cnf_tc_breakdown
     from caspr_tpu_torch.ops import cnf_fused, kernels
 
     dev = torch.device("cuda")
@@ -3132,12 +3143,19 @@ def vjp_bf16_case(torch, odenet, gen):
     acts = bt * n * (hidden + 1) * h
     edge_ops = 3 * 2.0 * rows_r * (3 * h + h * 3) + 8.0 * acts * 2
     vjp_bytes = (sum(a.numel() for a in args) + sum(g.numel() for g in got)) * 4.0
+    # the wrapper's time, and each of its kernels alone (device time a
+    # launch, torch.profiler over 20 calls of the C entry)
+    ms = time_ms(torch, run)
+    alone = cnf_tc_breakdown.vjp_launches(kernels.build(), "bf16", args, 20)
+    print(json.dumps({"bf16_vjp_launches": "cnf_dynamics_vjp_bf16", "ms_wrapper": ms,
+                      "ms_entry": alone["ms_call"], "ms_kernels_sum": alone["ms_kernels_sum"],
+                      "kernels": alone["kernels"]}), flush=True)
     return dict(
         max_abs_err=max(float((g - p).abs().max()) for g, p in zip(got, plain)),
         tolerance="each output 2e-3 relative to its max magnitude of the bf16 plain version; "
                   "within 1.5x the bf16 plain version's distance from float64; deterministic",
         rel_err_vs_plain=rels, rel_err_vs_float64=vs64, plain_rel_err_vs_float64=plain_vs64,
-        ms=time_ms(torch, run), plain_ms=time_ms(torch, plain_fn), library_ms=None,
+        ms=ms, plain_ms=time_ms(torch, plain_fn), library_ms=None, ms_launches=alone,
         work=(vjp_bytes, edge_ops, 5.0 * acts, 0.0, 3 * 2.0 * rows_r * hidden * h * h),
         shape=f"y, e, ct ({bt}, {n}, 3), H {h}: {rows_r} rows",
     )
