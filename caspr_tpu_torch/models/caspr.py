@@ -33,6 +33,7 @@ import torch
 from ..ops import sample_gaussian, sphere_surface_points, standard_normal_logprob
 from ..ops.odeint import DISCRETE_STEPS, NFESink
 from ..parallel.mesh import all_gather_cat, count_once, global_draw, group_rank_size
+from ..utils.profiling import annotate
 from .cnf import CNFConfig, flow_forward, flow_param_shapes, flow_reverse
 from .latent_ode import LatentODEConfig, dynamics_param_shapes, latent_ode_solve
 from .tpointnet2 import TPointNet2Config, tpointnet2_apply, tpointnet2_param_shapes
@@ -185,16 +186,18 @@ class CaSPRModel:
 
         ``point``: a process group over which x's points are sharded, x
         being this rank's range of them.  The clouds are gathered whole
-        over it ("points"), encoded, and tnocs_pred is this rank's range."""
-        if point is None:
-            return tpointnet2_apply(params["encoder"], self.cfg.encoder_config(), x)
-        n = x.shape[2]
-        z0, tnocs_pred = tpointnet2_apply(params["encoder"], self.cfg.encoder_config(),
-                                          all_gather_cat(x, point, "points", dim=2))
-        if tnocs_pred is not None:
-            rank = group_rank_size(point)[0]
-            tnocs_pred = tnocs_pred[:, :, rank * n:(rank + 1) * n]
-        return z0, tnocs_pred
+        over it ("points"), encoded, and tnocs_pred is this rank's range.
+        Its span is ``caspr::encode``."""
+        with annotate("caspr::encode"):
+            if point is None:
+                return tpointnet2_apply(params["encoder"], self.cfg.encoder_config(), x)
+            n = x.shape[2]
+            z0, tnocs_pred = tpointnet2_apply(params["encoder"], self.cfg.encoder_config(),
+                                              all_gather_cat(x, point, "points", dim=2))
+            if tnocs_pred is not None:
+                rank = group_rank_size(point)[0]
+                tnocs_pred = tnocs_pred[:, :, rank * n:(rank + 1) * n]
+            return z0, tnocs_pred
 
     def aggregate_and_solve_latent(self, params, z0, times, shared_times: bool = False, *,
                                    adjoint: bool = False, nfe_sink: Optional[NFESink] = None,
@@ -212,30 +215,32 @@ class CaSPRModel:
         solve's request times are then those of every rank's rows,
         gathered in rank order, as the one-process solve of the global
         batch takes them; with ``shared_times`` every rank must pass the
-        global batch's first row."""
-        b, t = times.shape
-        motion = self.cfg.motion_feat_size
-        z_dyn, z_stat = z0[:, :motion], z0[:, motion:]
-        if shared_times:
-            sorted_t = torch.sort(times[0], stable=True).values
-            ranks = torch.argsort(torch.argsort(times[0], stable=True), stable=True)
-            ranks = ranks[None, :].expand(b, t)
-        else:
-            rank = 0
-            if group is not None:
-                rank = group_rank_size(group)[0]
-                times = all_gather_cat(times, group, "times")
-            flat = times.reshape(-1)
-            order = torch.argsort(flat, stable=True)
-            sorted_t = flat[order]
-            ranks = torch.argsort(order, stable=True).reshape(-1, t)[rank * b:(rank + 1) * b]
-        pred_z, nfe = latent_ode_solve(params["latent_ode"], self.cfg.latent_ode_config(),
-                                       z_dyn, sorted_t, adjoint=adjoint,
-                                       nfe_sink=nfe_sink, ode_backward=ode_backward,
-                                       ode_steps=ode_steps, group=group)  # (B, T or B*T, motion)
-        feats = torch.take_along_dim(pred_z, ranks[..., None], dim=1)
-        z_rep = z_stat[:, None, :].expand(b, t, z_stat.shape[-1])
-        return torch.cat([feats, z_rep], dim=-1), nfe
+        global batch's first row.  Its span is ``caspr::latent``."""
+        with annotate("caspr::latent"):
+            b, t = times.shape
+            motion = self.cfg.motion_feat_size
+            z_dyn, z_stat = z0[:, :motion], z0[:, motion:]
+            if shared_times:
+                sorted_t = torch.sort(times[0], stable=True).values
+                ranks = torch.argsort(torch.argsort(times[0], stable=True), stable=True)
+                ranks = ranks[None, :].expand(b, t)
+            else:
+                rank = 0
+                if group is not None:
+                    rank = group_rank_size(group)[0]
+                    times = all_gather_cat(times, group, "times")
+                flat = times.reshape(-1)
+                order = torch.argsort(flat, stable=True)
+                sorted_t = flat[order]
+                ranks = torch.argsort(order, stable=True).reshape(-1, t)[rank * b:(rank + 1) * b]
+            # (B, T or B*T, motion)
+            pred_z, nfe = latent_ode_solve(params["latent_ode"], self.cfg.latent_ode_config(),
+                                           z_dyn, sorted_t, adjoint=adjoint,
+                                           nfe_sink=nfe_sink, ode_backward=ode_backward,
+                                           ode_steps=ode_steps, group=group)
+            feats = torch.take_along_dim(pred_z, ranks[..., None], dim=1)
+            z_rep = z_stat[:, None, :].expand(b, t, z_stat.shape[-1])
+            return torch.cat([feats, z_rep], dim=-1), nfe
 
     def forward(self, params, state, x, sample_points, generator=None, *,
                 training: bool = False, e=None, nfe_sink=None, ode_backward: str = "adjoint",
@@ -281,11 +286,12 @@ class CaSPRModel:
             ode_backward=ode_backward, ode_steps=ode_steps,
             group=None if groups is None else groups.batch)
         pts = sample_points[..., :3].reshape(b * t, n, 3)
-        y, dlogp, cnf_state, cnf_nfe = flow_forward(
-            params["point_cnf"], state["point_cnf"], cfg.cnf_config(), pts,
-            feats.reshape(b * t, cfg.latent_feat_size), pts.new_zeros((b * t, n, 1)),
-            generator=generator, e=e, training=training, nfe_sink=sink.get("cnf"),
-            ode_backward=ode_backward, ode_steps=ode_steps, groups=groups)
+        with annotate("caspr::likelihood"):
+            y, dlogp, cnf_state, cnf_nfe = flow_forward(
+                params["point_cnf"], state["point_cnf"], cfg.cnf_config(), pts,
+                feats.reshape(b * t, cfg.latent_feat_size), pts.new_zeros((b * t, n, 1)),
+                generator=generator, e=e, training=training, nfe_sink=sink.get("cnf"),
+                ode_backward=ode_backward, ode_steps=ode_steps, groups=groups)
         log_py = standard_normal_logprob(y).sum(dim=-1)  # (B*T, N)
         out["nll"] = -(log_py - dlogp.reshape(b * t, n)).reshape(b, t, n)
         out["nfe"] = (ode_nfe, cnf_nfe)
@@ -328,15 +334,17 @@ class CaSPRModel:
         decodes as the reference does, integrating a log-density beside the
         points with a Hutchinson noise from ``generator`` or ``e`` (B*T, N,
         3) (``models.cnf.flow_reverse``).  ``groups``: the process groups over
-        which the rows and points are sharded."""
-        b, t, h = z.shape
-        n = y.shape[2]
-        y = y.reshape(b * t, n, 3)
-        logp_y = standard_normal_logprob(y).sum(dim=-1)
-        x, nfe = flow_reverse(params["point_cnf"], state["point_cnf"], self.cfg.cnf_config(),
-                              y, z.reshape(b * t, h), groups, sample_div=sample_div,
-                              generator=generator, e=e)
-        return logp_y.reshape(b, t, n), x.reshape(b, t, n, 3), nfe
+        which the rows and points are sharded.  Its span is ``caspr::decode``
+        (``decode`` draws base samples and calls it)."""
+        with annotate("caspr::decode"):
+            b, t, h = z.shape
+            n = y.shape[2]
+            y = y.reshape(b * t, n, 3)
+            logp_y = standard_normal_logprob(y).sum(dim=-1)
+            x, nfe = flow_reverse(params["point_cnf"], state["point_cnf"], self.cfg.cnf_config(),
+                                  y, z.reshape(b * t, h), groups, sample_div=sample_div,
+                                  generator=generator, e=e)
+            return logp_y.reshape(b, t, n), x.reshape(b, t, n, 3), nfe
 
     def decode(self, params, state, z, generator, num_points: int = 1024,
                constant_in_time: bool = False, truncate_std: Optional[float] = None,

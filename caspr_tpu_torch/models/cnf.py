@@ -89,6 +89,7 @@ from ..ops.cnf_fused import (bf16_takes, check_matmul_dtype, context_gb, kernel_
                               rounded_dynamics, rounded_primal)
 from ..ops.odeint import DISCRETE_STEPS, REPLICATED, ROWS, flatten_tree, nfe_add, odeint_train
 from ..parallel.mesh import all_gather_cat, global_draw, sum_grad
+from ..utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -214,7 +215,9 @@ def odenet_dynamics(params, cfg: CNFConfig, tc, y, e):
 
 def _end_time(params, cfg: CNFConfig) -> np.float32:
     if cfg.train_T:
-        return np.float32((params["sqrt_end_time"] * params["sqrt_end_time"]).item())
+        end = params["sqrt_end_time"] * params["sqrt_end_time"]
+        with annotate("caspr::host_read"):
+            return np.float32(end.item())
     return np.float32(cfg.time_length)
 
 

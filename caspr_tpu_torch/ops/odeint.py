@@ -47,6 +47,16 @@ in lockstep through the collectives inside the loop.  The adjoint also
 sums the VJP of its replicated args over the ranks at each augmented
 evaluation, and that of its args sharded over the rows alone over the
 point group (``odeint_adjoint``).
+
+Spans (``utils.profiling.annotate``, recorded while a profiler is on): a
+solve is ``caspr::ode.solve``, each attempted step ``caspr::ode.step``,
+each evaluation of the dynamics ``caspr::ode.func`` (f0, the step-size
+probe, the six stages; the adjoint's plain evaluations), each read of a
+value to the host ``caspr::host_read`` (one a norm; ts when it is a
+tensor); an adjoint's backward is ``caspr::adjoint`` and its augmented
+solve between two request times ``caspr::adjoint.interval``.  A solve of
+NFE 2 + 6 s thus records s step spans and s + 3 host reads (+ 1 for a
+tensor ts).
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import all_reduce_sum, all_reduce_sum_leaves, is_lead
+from ..utils.profiling import annotate
 
 F32 = np.float32
 
@@ -130,7 +141,9 @@ def _norm(leaves, group=None, weights=None) -> np.float32:
     same on every rank."""
     if group is None:
         rms = [torch.sqrt(torch.mean(torch.square(leaf))) for leaf in leaves]
-        return F32((rms[0] if len(rms) == 1 else torch.stack(rms).max()).item())
+        value = rms[0] if len(rms) == 1 else torch.stack(rms).max()
+        with annotate("caspr::host_read"):
+            return F32(value.item())
     weights = (1.0,) * len(leaves) if weights is None else tuple(weights)
     split = [(leaf, w) for leaf, w in zip(leaves, weights) if w is not None]
     rms = [torch.sqrt(torch.mean(torch.square(leaf)))
@@ -141,7 +154,9 @@ def _norm(leaves, group=None, weights=None) -> np.float32:
                             for leaf, w in split])
         sums = all_reduce_sum(sums, group, "norm")
         rms.extend(torch.sqrt(sums[:, 0] / sums[:, 1]).float())
-    return F32(torch.stack(rms).max().item())
+    value = torch.stack(rms).max()
+    with annotate("caspr::host_read"):
+        return F32(value.item())
 
 
 def _error_ratio(err, y0, y1, rtol, atol, group=None, weights=None) -> np.float32:
@@ -201,59 +216,63 @@ def _solve(func, y0, ts, rtol, atol, max_steps: int, group=None, weights=None):
     grad is on and ts requires it, the dense output's theta = (ts_i - t) /
     h is a tensor, so the request times get their gradient through it.
     ``group`` and ``weights`` go to the error norms (``_norm``)."""
-    single = isinstance(y0, torch.Tensor)
-    if single:
-        y0, leaf_func = (y0,), func
-        func = lambda t, y: (leaf_func(t, y[0]),)
-    else:
-        y0 = tuple(y0)
-    ts_grad = None
-    if isinstance(ts, torch.Tensor):
-        if ts.requires_grad and torch.is_grad_enabled():
-            ts_grad = ts
-        ts = ts.detach().cpu().numpy()
-    ts = np.asarray(ts, dtype=F32)
-    t, t_final = ts[0], ts[-1]
-    f = func(t, y0)
-    with torch.no_grad():
-        h = _initial_step(func, t, y0, f, rtol, atol, group, weights)
-    y = y0
-    filled = ts <= t
-    outs = [y0 if done else None for done in filled]
-    nfe, steps = 2.0, 0
-    while not filled.all() and steps < max_steps and t < t_final:
-        ks = [f]
-        for i in range(6):
-            ks.append(func(t + _C[i + 1] * h, _axpy(y, h, _weighted_sum(_A[i], ks))))
-        y1 = _axpy(y, h, _weighted_sum(_B, ks))
+    with annotate("caspr::ode.solve"):
+        single = isinstance(y0, torch.Tensor)
+        y0 = (y0,) if single else tuple(y0)
+
+        def func(t, y, state_func=func):
+            with annotate("caspr::ode.func"):
+                return (state_func(t, y[0]),) if single else state_func(t, y)
+
+        ts_grad = None
+        if isinstance(ts, torch.Tensor):
+            if ts.requires_grad and torch.is_grad_enabled():
+                ts_grad = ts
+            with annotate("caspr::host_read"):
+                ts = ts.detach().cpu().numpy()
+        ts = np.asarray(ts, dtype=F32)
+        t, t_final = ts[0], ts[-1]
+        f = func(t, y0)
         with torch.no_grad():
-            err = [float(h) * d for d in _weighted_sum(_B_ERR, ks)]
-            ratio = _error_ratio(err, y, y1, rtol, atol, group, weights)
-        accept = bool(ratio <= F32(1.0))
-        t1 = t + h
-        if accept:
-            slack = F32(1e-6) * max(F32(1.0), abs(t1))
-            newly = ~filled & (ts <= t1 + slack)
-            if newly.any():
-                y_mid = _axpy(y, h, _weighted_sum(_C_MID, ks))
-                h_div = max(h, F32(1e-30))
-                thetas = np.clip((ts - t) / h_div, F32(0.0), F32(1.0))
-                for i in np.flatnonzero(newly):
-                    theta = (thetas[i] if ts_grad is None else
-                             torch.clamp((ts_grad[i] - float(t)) / float(h_div), 0.0, 1.0))
-                    outs[i] = tuple(
-                        _dense_output(*leaves, h, theta)
-                        for leaves in zip(y, y1, y_mid, f, ks[6]))
-                filled = filled | newly
-            t, y, f = t1, y1, ks[6]
-        h = _optimal_step(h, ratio, accept)
-        nfe += 6.0
-        steps += 1
-    # request times never reached (the step bound, endpoint rounding) take
-    # the final state
-    outs = [y if o is None else o for o in outs]
-    stacked = tuple(torch.stack([o[leaf] for o in outs]) for leaf in range(len(y0)))
-    return (stacked[0] if single else stacked), nfe, bool(filled.all())
+            h = _initial_step(func, t, y0, f, rtol, atol, group, weights)
+        y = y0
+        filled = ts <= t
+        outs = [y0 if done else None for done in filled]
+        nfe, steps = 2.0, 0
+        while not filled.all() and steps < max_steps and t < t_final:
+            with annotate("caspr::ode.step"):
+                ks = [f]
+                for i in range(6):
+                    ks.append(func(t + _C[i + 1] * h, _axpy(y, h, _weighted_sum(_A[i], ks))))
+                y1 = _axpy(y, h, _weighted_sum(_B, ks))
+                with torch.no_grad():
+                    err = [float(h) * d for d in _weighted_sum(_B_ERR, ks)]
+                    ratio = _error_ratio(err, y, y1, rtol, atol, group, weights)
+                accept = bool(ratio <= F32(1.0))
+                t1 = t + h
+                if accept:
+                    slack = F32(1e-6) * max(F32(1.0), abs(t1))
+                    newly = ~filled & (ts <= t1 + slack)
+                    if newly.any():
+                        y_mid = _axpy(y, h, _weighted_sum(_C_MID, ks))
+                        h_div = max(h, F32(1e-30))
+                        thetas = np.clip((ts - t) / h_div, F32(0.0), F32(1.0))
+                        for i in np.flatnonzero(newly):
+                            theta = (thetas[i] if ts_grad is None else
+                                     torch.clamp((ts_grad[i] - float(t)) / float(h_div), 0.0, 1.0))
+                            outs[i] = tuple(
+                                _dense_output(*leaves, h, theta)
+                                for leaves in zip(y, y1, y_mid, f, ks[6]))
+                        filled = filled | newly
+                    t, y, f = t1, y1, ks[6]
+                h = _optimal_step(h, ratio, accept)
+            nfe += 6.0
+            steps += 1
+        # request times never reached (the step bound, endpoint rounding) take
+        # the final state
+        outs = [y if o is None else o for o in outs]
+        stacked = tuple(torch.stack([o[leaf] for o in outs]) for leaf in range(len(y0)))
+        return (stacked[0] if single else stacked), nfe, bool(filled.all())
 
 
 def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000, group=None):
@@ -368,28 +387,34 @@ class _Adjoint(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *g_ys):
-        spec = ctx.spec
-        num_y = spec["num_y"]
-        saved = ctx.saved_tensors
-        ts, ys, arg_leaves = saved[0], saved[1:1 + num_y], [a.detach() for a in saved[1 + num_y:]]
-        func, rebuild, group, kinds = spec["func"], spec["rebuild"], spec["group"], spec["kinds"]
-        g_ys = [torch.zeros_like(y) if g is None else g for g, y in zip(g_ys, ys)]
+        with annotate("caspr::adjoint"):
+            return _adjoint_backward(ctx.spec, ctx.saved_tensors, g_ys)
+
+
+def _adjoint_backward(spec, saved, g_ys):
+    """``_Adjoint.backward``: the augmented solves, interval by interval."""
+    num_y = spec["num_y"]
+    ts, ys, arg_leaves = saved[0], saved[1:1 + num_y], [a.detach() for a in saved[1 + num_y:]]
+    func, rebuild, group, kinds = spec["func"], spec["rebuild"], spec["group"], spec["kinds"]
+    g_ys = [torch.zeros_like(y) if g is None else g for g, y in zip(g_ys, ys)]
+    with annotate("caspr::host_read"):
         times = ts.detach().cpu().numpy().astype(F32)
-        num_t = len(times)
-        grad_ts = torch.zeros_like(ts)
-        if num_t == 1:  # the only request time is the initial one: identity
-            return (None, grad_ts, *(g[0] for g in g_ys),
-                    *(torch.zeros_like(a) for a in arg_leaves))
+    num_t = len(times)
+    grad_ts = torch.zeros_like(ts)
+    if num_t == 1:  # the only request time is the initial one: identity
+        return (None, grad_ts, *(g[0] for g in g_ys),
+                *(torch.zeros_like(a) for a in arg_leaves))
 
-        def plain(t, y):
-            with torch.no_grad():
-                return func(t, y, rebuild(arg_leaves))
+    def plain(t, y):
+        with annotate("caspr::ode.func"), torch.no_grad():
+            return func(t, y, rebuild(arg_leaves))
 
-        a_y = tuple(g[num_t - 1] for g in g_ys)
-        a_args = tuple(torch.zeros_like(a) for a in arg_leaves)
-        nfe_bwd = 0.0
-        dldts = []
-        for i in range(num_t - 1, 0, -1):
+    a_y = tuple(g[num_t - 1] for g in g_ys)
+    a_args = tuple(torch.zeros_like(a) for a in arg_leaves)
+    nfe_bwd = 0.0
+    dldts = []
+    for i in range(num_t - 1, 0, -1):
+        with annotate("caspr::adjoint.interval"):
             y_i = tuple(y[i] for y in ys)
             dldts.append(_dot((g[i] for g in g_ys), plain(times[i], y_i)))
             t_hi = times[i]
@@ -407,31 +432,33 @@ class _Adjoint(torch.autograd.Function):
                         [fo for fo, _ in pairs], (*y, *args),
                         grad_outputs=[ao for _, ao in pairs], allow_unused=True,
                     ) if pairs else (None,) * (num_y + len(args))
-                vjp = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, (*y, *args))]
+                vjp = [torch.zeros_like(x) if g is None else g
+                       for g, x in zip(grads, (*y, *args))]
                 if group is not None:
                     vjp[num_y:] = _sum_args(vjp[num_y:], kinds, group, spec["point_group"])
                 return (*(-fo.detach() for fo in f), *vjp)
 
             span = times[i] - times[i - 1]
-            aug, aug_nfe, _ = _solve(augmented, (*y_i, *a_y, *a_args), np.array([0.0, span], F32),
-                                     spec["rtol"], spec["atol"], spec["max_steps"], group,
+            aug, aug_nfe, _ = _solve(augmented, (*y_i, *a_y, *a_args),
+                                     np.array([0.0, span], F32), spec["rtol"], spec["atol"],
+                                     spec["max_steps"], group,
                                      (1.0,) * (2 * num_y) + spec["arg_weights"])
             a_at_lo = tuple(leaf[1] for leaf in aug[num_y:2 * num_y])
             a_args = tuple(leaf[1] for leaf in aug[2 * num_y:])
             nfe_bwd += aug_nfe + 1.0  # every augmented evaluation calls func once; +1 for f_i
             a_y = tuple(a + g[i - 1] for a, g in zip(a_at_lo, g_ys))
-        # dL/dts[0] = -a(t0) . f(t0, y0), with a(t0) before g[0] is added
-        dldt0 = -_dot(a_at_lo, plain(times[0], tuple(y[0] for y in ys)))
-        grad_ts = torch.stack([dldt0, *reversed(dldts)]).to(ts)
-        if spec["sink"] is not None:
-            spec["sink"].value += nfe_bwd + 1.0  # +1: f(t0, y0)
-        if group is not None and dist.get_rank(group) != 0:
-            # a replicated leaf's a_args is its gradient summed over ranks
-            # already: it leaves from rank 0 alone, so that the caller's sum
-            # of every gradient over the ranks adds it once, and exactly
-            a_args = tuple(torch.zeros_like(a) if k == REPLICATED else a
-                           for a, k in zip(a_args, kinds))
-        return (None, grad_ts, *a_y, *a_args)
+    # dL/dts[0] = -a(t0) . f(t0, y0), with a(t0) before g[0] is added
+    dldt0 = -_dot(a_at_lo, plain(times[0], tuple(y[0] for y in ys)))
+    grad_ts = torch.stack([dldt0, *reversed(dldts)]).to(ts)
+    if spec["sink"] is not None:
+        spec["sink"].value += nfe_bwd + 1.0  # +1: f(t0, y0)
+    if group is not None and dist.get_rank(group) != 0:
+        # a replicated leaf's a_args is its gradient summed over ranks
+        # already: it leaves from rank 0 alone, so that the caller's sum
+        # of every gradient over the ranks adds it once, and exactly
+        a_args = tuple(torch.zeros_like(a) if k == REPLICATED else a
+                       for a, k in zip(a_args, kinds))
+    return (None, grad_ts, *a_y, *a_args)
 
 
 def _sum_args(vjp, kinds, group, point_group):

@@ -39,6 +39,7 @@ import torch
 from ..ops.odeint import DISCRETE_STEPS, ODE_BACKWARDS, NFESink, flatten_tree, nfe_add, nfe_sum
 from ..parallel.mesh import (all_gather_cat, all_reduce_sum, all_reduce_sum_leaves,
                              group_rank_size, mesh_groups, shard_points)
+from ..utils.profiling import annotate
 from .trackers import log, print_stats
 
 
@@ -133,6 +134,12 @@ def _split_noise(e, parts: int, i: int):
     return [t.chunk(parts)[i] for t in e]
 
 
+def _host_float(value) -> float:
+    """One scalar read to the host (a synchronisation), as a span."""
+    with annotate("caspr::host_read"):
+        return value.item()
+
+
 def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: int = 1,
                     ode_backward: str = "adjoint", ode_steps: int = DISCRETE_STEPS, mesh=None):
     """Returns step(params, opt_state, mbn_state, x, target, generator=None,
@@ -165,7 +172,13 @@ def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: 
     axis 1).  With ``accum_steps > 1`` they must be this rank's rows of each
     global microbatch in turn, as ``SequenceLoader(microbatches=)`` gives
     them, so that microbatch i is the one-process step's microbatch i.  The
-    NFE must agree on every rank (a RuntimeError otherwise)."""
+    NFE must agree on every rank (a RuntimeError otherwise).
+
+    Spans (``utils.profiling.annotate``): a call is ``caspr::train_step``;
+    each microbatch's model forward and losses ``caspr::train_step.forward``
+    and their gradient ``caspr::train_step.backward``; the optimizer's step
+    ``caspr::train_step.update``; each logged scalar's read
+    ``caspr::host_read``."""
     del tx
     if ode_backward not in ODE_BACKWARDS:
         raise ValueError(f"ode_backward {ode_backward!r}, expected one of {ODE_BACKWARDS}")
@@ -177,29 +190,35 @@ def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: 
     def grads_of(params, leaves, mbn_state, x, target, generator, e):
         sinks = {"latent": NFESink(), "cnf": NFESink()}
         with torch.enable_grad():
-            out, new_state = model.forward(params, mbn_state, x, target, generator,
-                                           training=True, e=e, nfe_sink=sinks,
-                                           ode_backward=ode_backward, ode_steps=ode_steps,
-                                           groups=groups)
-            _, cnf_loss, tnocs_loss = compute_losses(out, cnf_loss_weight, tnocs_loss_weight)
-            # this rank's share of the global-batch loss (module docstring)
-            cnf_loss, tnocs_loss = cnf_loss / rows, tnocs_loss / parts
-            loss = cnf_loss + tnocs_loss
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with annotate("caspr::train_step.forward"):
+                out, new_state = model.forward(params, mbn_state, x, target, generator,
+                                               training=True, e=e, nfe_sink=sinks,
+                                               ode_backward=ode_backward, ode_steps=ode_steps,
+                                               groups=groups)
+                _, cnf_loss, tnocs_loss = compute_losses(out, cnf_loss_weight, tnocs_loss_weight)
+                # this rank's share of the global-batch loss (module docstring)
+                cnf_loss, tnocs_loss = cnf_loss / rows, tnocs_loss / parts
+                loss = cnf_loss + tnocs_loss
+            with annotate("caspr::train_step.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-        scalars = {"loss": loss.item(), "cnf_loss": cnf_loss.item(),
-                   "tnocs_loss": tnocs_loss.item(),
-                   "mean_nll": out["nll"].mean().item() / parts if "nll" in out else 0.0,
+        scalars = {"loss": _host_float(loss), "cnf_loss": _host_float(cnf_loss),
+                   "tnocs_loss": _host_float(tnocs_loss),
+                   "mean_nll": _host_float(out["nll"].mean()) / parts if "nll" in out else 0.0,
                    "nfe_forward": tuple(float(v) for v in out["nfe"]),
                    "nfe_backward": (sinks["latent"].value, sinks["cnf"].value)}
         if "tnocs_loss" in out:
             per_point = out["tnocs_loss"].detach()
             pos_err = torch.linalg.vector_norm(per_point[..., :3], dim=-1).mean()
-            scalars["tnocs_pos_err"] = float(pos_err) / parts
-            scalars["tnocs_time_err"] = float(per_point[..., 3].mean()) / parts
+            scalars["tnocs_pos_err"] = _host_float(pos_err) / parts
+            scalars["tnocs_time_err"] = _host_float(per_point[..., 3].mean()) / parts
         return grads, new_state, scalars
 
     def step(params, opt_state, mbn_state, x, target, generator=None, e=None):
+        with annotate("caspr::train_step"):
+            return one_step(params, opt_state, mbn_state, x, target, generator, e)
+
+    def one_step(params, opt_state, mbn_state, x, target, generator, e):
         x = torch.as_tensor(x, device=model.device)
         target = torch.as_tensor(target, device=model.device)
         leaves, _ = flatten_tree(params)
@@ -223,8 +242,9 @@ def make_train_step(model, tx, cnf_loss_weight, tnocs_loss_weight, accum_steps: 
             m = _global_scalars(m, nfe_fwd + nfe_bwd, groups.whole, model.device)
         for leaf, g in zip(leaves, grads):
             leaf.grad = g
-        opt_state.step()
-        opt_state.zero_grad(set_to_none=True)
+        with annotate("caspr::train_step.update"):
+            opt_state.step()
+            opt_state.zero_grad(set_to_none=True)
         metrics = {k: m[k] for k in ("loss", "cnf_loss", "tnocs_loss", "mean_nll")}
         metrics["nfe"] = tuple(nfe_add(f, b) for f, b in zip(nfe_fwd, nfe_bwd))
         metrics["nfe_forward"] = tuple(nfe_fwd)
@@ -242,7 +262,9 @@ def _global_scalars(m, nfe, group, device):
     the same NFE."""
     keys = sorted(m)
     rows = all_gather_cat(torch.tensor([[m[k] for k in keys] + list(nfe)], dtype=torch.float64,
-                                        device=device), group, "metrics").cpu().numpy()
+                                        device=device), group, "metrics")
+    with annotate("caspr::host_read"):
+        rows = rows.cpu().numpy()
     if not (rows[:, len(keys):] == rows[0, len(keys):]).all():
         raise RuntimeError(f"the ranks counted different NFE (forward, backward): "
                            f"{rows[:, len(keys):].tolist()}")

@@ -1,6 +1,31 @@
 """Profiling helpers (counterpart of caspr_tpu/utils/profiling.py): a
-device trace through torch.profiler, a wall-clock scope, and named ranges
-that show up in the trace and, on the card, as NVTX ranges."""
+device trace through torch.profiler, a wall-clock scope, and ``annotate``,
+the program's span function.
+
+Spans are on exactly while a torch.profiler (or torch.autograd.profiler)
+profile records: ``annotate(name)`` is then a function-scope RecordFunction,
+which the profiler keeps as a host event on the clock of the device activity
+it traces, and which leaves with the profiler's trace.  It is not a
+``record_function`` (a user annotation): the profiler lays a user
+annotation over the device timeline too, as an event beside the kernels
+launched inside it, and a trace's device operations would then count each
+span.  With no profile recording, ``annotate`` is one shared null context.
+The program's spans, each ``caspr::<boundary>``:
+
+  - ``caspr::train_step`` (one call of ``train.loop.make_train_step``'s
+    step) and its stages ``.forward``, ``.backward`` and ``.update``;
+  - ``caspr::encode``, ``caspr::latent``, ``caspr::decode`` and
+    ``caspr::likelihood``: the model's layers (``models.caspr``);
+  - ``caspr::adjoint`` (one backward of ``ops.odeint.odeint_adjoint``) and
+    ``caspr::adjoint.interval`` (one augmented solve between two request
+    times);
+  - ``caspr::ode.solve`` (one dopri5 solve), ``caspr::ode.step`` (one
+    attempted step, its stages to its next step size) and
+    ``caspr::ode.func`` (one evaluation of the dynamics);
+  - ``caspr::host_read``: one device-to-host read, a synchronisation.
+
+The counts of these spans in a trace are the program's counters: nothing
+is counted on the host besides."""
 
 from __future__ import annotations
 
@@ -9,6 +34,7 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
 
 @contextlib.contextmanager
@@ -40,16 +66,14 @@ def wallclock(name: str, sink=print):
         sink(f"[{name}] {time.perf_counter() - start:.3f}s")
 
 
-@contextlib.contextmanager
+# the span of every call made while no profiler records
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region that shows up in device traces (a torch.profiler
-    record_function and, where CUDA is present, an NVTX range)."""
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+    """A span named ``name`` in the trace of the profiler that is recording
+    (a host event, module docstring), or, with none, a shared null context
+    that records nothing."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
