@@ -19,7 +19,12 @@ function evaluations (NFE) on the same problem:
 Time, step size and the controller live on the host as float32 scalars
 (np.float32), as they are float32 on the JAX side; the state stays on its
 device.  Each step reads the error ratio back to the host once, whatever
-the number of leaves.
+the number of leaves, and issues its arithmetic once over every leaf
+(multi-tensor ``torch._foreach_*`` operations, the plain ones for a lone
+leaf; one dense output for all the request times it reaches), so that its
+launches depend on neither the number of leaves nor that of request times;
+each element sees the operations of a leaf-by-leaf solve, in the same
+order.
 
 ``func(t, y)`` takes a float32 time and the state (a tensor, or a tuple of
 tensors when y0 is one) and returns dy/dt in the same form.
@@ -51,7 +56,8 @@ point group (``odeint_adjoint``).
 Spans (``utils.profiling.annotate``, recorded while a profiler is on): a
 solve is ``caspr::ode.solve``, each attempted step ``caspr::ode.step``,
 each evaluation of the dynamics ``caspr::ode.func`` (f0, the step-size
-probe, the six stages; the adjoint's plain evaluations), each read of a
+probe, the six stages; the adjoint's plain evaluations), each step's dense
+output ``caspr::ode.dense`` (inside its step), each read of a
 value to the host ``caspr::host_read`` (one a norm; ts when it is a
 tensor); an adjoint's backward is ``caspr::adjoint`` and its augmented
 solve between two request times ``caspr::adjoint.interval``.  A solve of
@@ -115,17 +121,61 @@ _DFACTOR = F32(0.2)
 _ORDER_EXP = F32(-1.0 / 5.0)
 
 
+def _each(op, leaves, *args):
+    """``torch._foreach_<op>(leaves, *args)``: one multi-tensor launch over
+    every leaf, a list in ``args`` pairing with them.  A lone leaf takes the
+    tensor's own op, the same arithmetic: on CUDA it mostly costs the host
+    less than a one-tensor foreach call, and it runs a large leaf over more
+    blocks than the multi-tensor kernel's one per 64k elements."""
+    if len(leaves) > 1:
+        return getattr(torch, "_foreach_" + op)(leaves, *args)
+    return [getattr(leaves[0], op)(*(a[0] if isinstance(a, (list, tuple)) else a for a in args))]
+
+
 def _weighted_sum(coeffs, ks):
-    """sum_i coeffs[i] * ks[i] per leaf, accumulated left to right."""
-    out = [float(coeffs[0]) * k for k in ks[0]]
+    """sum_i coeffs[i] * ks[i] per leaf, accumulated left to right: each
+    term one product and one sum over every leaf at once."""
+    out = _each("mul", ks[0], float(coeffs[0]))
     for c, k in zip(coeffs[1:], ks[1:]):
-        out = [o + float(c) * leaf for o, leaf in zip(out, k)]
+        _each("add_", out, _each("mul", k, float(c)))
     return out
 
 
 def _axpy(y, h, d):
-    """y + h * d per leaf."""
-    return tuple(a + float(h) * b for a, b in zip(y, d))
+    """y + h * d per leaf, laid out as d: a state whose leaves the dynamics
+    return in another layout (an adjoint's weight leaves, from autograd)
+    takes the dynamics' layout after a step, so that the lists of each
+    later step's multi-tensor launches agree."""
+    out = _each("mul", d, float(h))
+    _each("add_", out, y)
+    return tuple(out)
+
+
+def _gapless(leaves):
+    """The leaves, each whose elements do not fill one block of memory (a
+    slice of a wider buffer, such as a field's columns) as ``leaf * 1.0``:
+    the same values, laid out as any elementwise result of the leaf is.  A
+    multi-tensor launch takes only such blocks: on CUDA, a foreach op over a
+    list that holds another runs tensor by tensor."""
+    return tuple(leaf if _fills_block(leaf) else leaf * 1.0 for leaf in leaves)
+
+
+def _fills_block(t) -> bool:
+    if t.is_contiguous():
+        return True
+    size = 1
+    for stride, extent in sorted((s, n) for s, n in zip(t.stride(), t.shape) if n != 1):
+        if stride != size:
+            return False
+        size *= extent
+    return True
+
+
+def _tolerance(magnitude, rtol, atol):
+    """atol + rtol * magnitude per leaf."""
+    out = _each("mul", magnitude, float(rtol))
+    _each("add_", out, float(atol))
+    return out
 
 
 def _norm(leaves, group=None, weights=None) -> np.float32:
@@ -140,8 +190,9 @@ def _norm(leaves, group=None, weights=None) -> np.float32:
     rank gets the same value, so every host decision taken on it is the
     same on every rank."""
     if group is None:
-        rms = [torch.sqrt(torch.mean(torch.square(leaf))) for leaf in leaves]
-        value = rms[0] if len(rms) == 1 else torch.stack(rms).max()
+        # x * x is torch.square's arithmetic; the means stay leaf by leaf
+        means = [torch.mean(sq) for sq in _each("mul", leaves, leaves)]
+        value = torch.sqrt(means[0]) if len(means) == 1 else torch.sqrt(torch.stack(means)).max()
         with annotate("caspr::host_read"):
             return F32(value.item())
     weights = (1.0,) * len(leaves) if weights is None else tuple(weights)
@@ -160,21 +211,21 @@ def _norm(leaves, group=None, weights=None) -> np.float32:
 
 
 def _error_ratio(err, y0, y1, rtol, atol, group=None, weights=None) -> np.float32:
-    return _norm([e / (atol + rtol * torch.maximum(a.abs(), b.abs()))
-                  for e, a, b in zip(err, y0, y1)], group, weights)
+    magnitude = _each("maximum", _each("abs", y0), _each("abs", y1))
+    return _norm(_each("div", err, _tolerance(magnitude, rtol, atol)), group, weights)
 
 
 def _initial_step(func, t0, y0, f0, rtol, atol, group=None, weights=None) -> np.float32:
     """Hairer's starting-step heuristic (one extra function evaluation)."""
-    scale = [atol + rtol * y.abs() for y in y0]
-    d0 = _norm([y / s for y, s in zip(y0, scale)], group, weights)
-    d1 = _norm([f / s for f, s in zip(f0, scale)], group, weights)
+    scale = _tolerance(_each("abs", y0), rtol, atol)
+    d0 = _norm(_each("div", y0, scale), group, weights)
+    d1 = _norm(_each("div", f0, scale), group, weights)
     if d0 < F32(1e-5) or d1 < F32(1e-5):
         h0 = F32(1e-6)
     else:
         h0 = F32(0.01) * d0 / d1
     f1 = func(t0 + h0, _axpy(y0, h0, f0))
-    d2 = _norm([(a - b) / s for a, b, s in zip(f1, f0, scale)], group, weights) / h0
+    d2 = _norm(_each("div", _each("sub", f1, f0), scale), group, weights) / h0
     dmax = max(d1, d2)
     if dmax <= F32(1e-15):
         h1 = max(F32(1e-6), h0 * F32(1e-3))
@@ -194,85 +245,128 @@ def _optimal_step(h, ratio, accepted) -> np.float32:
     return h * min(max(factor, lo), _IFACTOR)
 
 
-def _dense_output(y0, y1, y_mid, f0, f1, h, theta):
-    """The quartic through (y0, y_mid, y1) with slopes (f0, f1), at theta."""
-    hf0 = float(h) * f0
-    hf1 = float(h) * f1
-    a = y1 - y0 - hf0
-    b = y_mid - y0 - 0.5 * hf0
+def _dense_output(y0, y1, y_mid, f0, f1, h, thetas):
+    """The quartic through (y0, y_mid, y1) with slopes (f0, f1) at each of
+    ``thetas``, a (n,) tensor or n host floats: a (n, *leaf.shape) block per
+    leaf.  The leaves ride as one tensor of all their elements (a view of a
+    lone contiguous leaf), so that each operation is one launch whatever
+    their number; leaves of mixed dtypes are taken one by one."""
+    parts = (y0, y1, y_mid, f0, f1)
+    if len({leaf.dtype for leaf in y0}) > 1:
+        return [_dense_output(*(part[i:i + 1] for part in parts), h, thetas)[0]
+                for i in range(len(y0))]
+    y0f, y1f, y_midf, f0f, f1f = (torch.cat([leaf.reshape(-1) for leaf in part]) if len(part) > 1
+                                  else part[0].reshape(-1) for part in parts)
+    hf0 = float(h) * f0f
+    hf1 = float(h) * f1f
+    a = y1f - y0f - hf0
+    b = y_midf - y0f - 0.5 * hf0
     c = hf1 - hf0
     c4 = -8.0 * a + 16.0 * b + 2.0 * c
     c3 = 14.0 * a - 32.0 * b - 3.0 * c
     c2 = -5.0 * a + 16.0 * b + c
-    th = theta if isinstance(theta, torch.Tensor) else float(theta)
-    return y0 + th * (hf0 + th * (c2 + th * (c3 + th * c4)))
+
+    def at(th):
+        return y0f + th * (hf0 + th * (c2 + th * (c3 + th * c4)))
+
+    if isinstance(thetas, torch.Tensor):
+        out = at(thetas.to(y0f.dtype)[:, None])
+    else:
+        rows = [at(float(th)) for th in thetas]
+        out = torch.stack(rows) if len(rows) > 1 else rows[0][None]
+    blocks, start = [], 0
+    for leaf in y0:
+        blocks.append(out[:, start:start + leaf.numel()].view(-1, *leaf.shape))
+        start += leaf.numel()
+    return blocks
 
 
 def _solve(func, y0, ts, rtol, atol, max_steps: int, group=None, weights=None):
     """The dopri5 loop of ``odeint`` and ``odeint_discrete``: (ys, nfe,
     whether every request time was reached).  The step controller (the
     initial step, the error ratio) runs without autograd; the stages and
-    the dense output run under whatever grad mode the caller set.  Where
-    grad is on and ts requires it, the dense output's theta = (ts_i - t) /
-    h is a tensor, so the request times get their gradient through it.
-    ``group`` and ``weights`` go to the error norms (``_norm``)."""
+    the dense output run under whatever grad mode the caller set.
+
+    Each step's arithmetic is issued once over every leaf (``torch.
+    _foreach_*``, ``_dense_output``), and, ts being non-decreasing, the
+    request times an accepted step reaches are one range, filled by one
+    dense output: where ts is a tensor on the state's device, theta = (ts_i
+    - t) / h is computed there for the whole range (where grad is on and ts
+    requires it, so the request times get their gradient through it),
+    otherwise on the host.  ``group`` and ``weights`` go to the error norms
+    (``_norm``)."""
     with annotate("caspr::ode.solve"):
         single = isinstance(y0, torch.Tensor)
-        y0 = (y0,) if single else tuple(y0)
+        y0 = _gapless((y0,) if single else y0)
 
         def func(t, y, state_func=func):
             with annotate("caspr::ode.func"):
-                return (state_func(t, y[0]),) if single else state_func(t, y)
+                return _gapless((state_func(t, y[0]),) if single else state_func(t, y))
 
-        ts_grad = None
+        ts_dev, ts_grad = None, False
         if isinstance(ts, torch.Tensor):
             if ts.requires_grad and torch.is_grad_enabled():
-                ts_grad = ts
+                ts_dev, ts_grad = ts.to(y0[0].device), True
+            elif ts.device == y0[0].device:
+                ts_dev = ts.detach().to(torch.float32)
             with annotate("caspr::host_read"):
                 ts = ts.detach().cpu().numpy()
         ts = np.asarray(ts, dtype=F32)
+        if np.any(ts[1:] < ts[:-1]):
+            raise ValueError("the request times must be non-decreasing")
+
+        def thetas(lo, hi, t, h_div):
+            if ts_dev is None:
+                return np.clip((ts[lo:hi] - t) / h_div, F32(0.0), F32(1.0))
+            # CUDA takes a host float divisor as a product with its
+            # reciprocal: the gradient path's theta does so (a division would
+            # move its results on the card in the last place); the others
+            # divide by h on the device, rounding as the host's float32
+            # division of host request times does
+            den = float(h_div) if ts_grad else ts_dev.new_full((), float(h_div))
+            return torch.clamp((ts_dev[lo:hi] - float(t)) / den, 0.0, 1.0)
+
         t, t_final = ts[0], ts[-1]
         f = func(t, y0)
         with torch.no_grad():
             h = _initial_step(func, t, y0, f, rtol, atol, group, weights)
         y = y0
-        filled = ts <= t
-        outs = [y0 if done else None for done in filled]
+        done = int(np.count_nonzero(ts <= t))  # request times filled so far, a prefix
+        blocks = [[leaf[None].expand(done, *leaf.shape)] for leaf in y0]
         nfe, steps = 2.0, 0
-        while not filled.all() and steps < max_steps and t < t_final:
+        while done < len(ts) and steps < max_steps and t < t_final:
             with annotate("caspr::ode.step"):
                 ks = [f]
                 for i in range(6):
                     ks.append(func(t + _C[i + 1] * h, _axpy(y, h, _weighted_sum(_A[i], ks))))
                 y1 = _axpy(y, h, _weighted_sum(_B, ks))
                 with torch.no_grad():
-                    err = [float(h) * d for d in _weighted_sum(_B_ERR, ks)]
+                    err = _each("mul", _weighted_sum(_B_ERR, ks), float(h))
                     ratio = _error_ratio(err, y, y1, rtol, atol, group, weights)
                 accept = bool(ratio <= F32(1.0))
                 t1 = t + h
                 if accept:
                     slack = F32(1e-6) * max(F32(1.0), abs(t1))
-                    newly = ~filled & (ts <= t1 + slack)
-                    if newly.any():
-                        y_mid = _axpy(y, h, _weighted_sum(_C_MID, ks))
-                        h_div = max(h, F32(1e-30))
-                        thetas = np.clip((ts - t) / h_div, F32(0.0), F32(1.0))
-                        for i in np.flatnonzero(newly):
-                            theta = (thetas[i] if ts_grad is None else
-                                     torch.clamp((ts_grad[i] - float(t)) / float(h_div), 0.0, 1.0))
-                            outs[i] = tuple(
-                                _dense_output(*leaves, h, theta)
-                                for leaves in zip(y, y1, y_mid, f, ks[6]))
-                        filled = filled | newly
+                    hi = int(np.searchsorted(ts, t1 + slack, side="right"))
+                    if hi > done:
+                        with annotate("caspr::ode.dense"):
+                            y_mid = _axpy(y, h, _weighted_sum(_C_MID, ks))
+                            theta = thetas(done, hi, t, max(h, F32(1e-30)))
+                            for leaf, block in zip(blocks, _dense_output(y, y1, y_mid, f, ks[6],
+                                                                         h, theta)):
+                                leaf.append(block)
+                        done = hi
                     t, y, f = t1, y1, ks[6]
                 h = _optimal_step(h, ratio, accept)
             nfe += 6.0
             steps += 1
         # request times never reached (the step bound, endpoint rounding) take
         # the final state
-        outs = [y if o is None else o for o in outs]
-        stacked = tuple(torch.stack([o[leaf] for o in outs]) for leaf in range(len(y0)))
-        return (stacked[0] if single else stacked), nfe, bool(filled.all())
+        if done < len(ts):
+            for leaf, state in zip(blocks, y):
+                leaf.append(state[None].expand(len(ts) - done, *state.shape))
+        stacked = tuple(torch.cat(leaf) for leaf in blocks)
+        return (stacked[0] if single else stacked), nfe, done == len(ts)
 
 
 def odeint(func, y0, ts, *, rtol: float, atol: float, max_steps: int = 50_000, group=None):

@@ -20,8 +20,9 @@ The program's spans, each ``caspr::<boundary>``:
     ``caspr::adjoint.interval`` (one augmented solve between two request
     times);
   - ``caspr::ode.solve`` (one dopri5 solve), ``caspr::ode.step`` (one
-    attempted step, its stages to its next step size) and
-    ``caspr::ode.func`` (one evaluation of the dynamics);
+    attempted step, its stages to its next step size),
+    ``caspr::ode.dense`` (a step's dense output at the request times it
+    reaches) and ``caspr::ode.func`` (one evaluation of the dynamics);
   - ``caspr::host_read``: one device-to-host read, a synchronisation.
 
 The counts of these spans in a trace are the program's counters: nothing
