@@ -10,6 +10,8 @@ own, found by the name BENCHMARK.json gives:
     <bench>/drivers/<driver>.py      the entry: set-up, one call, the check
     <bench>/metrics/<metric>.py      one metric: read(readings) -> value or None
     the configuration's "file"       sizes, solver, precision, weights
+    <bench>/reference/<module>.py    the plain reference that the file's
+                                     "reference" names (default "caspr")
 """
 
 from __future__ import annotations
@@ -18,14 +20,13 @@ import importlib.util
 import json
 import math
 import random
+import re
 import sys
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
-
-from reference import caspr as ref
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "caspr_tpu")
 
@@ -53,6 +54,28 @@ def load_module(path: Path, name: str):
     return module
 
 
+# the reference a configuration file names where it names none
+DEFAULT_REFERENCE = "caspr"
+
+
+def load_reference(name: str, bench: Path):
+    """The plain reference module ``<bench>/reference/<name>.py``, as the
+    module ``reference.<name>`` (so that its relative imports, such as
+    caspr's solver, resolve in its folder): the imported one where that is
+    this file, else the file itself (a copy of the benchmark off the path)."""
+    if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", name):
+        raise ValueError(f"reference module {name!r} is not a module name")
+    path = (bench / "reference" / f"{name}.py").resolve()
+    qualified = f"reference.{name}"
+    try:
+        module = importlib.import_module(qualified)
+        if Path(module.__file__).resolve() == path:
+            return module
+    except ModuleNotFoundError:
+        pass
+    return load_module(path, qualified)
+
+
 @dataclass
 class Cell:
     name: str
@@ -63,6 +86,7 @@ class Cell:
     per_layer: list
     bench: Path  # the benchmark's folder
     root: Path  # the checkout
+    reference: object  # the configuration's reference module
 
     @property
     def model(self):
@@ -79,10 +103,12 @@ def load_cell(name: str, bench: Path) -> Cell:
     moved = {m["name"] for m in e2e}
     layer = [m for m in spec["per_layer"]
              if (name in m["workloads"] if "workloads" in m else m["moves"] in moved)]
-    cell = Cell(name, work["chips"], json.loads((root / conf["file"]).read_text()),
+    config = json.loads((root / conf["file"]).read_text())
+    cell = Cell(name, work["chips"], config,
                 json.loads((bench / "traffic" / f"{work['traffic']}.json").read_text()),
-                e2e, layer, bench, root)
-    ref.check_model(cell.model)
+                e2e, layer, bench, root,
+                load_reference(config.get("reference", DEFAULT_REFERENCE), bench))
+    cell.reference.check_model(cell.model)
     return cell
 
 
@@ -160,6 +186,7 @@ class Readings:
     infos: list = field(default_factory=list)  # each call's info from the driver
     spans_ms: dict = field(default_factory=dict)
     trace: object = None  # harness.trace.Trace of the traced calls, when taken
+    counters: dict = field(default_factory=dict)  # the program's counters over them
 
     @property
     def calls(self):
@@ -170,9 +197,11 @@ class Readings:
         return sum(info["seqs"] for info in self.infos)
 
 
-def measure(torch, driver, seconds: float, sample: Sample, spans: Spans | None):
+def measure(torch, driver, seconds: float, sample: Sample, spans: Spans | None, agree=bool):
     """Calls in a closed loop until ``seconds`` have passed; each call ends
-    synchronised.  Returns (window seconds, latencies, infos, failed calls:
+    synchronised.  ``agree(done)`` makes the decision to stop one for all
+    the ranks of a cell on several cards (rank 0's), after a call's latency
+    is taken.  Returns (window seconds, latencies, infos, failed calls:
     those with an output that is not finite)."""
     latencies, infos, finite = [], [], []
     start = time.perf_counter()
@@ -190,7 +219,7 @@ def measure(torch, driver, seconds: float, sample: Sample, spans: Spans | None):
         latencies.append(t1 - t0)
         infos.append(info)
         index += 1
-        if t1 - start >= seconds:
+        if agree(t1 - start >= seconds):
             break
     window = t1 - start
     failed = sum(not bool(f) for f in finite)

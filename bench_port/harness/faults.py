@@ -75,5 +75,38 @@ def state_unchanged(driver):
     driver.opt.step = lambda *a, **k: None
 
 
+def gradient_not_reduced(driver):
+    """Data parallelism: the last rank's gradient skips the all-reduce over
+    the ranks.  It still takes part in the collective, so that the ranks
+    keep in step, and keeps its own share of the gradient."""
+    import torch.distributed as dist
+    from caspr_tpu_torch.train import loop
+
+    if dist.get_rank() != dist.get_world_size() - 1:
+        return
+    inner = loop.all_reduce_sum_leaves
+
+    def local(leaves, group, kind):
+        if kind != "grad":
+            return inner(leaves, group, kind)
+        inner([t.clone() for t in leaves], group, kind)
+        return leaves
+
+    loop.all_reduce_sum_leaves = local
+    driver.restore.append(lambda: setattr(loop, "all_reduce_sum_leaves", inner))
+
+
+def rank_exits(driver):
+    """A cell on several cards: the last rank ends its process, with status
+    0, at its first timed call (the run has to fail, not hang)."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.get_rank() == dist.get_world_size() - 1:
+        driver.call = lambda i: os._exit(0)
+
+
 FAULTS = {"answer_altered": answer_altered, "half_batch": half_batch,
-          "state_unchanged": state_unchanged, "cnf_grad_zeroed": cnf_grad_zeroed}
+          "state_unchanged": state_unchanged, "cnf_grad_zeroed": cnf_grad_zeroed,
+          "gradient_not_reduced": gradient_not_reduced, "rank_exits": rank_exits}

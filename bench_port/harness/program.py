@@ -1,11 +1,10 @@
 """The program under test, caspr_tpu_torch, as a configuration file states it,
-and the weights each side is handed."""
+and the weights each side is handed.  The parameter tree's layout and the
+checkpoint's reader are those of the cell's reference (``cell.reference``)."""
 
 from __future__ import annotations
 
 import torch
-
-from reference import caspr as ref
 
 from .weights import seeded_weights
 
@@ -34,7 +33,7 @@ def made_weights(cell, device, seed):
     and biases 0 with running mean 0 and variance 1; sqrt_end_time
     sqrt(time_length), as the model initialises them."""
     m = cell.model
-    params = seeded_weights(generator(device, seed), ref.param_shapes(m), device)
+    params = seeded_weights(generator(device, seed), cell.reference.param_shapes(m), device)
     state = {}
     if "point_cnf" in params:
         chain = params["point_cnf"]
@@ -52,7 +51,7 @@ def stated_dtype(cell, params):
     """``params`` after checking that every weight is in the dtype that the
     configuration's ``precision`` states."""
     want = getattr(torch, cell.config["precision"]["dtype"])
-    found = {str(leaf.dtype) for leaf in ref.leaves(params) if leaf.dtype != want}
+    found = {str(leaf.dtype) for leaf in leaves(params) if leaf.dtype != want}
     if found:
         raise ValueError(f"weights in {sorted(found)}, the configuration states {want}")
     return params
@@ -76,8 +75,17 @@ def reference_weights(cell, device, seed):
     if cell.config["weights"] == "seed":
         params, state = made_weights(cell, device, seed)
     else:
-        params, state = ref.load_checkpoint(str(cell.root / cell.config["weights"]), device)
+        params, state = cell.reference.load_checkpoint(str(cell.root / cell.config["weights"]),
+                                                       device)
     return stated_dtype(cell, params), state
+
+
+def leaves(tree):
+    """The tensors of a tree of dicts and lists, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [leaf for v in items for leaf in leaves(v)]
 
 
 def generator(device, seed):

@@ -10,7 +10,11 @@ CNF's field weights given a zero gradient.
         [--control-seeds 7 8 9] [--look-seeds 7] [--out readings_<cell>.jsonl]
 
 Prints one JSON line per seed and reading.  Not part of a run: the limits
-in traffic/<cell>.json and PERF.md come from its output.
+in traffic/<cell>.json and PERF.md come from its output.  A training cell
+on several cards runs on its ranks (``harness/ranks.py``): every rank takes
+the program's first steps, rank 0 compares them, and on a control seed also
+the control and the program with each of ``RANK_FAULTS`` planted, each
+with its ``ranks_gap``.
 """
 
 import argparse
@@ -24,7 +28,12 @@ for _path in (str(BENCH.parent), str(BENCH)):
     if _path not in sys.path:
         sys.path.insert(0, _path)
 
-from harness import core, faults, program, sequences  # noqa: E402
+from harness import core, faults, program, ranks, sequences  # noqa: E402
+
+# the faults read on a control seed of a training cell on several cards
+RANK_FAULTS = ("half_batch", "cnf_grad_zeroed", "gradient_not_reduced")
+# seconds a collective of the readings' ranks may wait (rank 0's reference)
+READINGS_COLLECTIVE_TIMEOUT = 900
 
 
 def eval_readings(torch, driver, cell, seed, control, device):
@@ -128,7 +137,58 @@ def train_readings(torch, module, cell, seed, control, device, look=False):
     return out
 
 
+def rank_readings(job, team, device):
+    """A rank's part of a training cell's readings on several cards: rank
+    0's rows, each also appended to ``job["out"]`` as it comes."""
+    import torch
+
+    cell = core.load_cell(job["workload"], BENCH)
+    module = core.load_module(BENCH / "drivers" / f"{cell.traffic['driver']}.py", "driver")
+    on_card = torch.device(device).type == "cuda"
+    rows = []
+    for seed in job["seeds"]:
+        start = time.perf_counter()
+        control = seed in job["control_seeds"]
+        pool_seed, weight_seed, _ = core.seeds(seed, 3)
+        runs = {}
+        for name in (None,) + (RANK_FAULTS if control else ()):
+            driver = module.Driver(cell, device, pool_seed, weight_seed)
+            if name is not None:
+                faults.FAULTS[name](driver)
+            driver.warm()
+            driver.close_window()
+            driver.release()
+            if on_card:
+                torch.cuda.empty_cache()
+            runs[name] = driver
+        team.barrier()
+        if team.lead:
+            sound = runs[None]
+            reference = sound.reference()
+            mine = (sound.first, sound.grads, sound.change)
+            grad, moved, losses = sound.leaf_gaps(*mine, *reference)
+            row = {"program": {**sound.compare(*mine, *reference), "ranks_gap": sound.ranks_gap},
+                   "look": {"grad": leaf_look(grad, module.group_of, losses),
+                            "change": leaf_look(moved, module.group_of)}}
+            if control:
+                row["control"] = sound.compare(*sound.reference(tf32=True), *reference)
+                for name in RANK_FAULTS:
+                    f = runs[name]
+                    row[name] = {**f.compare(f.first, f.grads, f.change, *reference),
+                                 "ranks_gap": f.ranks_gap}
+            row.update(workload=job["workload"], seed=seed, seconds=time.perf_counter() - start)
+            if job["out"]:
+                with open(job["out"], "a") as sink:
+                    sink.write(json.dumps(row) + "\n")
+            rows.append(row)
+        team.barrier()  # the other ranks wait for rank 0's reference
+    return rows
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank"]:
+        return ranks.rank_main(int(argv[1]), Path(argv[2]), rank_readings)
     p = argparse.ArgumentParser()
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
@@ -137,11 +197,25 @@ def main(argv=None):
                    help="training: also the reference against itself with its inputs "
                         "moved by one unit in the last place")
     p.add_argument("--out", default=None)
+    p.add_argument("--timeout", type=float, default=3000.0,
+                   help="a cell on several cards: seconds within which every rank has to end")
     args = p.parse_args(argv)
     import torch
 
     device = "cuda" if torch.cuda.is_available() else "cpu"
     cell = core.load_cell(args.workload, BENCH)
+    if cell.chips > 1:
+        ranks.build_kernels(device)
+        job = {"workload": args.workload, "device": device,
+               "seeds": list(dict.fromkeys(args.seeds + args.control_seeds)),
+               "control_seeds": args.control_seeds,
+               "out": str(Path(args.out).resolve()) if args.out else None,
+               "backend": "nccl" if device == "cuda" else "gloo", "world": cell.chips,
+               "timeout": READINGS_COLLECTIVE_TIMEOUT}
+        rows, code = ranks.run_ranks(job, BENCH / "readings.py", args.timeout)
+        for row in rows or []:
+            print(json.dumps(row), flush=True)
+        return code or 0
     module = core.load_module(BENCH / "drivers" / f"{cell.traffic['driver']}.py", "driver")
     sink = open(args.out, "a") if args.out else None
     driver = None
@@ -167,4 +241,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -13,6 +13,10 @@ compared number lies within its limit.  The last line of standard output is
 the result as one JSON object; the compared numbers and their limits are the
 last lines of standard error.  Exits 2 without a result where CUDA or the
 cell's cards are missing, 3 where JAX or the JAX package was loaded.
+
+A cell on several cards runs as one process a card (``harness/ranks.py``):
+this process builds the kernel library, starts the ranks as ``run.py --rank
+<r> <work>`` and prints rank 0's result once every rank has ended well.
 """
 
 import time
@@ -34,7 +38,7 @@ for _var, _sub in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "tor
                    ("CUDA_CACHE_PATH", "cuda")):
     os.environ[_var] = str(ROOT / ".bench_cache" / _sub)
 
-from harness import core  # noqa: E402
+from harness import core, ranks  # noqa: E402
 
 
 def parse(argv=None):
@@ -46,16 +50,19 @@ def parse(argv=None):
     return p.parse_args(argv)
 
 
-def run_cell(args, bench: Path = BENCH, device: str = "cuda", start: float = START,
-             fault=None):
+def run_cell(args, bench: Path = BENCH, device="cuda", start: float = START, fault=None,
+             team=None):
     """Set up, measure and check one cell: (result without "checks", checks
     table).  ``fault(driver)``, for tests, breaks the program before its first
-    call."""
+    call.  ``team``: this rank among a cell's ranks (``harness/ranks.py``),
+    which all make the same calls; rank 0 alone times, traces and checks, and
+    the others return (None, None)."""
     import torch
 
     from harness import trace as tracing
 
-    on_card = device == "cuda"
+    team = ranks.Solo() if team is None else team
+    on_card = torch.device(device).type == "cuda"
     cell = core.load_cell(args.workload, bench)
     pool_seed, weight_seed, sample_seed = core.seeds(args.seed, 3)
     module = core.load_module(bench / "drivers" / f"{cell.traffic['driver']}.py",
@@ -65,27 +72,41 @@ def run_cell(args, bench: Path = BENCH, device: str = "cuda", start: float = STA
         fault(driver)
     driver.warm()
     spans = None
-    if args.trace:
+    if args.trace and team.lead:
         spans = core.Spans(torch, on_card)
         for name, attr in driver.spans.items():
             spans.wrap(driver.model, attr, name)
     if on_card:
         torch.cuda.synchronize()
+    team.barrier()
     core.guard("after set-up")
     setup_s = time.perf_counter() - start
 
     sample = core.Sample(cell.traffic["check_calls"], sample_seed)
-    window, latencies, infos, failed = core.measure(torch, driver, args.seconds, sample, spans)
+    window, latencies, infos, failed = core.measure(torch, driver, args.seconds, sample, spans,
+                                                    team.agree)
     core.guard("after the window")
     readings = core.Readings(cell, setup_s, window, latencies, infos,
                              spans.ms if spans is not None else {})
     if args.trace and on_card:
-        readings.trace = tracing.record(torch, lambda j: driver.call(len(infos) + j),
-                                        cell.traffic["trace_calls"])
+        call = lambda j: driver.call(len(infos) + j)  # noqa: E731
+        if team.lead:
+            readings.trace, readings.counters = record(torch, tracing, driver, call,
+                                                       cell.traffic["trace_calls"])
+        else:
+            for j in range(cell.traffic["trace_calls"]):
+                call(j)
+    peak = team.largest(torch.cuda.max_memory_allocated() if on_card else 0)
+    if hasattr(driver, "close_window"):
+        driver.close_window()
+    if not team.lead:
+        driver.release()
+        team.barrier()
+        team.close()
+        return None, None
     device_info = {"platform": "gpu" if on_card else "cpu",
                    "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
-                   "count": cell.chips,
-                   "memory_peak_bytes": torch.cuda.max_memory_allocated() if on_card else 0}
+                   "count": cell.chips, "memory_peak_bytes": peak}
     metrics = core.read_metrics(cell.per_layer if args.trace else cell.end_to_end, readings)
     result = {"attempted": len(infos), "failed": failed, "metrics": metrics,
               "device": device_info}
@@ -98,12 +119,38 @@ def run_cell(args, bench: Path = BENCH, device: str = "cuda", start: float = STA
     driver.release()
     if on_card:
         torch.cuda.empty_cache()
+    team.barrier()  # every rank has freed its state
+    team.close()
     correct, table = core.judge(driver.check(sample))
     core.guard("before the result")
     return {"correct": correct, **result}, table
 
 
+def record(torch, tracing, driver, call, calls: int):
+    """(trace, program counters) of ``calls`` traced calls; the counters of a
+    driver that reads some (``reset_counters``, ``counters``) are reset just
+    before the calls and read just after."""
+    counted = hasattr(driver, "counters")
+    if counted:
+        driver.reset_counters()
+    trace = tracing.record(torch, call, calls)
+    return trace, driver.counters() if counted else {}
+
+
+def run_rank(job, team, device):
+    """A rank's part of a run (``harness/ranks.py``): rank 0's result."""
+    from harness import faults
+
+    fault = faults.FAULTS[job["fault"]] if job["fault"] else None
+    result, table = run_cell(argparse.Namespace(**job["args"]), device=device, start=job["start"],
+                             fault=fault, team=team)
+    return {"result": result, "table": table}
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank"]:
+        return ranks.rank_main(int(argv[1]), Path(argv[2]), run_rank)
     args = parse(argv)
     cell = core.load_cell(args.workload, BENCH)
     import torch
@@ -113,7 +160,14 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
     try:
-        result, table = run_cell(args)
+        if cell.chips > 1:
+            out, code = ranks.launch(args, cell, BENCH, START)
+            if out is None:
+                return code
+            result, table = out["result"], out["table"]
+            core.guard("before the result")
+        else:
+            result, table = run_cell(args)
     except core.ForbiddenImport as exc:
         print(f"forbidden import: {exc}", file=sys.stderr)
         return 3
